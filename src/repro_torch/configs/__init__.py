@@ -1,0 +1,28 @@
+"""Architecture registry: ``--arch <id>`` → ModelConfig.
+
+The port registers the architectures whose block kinds it runs; the
+others join as their blocks are ported (ROADMAP Queue 1).
+"""
+
+from __future__ import annotations
+
+from repro_torch.configs import h2o_danube_1_8b
+from repro_torch.configs.base import ModelConfig  # noqa: F401
+
+_MODULES = [h2o_danube_1_8b]
+
+REGISTRY: dict[str, object] = {m.ARCH_ID: m for m in _MODULES}
+
+
+def get_config(arch_id: str) -> ModelConfig:
+    try:
+        return REGISTRY[arch_id].config()
+    except KeyError:
+        raise KeyError(f"unknown arch {arch_id!r}; available: {sorted(REGISTRY)}")
+
+
+def get_smoke_config(arch_id: str) -> ModelConfig:
+    try:
+        return REGISTRY[arch_id].smoke_config()
+    except KeyError:
+        raise KeyError(f"unknown arch {arch_id!r}; available: {sorted(REGISTRY)}")

@@ -1,0 +1,102 @@
+"""Public wrappers for the hand-written kernels.
+
+Each wrapper checks its inputs, then dispatches on the tensors' device: a
+CPU tensor goes to the plain version in :mod:`repro_torch.kernels.ref`; a
+CUDA tensor goes to the CUDA kernel, and a failed build or launch raises.
+``LAUNCHES`` counts kernel launches only, so a run can show that its main
+path went through the kernels.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+import math
+from typing import Optional
+
+import torch
+
+from repro_torch.kernels import build, ref
+
+Tensor = torch.Tensor
+
+#: kernel name → number of CUDA launches by its wrapper in this process
+LAUNCHES: dict[str, int] = {"flash_attention": 0}
+
+_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+
+
+@functools.cache
+def _flash_lib() -> ctypes.CDLL:
+    lib = build.load("flash_attention")
+    vp, ci = ctypes.c_void_p, ctypes.c_int
+    lib.flash_attention_fwd.argtypes = [vp, vp, vp, vp, ci, ci, ci, ci, ci, ci, ci, ci,
+                                        ctypes.c_float, ci, vp]
+    lib.flash_attention_fwd.restype = ci
+    return lib
+
+
+def _check_attention(q: Tensor, k: Tensor, v: Tensor, window: Optional[int]) -> None:
+    if q.dim() != 4 or k.dim() != 4 or v.dim() != 4:
+        raise ValueError(f"flash_attention takes [B,S,H,D] tensors, got {q.shape}, "
+                         f"{k.shape}, {v.shape}")
+    b, _, h, d = q.shape
+    if k.shape != v.shape or k.shape[0] != b or k.shape[3] != d:
+        raise ValueError(f"k/v must be [B,Skv,KV,D] matching q {tuple(q.shape)}, "
+                         f"got {tuple(k.shape)} and {tuple(v.shape)}")
+    if min(q.shape) == 0 or min(k.shape) == 0:
+        raise ValueError("flash_attention takes no empty tensors")
+    if h % k.shape[2]:
+        raise ValueError(f"query heads {h} are not a multiple of KV heads {k.shape[2]}")
+    if d % 8 or d > 128:
+        raise ValueError(f"head_dim {d} must be a multiple of 8 and at most 128")
+    if q.dtype not in _DTYPE_CODE or k.dtype != q.dtype or v.dtype != q.dtype:
+        raise TypeError(f"q/k/v must all be float32 or bfloat16, got {q.dtype}, "
+                        f"{k.dtype}, {v.dtype}")
+    if not (q.device == k.device == v.device):
+        raise ValueError(f"q/k/v lie on different devices: {q.device}, {k.device}, {v.device}")
+    if not (q.is_contiguous() and k.is_contiguous() and v.is_contiguous()):
+        raise ValueError("q/k/v must be contiguous")
+    if window is not None and window < 1:
+        raise ValueError(f"window must be None or >= 1, got {window}")
+
+
+def flash_attention_plain(q: Tensor, k: Tensor, v: Tensor, *, causal: bool = True,
+                          window: Optional[int] = None) -> Tensor:
+    """The kernel's plain version in the [B,S,H,D] layout (any device)."""
+    b, sq, h, d = q.shape
+    _, skv, kv, _ = k.shape
+    qr = q.transpose(1, 2).reshape(b * h, sq, d)
+    kr = k.transpose(1, 2).reshape(b * kv, skv, d)
+    vr = v.transpose(1, 2).reshape(b * kv, skv, d)
+    out = ref.reference_attention(qr, kr, vr, causal=causal, window=window)
+    return out.reshape(b, h, sq, d).transpose(1, 2)
+
+
+def flash_attention(q: Tensor, k: Tensor, v: Tensor, *, causal: bool = True,
+                    window: Optional[int] = None) -> Tensor:
+    """Attention in the [B,S,H,D] layout (matches ``repro_torch.models.attention``).
+
+    k/v may have fewer (KV) heads; the kernel reads KV head ``h // (H/KV)``
+    and never materializes the repeat. Causal masking is top-left (k ≤ q on
+    indices from 0); ``window`` keeps keys with q − k < window.
+    """
+    _check_attention(q, k, v, window)
+    if q.device.type == "cpu":
+        return flash_attention_plain(q, k, v, causal=causal, window=window)
+    if q.device.type != "cuda":
+        raise ValueError(f"flash_attention runs on cpu or cuda tensors, not {q.device}")
+    lib = _flash_lib()
+    b, sq, h, d = q.shape
+    _, skv, kv, _ = k.shape
+    out = torch.empty_like(q)
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = lib.flash_attention_fwd(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+            b, sq, skv, h, kv, d, int(causal), window or 0, 1.0 / math.sqrt(d),
+            _DTYPE_CODE[q.dtype], stream)
+    if err != 0:
+        raise RuntimeError(f"flash_attention kernel launch failed: cudaError_t {err}")
+    LAUNCHES["flash_attention"] += 1
+    return out

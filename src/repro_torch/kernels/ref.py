@@ -1,0 +1,43 @@
+"""Plain PyTorch versions of the hand-written kernels.
+
+The twin of ``repro.kernels.ref``: what each kernel computes, written
+with no regard for speed. The CPU tests run these through the kernel
+wrappers, and ``chip_smoke.py`` holds each CUDA kernel against them on
+the card.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Optional
+
+import torch
+
+Tensor = torch.Tensor
+
+
+def reference_attention(q: Tensor, k: Tensor, v: Tensor, *, causal: bool = True,
+                        window: Optional[int] = None,
+                        scale: Optional[float] = None) -> Tensor:
+    """q: [BH, Sq, D]; k/v: [BKV, Skv, D]; GQA broadcast by repetition.
+
+    Masked scores are -1e30, so a row with no live key averages every key
+    (a uniform softmax), as the JAX oracle does.
+    """
+    bh, sq, d = q.shape
+    bkv, skv, _ = k.shape
+    n_rep = bh // bkv
+    k = torch.repeat_interleave(k, n_rep, dim=0)
+    v = torch.repeat_interleave(v, n_rep, dim=0)
+    scale = scale if scale is not None else 1.0 / math.sqrt(d)
+    s = torch.einsum("bqd,bkd->bqk", q.float(), k.float()) * scale
+    qp = torch.arange(sq, device=q.device)[:, None]
+    kp = torch.arange(skv, device=q.device)[None, :]
+    mask = torch.ones((sq, skv), dtype=torch.bool, device=q.device)
+    if causal:
+        mask &= kp <= qp
+    if window is not None:
+        mask &= (qp - kp) < window
+    s = torch.where(mask[None], s, -1e30)
+    p = torch.softmax(s, dim=-1)
+    return torch.einsum("bqk,bkd->bqd", p, v.float()).to(q.dtype)

@@ -1,0 +1,135 @@
+"""Shared neural-net layers: plain functions on tensors, params as dicts.
+
+Numerically the twin of ``repro.models.layers``: fp32 norm statistics,
+interleaved RoPE lanes, weights cast to the activation dtype on every call.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Optional
+
+import torch
+import torch.nn.functional as F
+
+Tensor = torch.Tensor
+
+
+# ---------------------------------------------------------------------------
+# init helpers (explicit generators; same distributions as the JAX package)
+# ---------------------------------------------------------------------------
+
+def dense_init(gen: torch.Generator, shape: tuple[int, ...], scale: float = 1.0,
+               dtype=torch.float32, lead: tuple[int, ...] = ()) -> Tensor:
+    """Truncated-normal (±2σ) fan-in init (LeCun-style) of ``lead + shape``.
+
+    ``lead`` stacks independent draws along leading axes (a segment's
+    layer axis); the fan-in comes from ``shape`` alone.
+    """
+    fan_in = shape[0] if len(shape) >= 2 else shape[-1]
+    std = scale / math.sqrt(fan_in)
+    x = torch.empty(lead + tuple(shape), dtype=torch.float32, device=gen.device)
+    torch.nn.init.trunc_normal_(x, 0.0, 1.0, -2.0, 2.0, generator=gen)
+    return (x * std).to(dtype)
+
+
+def embed_init(gen: torch.Generator, shape: tuple[int, int], dtype=torch.float32) -> Tensor:
+    x = torch.randn(shape, generator=gen, device=gen.device, dtype=torch.float32)
+    return (x * 0.02).to(dtype)
+
+
+# ---------------------------------------------------------------------------
+# norms
+# ---------------------------------------------------------------------------
+
+def rmsnorm(x: Tensor, weight: Tensor, eps: float = 1e-6) -> Tensor:
+    """RMSNorm, fp32 statistics regardless of activation dtype."""
+    xf = x.float()
+    var = torch.mean(xf * xf, dim=-1, keepdim=True)
+    y = xf * torch.rsqrt(var + eps)
+    return (y * (1.0 + weight.float())).to(x.dtype)
+
+
+def layernorm(x: Tensor, weight: Tensor, bias: Tensor, eps: float = 1e-5) -> Tensor:
+    xf = x.float()
+    mu = torch.mean(xf, dim=-1, keepdim=True)
+    var = torch.mean(torch.square(xf - mu), dim=-1, keepdim=True)
+    y = (xf - mu) * torch.rsqrt(var + eps)
+    return (y * weight.float() + bias.float()).to(x.dtype)
+
+
+def init_norm(cfg_norm: str, d: int, lead: tuple[int, ...] = (), device=None) -> dict:
+    if cfg_norm == "rmsnorm":  # stored as (1 + w)
+        return {"w": torch.zeros(lead + (d,), dtype=torch.float32, device=device)}
+    return {"w": torch.ones(lead + (d,), dtype=torch.float32, device=device),
+            "b": torch.zeros(lead + (d,), dtype=torch.float32, device=device)}
+
+
+def apply_norm(cfg_norm: str, p: dict, x: Tensor) -> Tensor:
+    if cfg_norm == "rmsnorm":
+        return rmsnorm(x, p["w"])
+    return layernorm(x, p["w"], p["b"])
+
+
+# ---------------------------------------------------------------------------
+# rotary position embeddings
+# ---------------------------------------------------------------------------
+
+def rope_frequencies(head_dim: int, theta: float = 10000.0,
+                     rotary_dim: Optional[int] = None, device=None) -> Tensor:
+    """Inverse frequencies for RoPE over the first ``rotary_dim`` dims."""
+    rd = rotary_dim or head_dim
+    exps = torch.arange(0, rd, 2, dtype=torch.float32, device=device) / rd
+    return 1.0 / (theta ** exps)
+
+
+def apply_rope(x: Tensor, positions: Tensor, theta: float = 10000.0,
+               rotary_dim: Optional[int] = None) -> Tensor:
+    """Rotate ``x`` [..., S, H, D] by position. ``positions``: [..., S].
+
+    Pairs are the interleaved lanes (0::2, 1::2), re-interleaved after the
+    rotation. Partial rotary (GLM-style): only the first ``rotary_dim``
+    dims rotate, the remainder passes through.
+    """
+    d = x.shape[-1]
+    rd = rotary_dim or d
+    inv = rope_frequencies(d, theta, rd, device=x.device)  # [rd/2]
+    ang = positions[..., :, None].float() * inv  # [..., S, rd/2]
+    cos = torch.cos(ang)[..., None, :]  # [..., S, 1, rd/2]
+    sin = torch.sin(ang)[..., None, :]
+    xr = x[..., :rd].float()
+    x1, x2 = xr[..., 0::2], xr[..., 1::2]
+    rot = torch.stack([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
+    rot = rot.reshape(*x.shape[:-1], rd).to(x.dtype)
+    if rd == d:
+        return rot
+    return torch.cat([rot, x[..., rd:]], dim=-1)
+
+
+# ---------------------------------------------------------------------------
+# MLPs
+# ---------------------------------------------------------------------------
+
+def init_mlp(gen: torch.Generator, d: int, d_ff: int, style: str, dtype=torch.float32,
+             lead: tuple[int, ...] = ()) -> dict:
+    if style in ("swiglu", "geglu"):
+        return {
+            "wi": dense_init(gen, (d, d_ff), dtype=dtype, lead=lead),
+            "wg": dense_init(gen, (d, d_ff), dtype=dtype, lead=lead),
+            "wo": dense_init(gen, (d_ff, d), dtype=dtype, lead=lead),
+        }
+    return {  # plain 2-matrix MLP (whisper: GELU)
+        "wi": dense_init(gen, (d, d_ff), dtype=dtype, lead=lead),
+        "wo": dense_init(gen, (d_ff, d), dtype=dtype, lead=lead),
+    }
+
+
+def apply_mlp(p: dict, x: Tensor, style: str) -> Tensor:
+    dt = x.dtype
+    if style == "swiglu":
+        h = F.silu(x @ p["wg"].to(dt)) * (x @ p["wi"].to(dt))
+    elif style == "geglu":
+        h = F.gelu(x @ p["wg"].to(dt), approximate="tanh") * (x @ p["wi"].to(dt))
+    else:
+        h = F.gelu(x @ p["wi"].to(dt), approximate="tanh")
+    return h @ p["wo"].to(dt)

@@ -1,0 +1,188 @@
+"""Model assembly for the dense decoder: block pattern → init / forward / decode.
+
+The twin of ``repro.models.transformer`` for ``"dense"`` blocks. Layers are
+grouped into segments of consecutive identical block kinds, and each
+segment's params are stacked along a leading layer axis, as in the JAX
+pytree; a Python loop over that axis takes the place of ``lax.scan``.
+Other block kinds and model kinds raise ``NotImplementedError`` naming the
+ROADMAP item that ports them.
+"""
+
+from __future__ import annotations
+
+from typing import Any
+
+import torch
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.models import attention as attn
+from repro_torch.models.layers import (apply_mlp, apply_norm, dense_init,
+                                       embed_init, init_mlp, init_norm)
+
+Tensor = torch.Tensor
+Params = Any  # nested dict/list of tensors, shaped like the JAX pytree
+
+_NOT_PORTED = ("block kind {!r} is not ported yet (ROADMAP Queue 1 item 11: "
+               "the remaining block kinds)")
+
+
+def _check_supported(cfg: ModelConfig) -> None:
+    if cfg.kind != "decoder":
+        raise NotImplementedError(
+            f"model kind {cfg.kind!r} is not ported yet (ROADMAP Queue 1 item 11)")
+    if cfg.shared_attn_every:
+        raise NotImplementedError("the zamba2 shared attention block is not ported yet "
+                                  "(ROADMAP Queue 1 item 11)")
+    for kind in cfg.block_pattern:
+        if kind != "dense":
+            raise NotImplementedError(_NOT_PORTED.format(kind))
+
+
+# ---------------------------------------------------------------------------
+# segments
+# ---------------------------------------------------------------------------
+
+def segments_of(cfg: ModelConfig) -> list[tuple[str, int]]:
+    """Group the block pattern into (kind, count) runs, splitting at shared-
+    attention interposition points (zamba2)."""
+    segs: list[tuple[str, int]] = []
+    for i, kind in enumerate(cfg.block_pattern):
+        boundary = (cfg.shared_attn_every
+                    and i % cfg.shared_attn_every == 0 and i > 0)
+        if segs and segs[-1][0] == kind and not boundary:
+            segs[-1] = (kind, segs[-1][1] + 1)
+        else:
+            segs.append((kind, 1))
+    return segs
+
+
+# ---------------------------------------------------------------------------
+# init
+# ---------------------------------------------------------------------------
+
+def _init_block(gen: torch.Generator, kind: str, cfg: ModelConfig, count: int) -> dict:
+    """``count`` stacked blocks of ``kind`` (leading layer axis on every leaf)."""
+    if kind != "dense":
+        raise NotImplementedError(_NOT_PORTED.format(kind))
+    d, pd, lead, dev = cfg.d_model, cfg.pdtype, (count,), gen.device
+    return {
+        "ln1": init_norm(cfg.norm, d, lead, dev),
+        "attn": attn.init_attention(gen, d, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim,
+                                    cfg.qkv_bias, pd, lead),
+        "ln2": init_norm(cfg.norm, d, lead, dev),
+        "mlp": init_mlp(gen, d, cfg.d_ff, cfg.mlp_style, pd, lead),
+    }
+
+
+def init_params(gen: torch.Generator, cfg: ModelConfig) -> Params:
+    """Random params on ``gen``'s device, with the JAX init's distributions."""
+    _check_supported(cfg)
+    d = cfg.d_model
+    params: dict = {"embed": embed_init(gen, (cfg.vocab_size, d), cfg.pdtype)}
+    params["segments"] = [_init_block(gen, kind, cfg, count)
+                          for kind, count in segments_of(cfg)]
+    params["final_norm"] = init_norm(cfg.norm, d, device=gen.device)
+    if not cfg.tie_embeddings:
+        params["lm_head"] = dense_init(gen, (d, cfg.vocab_size), dtype=cfg.pdtype)
+    return params
+
+
+# ---------------------------------------------------------------------------
+# forward (full sequence)
+# ---------------------------------------------------------------------------
+
+def _layer(seg_params: dict, i: int) -> dict:
+    """Layer ``i`` of a stacked segment (views, no copies)."""
+    return {k: _layer(v, i) if isinstance(v, dict) else v[i] for k, v in seg_params.items()}
+
+
+def _block_forward(kind: str, p: dict, x: Tensor, positions: Tensor,
+                   cfg: ModelConfig, mask_kind: str, prefix_len: int) -> Tensor:
+    if kind != "dense":
+        raise NotImplementedError(_NOT_PORTED.format(kind))
+    h = apply_norm(cfg.norm, p["ln1"], x)
+    x = x + attn.attention_forward(p["attn"], h, positions, cfg, mask_kind,
+                                   prefix_len, use_pallas=cfg.use_pallas)
+    h = apply_norm(cfg.norm, p["ln2"], x)
+    return x + apply_mlp(p["mlp"], h, cfg.mlp_style)
+
+
+def forward_logits(params: Params, batch: dict, cfg: ModelConfig) -> tuple[Tensor, Tensor]:
+    """Full-sequence forward → (logits [B,S,V], aux_loss).
+
+    ``batch``: {"tokens": [B,S]}. Positions are 0..S−1. The aux loss is the
+    MoE balance term, 0 for dense blocks.
+    """
+    _check_supported(cfg)
+    cdt = cfg.cdtype
+    tokens = batch["tokens"]
+    b, s = tokens.shape
+    x = params["embed"][tokens].to(cdt)
+    if cfg.scale_embeddings:
+        x = x * torch.tensor(cfg.d_model ** 0.5, dtype=cdt)
+    positions = torch.arange(s, dtype=torch.int32, device=tokens.device)[None].expand(b, s)
+    for seg_params, (kind, count) in zip(params["segments"], segments_of(cfg)):
+        for i in range(count):
+            x = _block_forward(kind, _layer(seg_params, i), x, positions, cfg, "causal", 0)
+    x = apply_norm(cfg.norm, params["final_norm"], x)
+    return _unembed(params, x, cfg), torch.zeros((), dtype=torch.float32, device=x.device)
+
+
+def _unembed(params: Params, x: Tensor, cfg: ModelConfig) -> Tensor:
+    if cfg.tie_embeddings:
+        return torch.einsum("bsd,vd->bsv", x, params["embed"].to(x.dtype))
+    return x @ params["lm_head"].to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# decode (serve step)
+# ---------------------------------------------------------------------------
+
+def cache_layout(cfg: ModelConfig) -> list[str]:
+    """Static tag sequence for the decode cache list: one entry per layer."""
+    _check_supported(cfg)
+    return list(cfg.block_pattern)
+
+
+def init_caches(cfg: ModelConfig, batch: int, max_len: int, device=None) -> list:
+    """One KV cache per ``cache_layout`` entry; SWA archs keep ``window`` slots."""
+    if cfg.kv_cache_dtype == "int8":
+        raise NotImplementedError(
+            "the int8 (KIVI) KV cache is not ported yet (ROADMAP Queue 1 item 12)")
+    kv_len = min(max_len, cfg.sliding_window) if cfg.sliding_window else max_len
+    return [attn.init_kv_cache(batch, kv_len, cfg.n_kv_heads, cfg.head_dim,
+                               cfg.cdtype, device)
+            for _ in cache_layout(cfg)]
+
+
+def _flatten_layer_params(params: Params, cfg: ModelConfig) -> list[tuple[str, dict]]:
+    return [(kind, _layer(seg_params, i))
+            for seg_params, (kind, count) in zip(params["segments"], segments_of(cfg))
+            for i in range(count)]
+
+
+def _decode_block(kind: str, p: dict, x: Tensor, cache: dict, position: int,
+                  cfg: ModelConfig) -> tuple[Tensor, dict]:
+    if kind != "dense":
+        raise NotImplementedError(_NOT_PORTED.format(kind))
+    h = apply_norm(cfg.norm, p["ln1"], x)
+    a, cache = attn.decode_attention(p["attn"], h, cache, position, cfg)
+    x = x + a
+    h = apply_norm(cfg.norm, p["ln2"], x)
+    return x + apply_mlp(p["mlp"], h, cfg.mlp_style), cache
+
+
+def decode_step(params: Params, caches: list, tokens: Tensor, position: int,
+                cfg: ModelConfig) -> tuple[Tensor, list]:
+    """One decode step: tokens [B,1] at absolute ``position``. The caches
+    are updated in place and returned."""
+    cdt = cfg.cdtype
+    x = params["embed"][tokens].to(cdt)
+    if cfg.scale_embeddings:
+        x = x * torch.tensor(cfg.d_model ** 0.5, dtype=cdt)
+    new_caches: list = []
+    for (kind, p), cache in zip(_flatten_layer_params(params, cfg), caches):
+        x, cache = _decode_block(kind, p, x, cache, position, cfg)
+        new_caches.append(cache)
+    x = apply_norm(cfg.norm, params["final_norm"], x)
+    return _unembed(params, x, cfg), new_caches

@@ -1,0 +1,77 @@
+"""The port stands alone: no module of ``repro_torch`` and nothing that
+``chip_smoke.py`` imports brings in JAX or the JAX package, and entry
+points never fall back to the CPU quietly when CUDA is absent."""
+
+import ast
+import json
+import os
+import pathlib
+import subprocess
+import sys
+
+import pytest
+
+torch = pytest.importorskip("torch")
+
+ROOT = pathlib.Path(__file__).resolve().parents[1]
+PORT = ROOT / "src" / "repro_torch"
+PORT_FILES = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+
+
+def _modules() -> list[str]:
+    mods = []
+    for path in sorted(PORT.rglob("*.py")):
+        parts = path.relative_to(PORT.parent).with_suffix("").parts
+        mods.append(".".join(parts[:-1] if parts[-1] == "__init__" else parts))
+    return mods
+
+
+def test_importing_every_port_module_loads_no_jax_and_no_repro():
+    code = (
+        "import importlib, json, sys\n"
+        f"for m in {_modules()!r}: importlib.import_module(m)\n"
+        "bad = sorted(n for n in sys.modules if n in ('jax', 'jaxlib', 'ml_dtypes', 'repro')\n"
+        "             or n.startswith(('jax.', 'jaxlib.', 'repro.')))\n"
+        "print(json.dumps(bad))\n")
+    env = {**os.environ, "PYTHONPATH": str(ROOT / "src")}
+    out = subprocess.run([sys.executable, "-c", code], env=env, cwd=ROOT, check=True,
+                         capture_output=True, text=True, timeout=120)
+    assert json.loads(out.stdout.strip().splitlines()[-1]) == []
+
+
+@pytest.mark.parametrize("path", PORT_FILES, ids=lambda p: str(p.relative_to(ROOT)))
+def test_port_sources_import_no_jax_nor_repro(path):
+    for node in ast.walk(ast.parse(path.read_text())):
+        if isinstance(node, ast.Import):
+            names = [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom):
+            names = [node.module or ""]
+        else:
+            continue
+        for name in names:
+            top = name.split(".")[0]
+            assert top not in ("jax", "jaxlib", "ml_dtypes", "repro"), (path, name)
+
+
+@pytest.mark.parametrize("path", PORT_FILES, ids=lambda p: str(p.relative_to(ROOT)))
+def test_port_calls_no_library_attention_nor_compile(path):
+    text = path.read_text()
+    assert "torch.compile" not in text
+    uses = text.count("scaled_dot_product_attention")
+    if path.name == "chip_smoke.py":  # the yardstick timing only
+        assert uses == 1
+    else:
+        assert uses == 0
+
+
+def test_default_device_raises_without_cuda(monkeypatch):
+    from repro_torch.device import resolve_device
+    from repro_torch.launch import serve
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        resolve_device()
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        resolve_device("cuda:0")
+    assert resolve_device("cpu") == torch.device("cpu")
+    with pytest.raises(RuntimeError, match="--device cpu"):
+        serve.main(["--arch", "h2o-danube-1.8b", "--smoke", "--gen", "2"])
