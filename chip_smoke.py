@@ -20,15 +20,36 @@ JAX or of the JAX package. No phase's failure is caught.
      (≤ 5e-2); each kernel prefill launches the kernel once per layer.
   4. The serving launcher at full width: 4 requests, 64-token prompts,
      32 generated tokens each (``launch.serve.main``, default device).
+  5. Data-parallel training at full width: bert-large (24 layers, d_model
+     1024, 333,344,768 parameters, random init from seed 0) on 4 virtual
+     ranks, global batch 8 × 128 tokens, 6 steps, through
+     ``launch.train.main``, three times: ``--comm xla`` and ``--comm
+     lumorph4`` with an fp32 wire (final losses within 1e-4 relative, the
+     limit of tests/test_train_integration.py), then ``--comm lumorph2
+     --compress`` (int8 payloads and error feedback through the int8
+     kernels; final loss within 5 % of the lumorph4 run).
+  6. One profiled training step per comm at the same size (after a warm
+     step): host and device time of the step's stages
+     (``train/forward_backward``, ``train/grad_comm``, ``train/adamw``), the
+     card's busy time and idle share, and the kernels that take the most.
 
-The launch counters are set to 0 just before phase 3 and read just after
-phase 4. The last lines are the ``{"kernels": [...]}`` record, the prefill
-record, and ``{"ok": true, "device": {...}}``.
+Phase 2 also holds the int8 quantize/dequantize kernels against their plain
+versions, equal in every bit (``torch.equal``), on the sizes of
+tests/test_kernels.py, an all-zero block, exact .5 ties, a 25 MB gradient
+bucket and the 31,254,528-element embedding leaf, and times both at the
+bucket and the leaf sizes: each call from a cold L2 cache (``ms``), and
+back-to-back calls, host gaps and a warm L2 included (``ms_back_to_back``).
+
+Each main path is driven with the launch counters set to 0 just before it
+and read just after: serving (phases 3 and 4) and training (phase 5). The
+last lines are the ``{"kernels": [...]}`` record, the run record, and
+``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
 
 import json
+import math
 import pathlib
 import re
 import subprocess
@@ -56,6 +77,22 @@ PREFILL_TOL = {"float32": 1e-3, "bfloat16": 5e-2}
 # bf16 on the tensor cores; HBM3 bandwidth
 PEAK_FLOPS = {torch.float32: 67e12, torch.bfloat16: 989e12}
 HBM_BYTES_S = 3.35e12
+# int8 pair: tests/test_kernels.py's sizes (normal × 5), then a 25 MB gradient
+# bucket (6,553,600 fp32) and bert-large's embedding leaf (30522 × 1024)
+QUANT_SIZES = [256, 1000, 65536, 12345]
+BUCKET_N, LEAF_N = 25 * 1024 * 1024 // 4, 30522 * 1024
+TRAIN = ["--arch", "bert-large", "--data-parallel", "4", "--batch", "8", "--seq", "128",
+         "--steps", "6", "--log-every", "1"]
+# device work by kind, for phase 6: the first kind whose words a kernel's name holds
+KERNEL_KINDS = [("gemm", ("gemm", "xmma", "cutlass", "cublas", "sm90_", "nvjet")),
+                ("int8", ("quantize_kernel",)),
+                ("index", ("index", "scatter", "gather")),
+                ("reduce", ("reduce",)),
+                ("copy", ("Memcpy", "Memset", "copy")),
+                ("elementwise", ("elementwise",))]
+TRAIN_RUNS = [("xla", ["--comm", "xla", "--wire-dtype", "float32"]),
+              ("lumorph4", ["--comm", "lumorph4", "--wire-dtype", "float32"]),
+              ("lumorph2+int8", ["--comm", "lumorph2", "--compress"])]
 
 
 def cuda_ms(fn, reps: int) -> float:
@@ -68,6 +105,32 @@ def cuda_ms(fn, reps: int) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def cold_ms(fn, reps: int) -> float:
+    """Mean device time of one ``fn()`` from a cold L2 cache, after one warm-up.
+
+    Before each call a 256 MB read evicts the 50 MB L2, and a ~1 ms spin on
+    the card (``torch.cuda._sleep``) holds the stream while the host queues
+    the events and every kernel of the call, so the events time its device
+    work alone, reading from device memory as the bound assumes. The flush
+    reads rather than writes: a write would leave L2 full of dirty lines that
+    the timed call would have to write back. (Back-to-back calls on a
+    bucket-sized input would read it from L2.)"""
+    flush = torch.ones(64 * 1024 * 1024, dtype=torch.float32, device="cuda")
+    fn()
+    pairs = []
+    for _ in range(reps):
+        flush.sum()
+        torch.cuda._sleep(2_000_000)  # clock cycles: ~1 ms at the H100's ~2 GHz
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        pairs.append((start, end))
+    torch.cuda.synchronize()
+    return sum(s.elapsed_time(e) for s, e in pairs) / reps
 
 
 def live_pairs(sq: int, skv: int, causal: bool, window) -> int:
@@ -92,9 +155,11 @@ def ptxas_report(log: pathlib.Path) -> dict:
     regs, spills, entry = {}, [], "?"
     for line in log.read_text().splitlines() if log.exists() else []:
         if "Compiling entry function" in line:
-            cols = re.search(r"Li(\d+)E", line)  # the ⌈D/16⌉ template argument
+            cols = re.search(r"Li(\d+)E", line)  # flash attention's ⌈D/16⌉ argument
+            named = re.search(r"(\w+_kernel)", line)
             dtype = "bf16" if "bfloat16" in line else "f32"
-            entry = f"{dtype}/NC{cols.group(1) if cols else '?'}"
+            entry = (f"{dtype}/NC{cols.group(1)}" if cols
+                     else named.group(1) if named else line.split()[-1])
         elif "Used" in line and "registers" in line:
             regs[entry] = int(re.search(r"Used (\d+) registers", line).group(1))
         elif "spill" in line and " 0 bytes spill stores, 0 bytes spill loads" not in line:
@@ -151,6 +216,134 @@ def phase_kernels(ops) -> dict:
         torch.cuda.empty_cache()
     torch.cuda.synchronize()
     return {"checks": checks, "timed": timed}
+
+
+def quant_inputs(gen, n: int) -> torch.Tensor:
+    """Normal × 5 (tests/test_kernels.py); from 1024 elements on, block 0 is
+    all zeros and block 1 holds exact .5 ties (amax 127 → scale 1)."""
+    x = torch.randn(n, generator=gen, device="cuda") * 5
+    if n >= 1024:
+        x[:512] = 0
+        x[256:266] = torch.tensor([127, 0.5, 1.5, 2.5, -0.5, -1.5, -2.5, 126.5, -126.5, 3.5])
+    return x
+
+
+def phase_int8(ops, ref) -> dict:
+    """Phase 2, int8 pair: each kernel equal in every bit to its plain version
+    on the card, then timed with the plain version at the bucket and leaf sizes."""
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    checks = []
+    for n in QUANT_SIZES + [BUCKET_N, LEAF_N]:
+        x = quant_inputs(gen, n)
+        q, s = ops.quantize_int8(x)
+        out = ops.dequantize_int8(q, s, n)
+        pq, ps = ref.quantize_int8(x)
+        pout = ref.dequantize_int8(pq, ps, n)
+        same = [torch.equal(q, pq), torch.equal(s, ps), torch.equal(out, pout)]
+        checks.append({"n": n, "q_equal": same[0], "scales_equal": same[1],
+                       "dequantized_equal": same[2],
+                       "max_abs_err": float((out - pout).abs().max()),
+                       "round_trip_err": float((out - x).abs().max())})
+        assert all(same), checks[-1]
+    torch.cuda.synchronize()
+    timed = {}
+    for n in (BUCKET_N, LEAF_N):
+        x = quant_inputs(gen, n)
+        q, s = ops.quantize_int8(x)
+        per_elem = {"quantize_int8": 4 + 1 + 4 / 256, "dequantize_int8": 1 + 4 / 256 + 4}
+        for name, fn, plain in (
+                ("quantize_int8", lambda: ops.quantize_int8(x), lambda: ref.quantize_int8(x)),
+                ("dequantize_int8", lambda: ops.dequantize_int8(q, s, n),
+                 lambda: ref.dequantize_int8(q, s, n))):
+            timed.setdefault(name, {})[n] = {
+                "ms": cold_ms(fn, 20), "plain_ms": cold_ms(plain, 5),
+                "ms_back_to_back": cuda_ms(fn, 20),
+                "bound_ms": per_elem[name] * n / HBM_BYTES_S * 1e3, "bound_by": "bytes"}
+        del x, q, s
+    torch.cuda.empty_cache()
+    print(json.dumps({"int8_library_ms": None,
+                      "why": "no single PyTorch call computes per-256-block int8 "
+                             "quantization with per-block scales, or its inverse"}), flush=True)
+    return {"checks": checks, "timed": timed}
+
+
+def phase_train(train) -> dict:
+    """Phase 5: bert-large data-parallel training at full width, three comms."""
+    runs = {}
+    for name, flags in TRAIN_RUNS:
+        torch.cuda.reset_peak_memory_stats()
+        res = train.main(TRAIN + flags)
+        torch.cuda.synchronize()
+        res["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+        print(json.dumps({"train": name, **res}), flush=True)
+        runs[name] = res
+        torch.cuda.empty_cache()
+        assert res["steps"] == 6 and all(math.isfinite(res[k]) for k in ("first_loss",
+                                                                         "final_loss")), res
+    base, l4, comp = (runs[k]["final_loss"] for k, _ in TRAIN_RUNS)
+    runs["lumorph4_vs_xla_rel"] = abs(l4 - base) / abs(base)
+    runs["int8_vs_lumorph4_rel"] = abs(comp - l4) / abs(l4)
+    print(json.dumps({"train_agreement": {k: runs[k] for k in ("lumorph4_vs_xla_rel",
+                                                               "int8_vs_lumorph4_rel")}}),
+          flush=True)
+    assert runs["lumorph4_vs_xla_rel"] <= 1e-4, runs
+    assert runs["int8_vs_lumorph4_rel"] <= 0.05, runs
+    return runs
+
+
+def phase_trace(get_config, steps_lib, pipeline, AdamWConfig) -> dict:
+    """Phase 6: one full-width training step per comm under ``torch.profiler``,
+    after one warm step: host and device time of the step's three stages,
+    the card's busy time and idle share, and the kernels that take the most."""
+    from torch.profiler import DeviceType, ProfilerActivity, profile
+    cfg = get_config("bert-large")
+    batch = pipeline.batch_at(0, cfg, pipeline.DataConfig(global_batch=8, seq_len=128))
+    out = {}
+    for name, comm, compress, wire in (("xla", "xla", False, torch.float32),
+                                       ("lumorph4", "lumorph4", False, torch.float32),
+                                       ("lumorph2+int8", "lumorph2", True, torch.bfloat16)):
+        params, opt = steps_lib.init_train_state(cfg, 4, 0, "cuda", init_ef=compress)
+        step = steps_lib.make_train_step(cfg, AdamWConfig(total_steps=6, warmup_steps=1),
+                                         comm=comm, dp=4, compress=compress,
+                                         wire_dtype=wire, device="cuda")
+        params, opt, _ = step(params, opt, batch)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            params, opt, loss = step(params, opt, batch)
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3
+        evts = prof.events()
+        marks = [e for e in evts if e.name.startswith("train/")]
+        gpu = [e for e in evts if e.device_type == DeviceType.CUDA and e not in marks]
+        busy_ms = sum(e.time_range.elapsed_us() for e in gpu) / 1e3  # kernels, copies
+
+        def kernel_ms(lo, hi):  # device time of the work that starts in [lo, hi]
+            return sum(e.time_range.elapsed_us() for e in gpu
+                       if lo <= e.time_range.start <= hi) / 1e3
+        spans = {}
+        for e in marks:  # the host-side mark, and its span on the device timeline
+            key = "host_ms" if e.device_type == DeviceType.CPU else "device_span_ms"
+            spans.setdefault(e.name, {})[key] = e.time_range.elapsed_us() / 1e3
+            if e.device_type == DeviceType.CUDA:
+                spans[e.name]["kernel_ms"] = kernel_ms(e.time_range.start, e.time_range.end)
+        by_name, by_kind = {}, {}
+        for e in gpu:
+            ms = e.time_range.elapsed_us() / 1e3
+            by_name[e.name] = by_name.get(e.name, 0.0) + ms
+            kind = next((k for k, words in KERNEL_KINDS if any(w in e.name for w in words)),
+                        "other")
+            by_kind[kind] = by_kind.get(kind, 0.0) + ms
+        top = sorted(by_name.items(), key=lambda kv: -kv[1])[:12]
+        out[name] = {
+            "wall_ms": wall_ms, "device_busy_ms": busy_ms,
+            "idle_share": 1 - busy_ms / wall_ms if busy_ms > 0 else "not measured",
+            "spans": spans, "device_ops": len(gpu), "by_kind_ms": by_kind,
+            "top": [[k[:90], v] for k, v in top]}
+        print(json.dumps({"trace": name, **out[name]}), flush=True)
+        del params, opt, step, prof, evts, marks, gpu
+        torch.cuda.empty_cache()
+    return out
 
 
 def phase_prefill(get_config, tf, make_prefill, ops) -> dict:
@@ -211,8 +404,11 @@ def main() -> None:
         sys.exit("chip_smoke: no CUDA device is available; this script runs on the card only")
     sys.path.insert(0, str(ROOT / "src"))
     from repro_torch.configs import get_config
-    from repro_torch.kernels import build, ops
-    from repro_torch.launch import serve
+    from repro_torch.kernels import build, ops, ref
+    from repro_torch.data import pipeline
+    from repro_torch.launch import serve, train
+    from repro_torch.launch import steps as steps_lib
+    from repro_torch.optim.adamw import AdamWConfig
     from repro_torch.launch.steps import make_prefill
     from repro_torch.models import transformer as tf
 
@@ -238,32 +434,59 @@ def main() -> None:
     # -- phase 2: kernels against their plain versions ---------------------
     kern = phase_kernels(ops)
     print(json.dumps({"kernel_checks": kern["checks"]}), flush=True)
+    int8 = phase_int8(ops, ref)
+    print(json.dumps({"int8_checks": int8["checks"]}), flush=True)
 
-    # -- phases 3 and 4: the main path --------------------------------------
+    # -- phases 3 and 4: the serving path -----------------------------------
     for name in ops.LAUNCHES:
         ops.LAUNCHES[name] = 0
     prefill = phase_prefill(get_config, tf, make_prefill, ops)
     res = serve.main(["--arch", "h2o-danube-1.8b", "--batch", "4",
                       "--prompt-len", "64", "--gen", "32"])
     torch.cuda.synchronize()
-    launches = dict(ops.LAUNCHES)
+    serving = dict(ops.LAUNCHES)
     assert res["finite"] and res["generated_shape"] == [4, 32], res
     assert res["ttft_s"] > 0 and res["tpot_s"] > 0, res
-    assert all(n > 0 for n in launches.values()), launches
+    assert serving["flash_attention"] > 0, serving
+    torch.cuda.empty_cache()
+
+    # -- phase 5: the training path -----------------------------------------
+    for name in ops.LAUNCHES:
+        ops.LAUNCHES[name] = 0
+    runs = phase_train(train)
+    torch.cuda.synchronize()
+    training = dict(ops.LAUNCHES)
+    assert training["quantize_int8"] > 0 and training["dequantize_int8"] > 0, training
+    print(json.dumps({"launches": {"serving": serving, "training": training}}), flush=True)
+
+    # -- phase 6: where a training step spends its time ---------------------
+    trace = phase_trace(get_config, steps_lib, pipeline, AdamWConfig)
 
     bf, f32 = kern["timed"][torch.bfloat16], kern["timed"][torch.float32]
-    record = {
+    records = [{
         "name": "flash_attention", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
         "replaces": "src/repro/kernels/flash_attention.py:31",
-        "launches": launches["flash_attention"],
+        "launches": serving["flash_attention"],
         "max_abs_err": bf["max_abs_err"], "ms": bf["ms"], "kernel_ms": bf["ms"],
         "plain_ms": bf["plain_ms"], "bound_ms": bf["bound_ms"], "bound_by": bf["bound_by"],
         "library_ms": bf["library_ms"], "dtype": "bfloat16",
         "shape": DANUBE, "fp32": f32,
-    }
-    print(json.dumps({"kernels": [record]}), flush=True)
-    print(json.dumps({"prefill": prefill, "card": smi,
+    }]
+    for name, body in (("quantize_int8", 18), ("dequantize_int8", 27)):
+        t = int8["timed"][name]
+        records.append({
+            "name": name, "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/grad_compress.cu",
+            "replaces": f"src/repro/kernels/grad_compress.py:{body}",
+            "launches": training[name],
+            "max_abs_err": max(c["max_abs_err"] for c in int8["checks"]),
+            "ms": t[BUCKET_N]["ms"], "plain_ms": t[BUCKET_N]["plain_ms"],
+            "bound_ms": t[BUCKET_N]["bound_ms"], "bound_by": "bytes", "library_ms": None,
+            "n": BUCKET_N, "leaf": {"n": LEAF_N, **t[LEAF_N]},
+        })
+    print(json.dumps({"kernels": records}), flush=True)
+    print(json.dumps({"prefill": prefill, "train": runs, "trace": trace, "card": smi,
                       "total_s": time.perf_counter() - t_start}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

@@ -1,0 +1,370 @@
+"""The port's trimmed copy of the Schedule IR (``repro.core.scheduler``).
+
+A :class:`Schedule` is the single description of a collective: rounds of
+directed circuit pairs plus, per round, the :class:`Transfer` chunk tables
+that execution needs. The builders here are copies of the JAX package's
+``ring_schedule``, ``rhd_schedule`` (LUMORPH-2), ``rqq_schedule``
+(LUMORPH-4) and ``tree_schedule``, so both executors read the same tables.
+
+Left out, because the port's executor reads only ``participants``,
+``rounds[*].transfers`` and ``n_chunks``: pricing (``Schedule.cost``),
+``validate``, the fabric/rack/health coupling, chunked (overlap) lowering
+and hierarchical composition (ROADMAP Queue 1 items 7 and 10).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Callable, Optional, Sequence
+
+import numpy as np
+
+from repro_torch.core.cost_model import mixed_radix_factorization
+
+
+@dataclasses.dataclass(frozen=True, eq=False)
+class Transfer:
+    """One point-to-point move inside a round, with its chunk arithmetic.
+
+    The buffer is viewed as ``Schedule.n_chunks`` equal chunks. Rank ``i``
+    ships the chunks ``send[i]`` to its partner under ``perm`` and applies
+    the incoming chunks at ``recv[i]``: accumulating when ``reduce`` is
+    set (reduce-scatter phases), overwriting otherwise (all-gather /
+    broadcast phases). Ranks absent from ``perm``'s destinations receive
+    nothing; their ``recv`` rows are placeholders the executor masks out.
+    """
+
+    perm: tuple[tuple[int, int], ...]  # (src_rank, dst_rank), partial permutation
+    send: np.ndarray  # int32 (p, k): chunk ids each rank ships
+    recv: np.ndarray  # int32 (p, k): chunk ids each rank updates
+    reduce: bool = True  # True → add incoming, False → overwrite
+
+
+class Round:
+    """One communication round: simultaneous directed transfers.
+
+    ``pairs_arr`` is the ``(n, 2)`` array of ``(src_chip, dst_chip)``
+    circuits with the bytes each carries; ``transfers`` (rank space) exist
+    only after :meth:`Schedule.materialize` ran.
+    """
+
+    __slots__ = ("pairs_arr", "bytes_per_circuit", "egress_fanout", "reduce", "_transfers")
+
+    def __init__(self, pairs, bytes_per_circuit: float, egress_fanout: int = 1,
+                 reduce: Optional[bool] = None,
+                 transfers: Optional[tuple[Transfer, ...]] = None):
+        self.pairs_arr = (pairs if isinstance(pairs, np.ndarray)
+                          else np.asarray(list(pairs), dtype=np.int64).reshape(-1, 2))
+        self.bytes_per_circuit = bytes_per_circuit
+        self.egress_fanout = egress_fanout
+        #: True = reduce-scatter (accumulate), False = all-gather (overwrite)
+        self.reduce = reduce
+        self._transfers = transfers
+
+    @property
+    def transfers(self) -> tuple[Transfer, ...]:
+        """Execution lowering: one move per entry (rank space). Only
+        available on a materialized schedule."""
+        if self._transfers is None:
+            raise RuntimeError("Transfer tables are lazy: call Schedule.materialize() "
+                               "before reading Round.transfers")
+        return self._transfers
+
+
+@dataclasses.dataclass(frozen=True, eq=False)
+class Schedule:
+    algo: str
+    participants: tuple[int, ...]
+    rounds: tuple[Round, ...]
+    n_bytes: float  # full ALLREDUCE buffer size
+    #: chunk granularity of the executable lowering (buffer padded to a
+    #: multiple of this; 1 for whole-buffer algorithms like tree)
+    n_chunks: int = 1
+    #: lazy Transfer-table builder: one tuple of transfers per round
+    _fill: Optional[Callable[[], tuple[tuple[Transfer, ...], ...]]] = \
+        dataclasses.field(default=None, repr=False)
+
+    @property
+    def materialized(self) -> bool:
+        return all(r._transfers is not None for r in self.rounds)
+
+    def materialize(self) -> "Schedule":
+        """Build the per-round :class:`Transfer` tables (idempotent)."""
+        if self._fill is not None and not self.materialized:
+            tables = self._fill()
+            if len(tables) != len(self.rounds):
+                raise RuntimeError(f"{self.algo}: transfer fill produced {len(tables)} "
+                                   f"tables for {len(self.rounds)} rounds")
+            for rnd, ts in zip(self.rounds, tables):
+                rnd._transfers = tuple(ts)
+        elif any(r._transfers is None for r in self.rounds):
+            raise RuntimeError(f"{self.algo}: round has no transfer lowering and no "
+                               "fill function")
+        return self
+
+
+# ---------------------------------------------------------------------------
+# Schedule builders (copies of repro.core.scheduler's)
+# ---------------------------------------------------------------------------
+
+def ring_schedule(chips: Sequence[int], n_bytes: float) -> Schedule:
+    """Ring ALLREDUCE: 2(p−1) rounds, each chip ships n/p to its successor.
+
+    Chunk map (n_chunks = p): reduce-scatter round ``t`` sends chunk
+    ``(i−t) mod p`` and accumulates into ``(i−t−1) mod p``; the all-gather
+    mirrors with overwrites.
+    """
+    chips = tuple(chips)
+    p = len(chips)
+    rounds: list[Round] = []
+    fill = None
+    if p > 1:
+        arr = np.asarray(chips, dtype=np.int64)
+        ring_pairs = np.stack([arr, np.roll(arr, -1)], axis=1)
+        chunk = n_bytes / p
+        for _ in range(p - 1):  # reduce-scatter
+            rounds.append(Round(ring_pairs, chunk, reduce=True))
+        for _ in range(p - 1):  # all-gather
+            rounds.append(Round(ring_pairs, chunk, reduce=False))
+
+        def fill():
+            perm = tuple((i, (i + 1) % p) for i in range(p))
+            ranks = np.arange(p, dtype=np.int32)
+            tables = []
+            for t in range(p - 1):  # reduce-scatter
+                tables.append((Transfer(perm=perm,
+                                        send=((ranks - t) % p)[:, None],
+                                        recv=((ranks - t - 1) % p)[:, None],
+                                        reduce=True),))
+            for t in range(p - 1):  # all-gather
+                tables.append((Transfer(perm=perm,
+                                        send=((ranks + 1 - t) % p)[:, None],
+                                        recv=((ranks - t) % p)[:, None],
+                                        reduce=False),))
+            return tuple(tables)
+
+    return Schedule("ring", chips, tuple(rounds), n_bytes,
+                    n_chunks=max(p, 1), _fill=fill)
+
+
+def _chunk_range(start: int, size: int) -> np.ndarray:
+    return np.arange(start, start + size, dtype=np.int32)
+
+
+def rhd_schedule(chips: Sequence[int], n_bytes: float) -> Schedule:
+    """LUMORPH-2: recursive halving reduce-scatter + doubling all-gather.
+
+    Chunk map (n_chunks = p): every rank tracks a live contiguous chunk
+    region, initially the whole buffer. A halving round at XOR distance
+    ``d`` splits the region; the rank keeps the half selected by its bit
+    at ``d``, ships the other half, and accumulates the partner's copy of
+    the kept half. Doubling mirrors: ship the own region, adopt the
+    sibling's.
+    """
+    chips = tuple(chips)
+    p = len(chips)
+    if p & (p - 1):
+        return ring_schedule(chips, n_bytes)  # paper §3 fallback
+    rounds: list[Round] = []
+    steps = int(math.log2(p)) if p > 1 else 0
+    arr = np.asarray(chips, dtype=np.int64)
+    idx = np.arange(p)
+    chunk = n_bytes / 2
+    dist = p // 2
+    for _ in range(steps):  # halving
+        rounds.append(Round(np.stack([arr, arr[idx ^ dist]], axis=1), chunk, reduce=True))
+        chunk /= 2
+        dist //= 2
+    chunk = n_bytes / p
+    dist = 1
+    for _ in range(steps):  # doubling
+        rounds.append(Round(np.stack([arr, arr[idx ^ dist]], axis=1), chunk, reduce=False))
+        chunk *= 2
+        dist *= 2
+
+    def fill():
+        tables = []
+        regions = [(0, p)] * p  # (start chunk, size) per rank
+        d = p // 2
+        for _ in range(steps):  # halving
+            perm = tuple((i, i ^ d) for i in range(p))
+            send = np.empty((p, regions[0][1] // 2), dtype=np.int32)
+            recv = np.empty_like(send)
+            for i in range(p):
+                start, size = regions[i]
+                half = size // 2
+                if (i // d) % 2 == 0:  # keep low half, ship high half
+                    keep, ship = (start, half), (start + half, half)
+                else:
+                    keep, ship = (start + half, half), (start, half)
+                send[i] = _chunk_range(*ship)
+                recv[i] = _chunk_range(*keep)
+                regions[i] = keep
+            tables.append((Transfer(perm, send, recv, reduce=True),))
+            d //= 2
+        d = 1
+        for _ in range(steps):  # doubling
+            perm = tuple((i, i ^ d) for i in range(p))
+            send = np.empty((p, regions[0][1]), dtype=np.int32)
+            recv = np.empty_like(send)
+            for i in range(p):
+                send[i] = _chunk_range(*regions[i])
+                recv[i] = _chunk_range(*regions[i ^ d])
+            for i in range(p):  # merge sibling regions
+                start, size = regions[i]
+                sib_start, _ = regions[i ^ d]
+                regions[i] = (min(start, sib_start), size * 2)
+            tables.append((Transfer(perm, send, recv, reduce=False),))
+            d *= 2
+        return tuple(tables)
+
+    return Schedule("lumorph2", chips, tuple(rounds), n_bytes,
+                    n_chunks=max(p, 1), _fill=fill if steps else None)
+
+
+def _rqq_round_pairs(arr: np.ndarray, idx: np.ndarray, r: int, stride: int) -> np.ndarray:
+    """Circuit pairs of one radix-``r`` round: per digit offset, every chip
+    pairs with the member of its digit group ``off`` digits away."""
+    digit = (idx // stride) % r
+    blocks = []
+    for off in range(1, r):
+        j = idx + (((digit + off) % r) - digit) * stride
+        blocks.append(np.stack([arr, arr[j]], axis=1))
+    return np.concatenate(blocks, axis=0)
+
+
+def rqq_schedule(chips: Sequence[int], n_bytes: float, radix: int = 4) -> Schedule:
+    """LUMORPH-4: radix-r quartering/quadrupling with (r−1) circuits/chip/round.
+
+    Digit groups follow the mixed-radix factorization of p; in a radix-r
+    round every chip exchanges distinct sub-chunks with the r−1 other chips
+    in its digit group. Each round lowers to r−1 transfers, one per digit
+    offset.
+    """
+    chips = tuple(chips)
+    p = len(chips)
+    radices = mixed_radix_factorization(p, radix) if p > 1 else []
+    arr = np.asarray(chips, dtype=np.int64)
+    idx = np.arange(p)
+    rounds: list[Round] = []
+    group = 1  # how many ways the buffer is already scattered
+    strides: list[tuple[int, int]] = []  # (radix, stride) per phase
+    stride = 1
+    for r in radices:  # ---- reduce-scatter ----
+        chunk = n_bytes / group
+        rounds.append(Round(_rqq_round_pairs(arr, idx, r, stride),
+                            chunk / r, egress_fanout=r - 1, reduce=True))
+        strides.append((r, stride))
+        stride *= r
+        group *= r
+    for r, st in reversed(strides):  # ---- all-gather (mirror) ----
+        group //= r
+        chunk = n_bytes / group
+        rounds.append(Round(_rqq_round_pairs(arr, idx, r, st),
+                            chunk / r, egress_fanout=r - 1, reduce=False))
+
+    def fill():
+        tables = []
+        regions = [(0, p)] * p
+        for r, stride in strides:  # reduce-scatter
+            xfers = []
+            sub = regions[0][1] // r
+            for off in range(1, r):
+                perm = []
+                send = np.empty((p, sub), dtype=np.int32)
+                recv = np.empty_like(send)
+                for i in range(p):
+                    digit = (i // stride) % r
+                    j = i + ((digit + off) % r - digit) * stride
+                    perm.append((i, j))
+                    start, _ = regions[i]
+                    # ship the partner's digit block, accumulate into own
+                    send[i] = _chunk_range(start + ((digit + off) % r) * sub, sub)
+                    recv[i] = _chunk_range(start + digit * sub, sub)
+                xfers.append(Transfer(tuple(perm), send, recv, reduce=True))
+            for i in range(p):
+                start, _ = regions[i]
+                digit = (i // stride) % r
+                regions[i] = (start + digit * sub, sub)
+            tables.append(tuple(xfers))
+        for r, st in reversed(strides):  # all-gather (mirror)
+            sub = regions[0][1]
+            xfers = []
+            for off in range(1, r):
+                perm = []
+                send = np.empty((p, sub), dtype=np.int32)
+                recv = np.empty_like(send)
+                for i in range(p):
+                    digit = (i // st) % r
+                    j = i + ((digit + off) % r - digit) * st
+                    perm.append((i, j))
+                    start, _ = regions[i]
+                    parent = start - digit * sub
+                    send[i] = _chunk_range(start, sub)
+                    # the arriving block was digit (digit−off) of the parent
+                    recv[i] = _chunk_range(parent + ((digit - off) % r) * sub, sub)
+                xfers.append(Transfer(tuple(perm), send, recv, reduce=False))
+            for i in range(p):
+                start, _ = regions[i]
+                digit = (i // st) % r
+                regions[i] = (start - digit * sub, sub * r)
+            tables.append(tuple(xfers))
+        return tuple(tables)
+
+    return Schedule(f"lumorph{radix}", chips, tuple(rounds), n_bytes,
+                    n_chunks=max(p, 1), _fill=fill if radices else None)
+
+
+def tree_schedule(chips: Sequence[int], n_bytes: float) -> Schedule:
+    """Binomial-tree reduce to rank 0 + broadcast back: 2·⌈log2 p⌉ rounds.
+
+    Full buffer per hop (n_chunks = 1). Works for any p (ranks ≥ p never
+    appear in a perm).
+    """
+    chips = tuple(chips)
+    p = len(chips)
+    rounds: list[Round] = []
+    fill = None
+    if p > 1:
+        arr = np.asarray(chips, dtype=np.int64)
+        steps = math.ceil(math.log2(p))
+        levels = []
+        for k in range(steps):
+            senders = np.asarray([i for i in range(p) if i % (1 << (k + 1)) == (1 << k)])
+            levels.append((k, senders))
+        for k, senders in levels:  # reduce toward rank 0
+            rounds.append(Round(np.stack([arr[senders], arr[senders - (1 << k)]], axis=1),
+                                n_bytes, reduce=True))
+        for k, senders in reversed(levels):  # broadcast back
+            rounds.append(Round(np.stack([arr[senders - (1 << k)], arr[senders]], axis=1),
+                                n_bytes, reduce=False))
+
+        def fill():
+            zeros = np.zeros((p, 1), dtype=np.int32)
+            tables = []
+            for k, senders in levels:
+                perm = tuple((int(i), int(i) - (1 << k)) for i in senders)
+                tables.append((Transfer(perm, zeros, zeros, reduce=True),))
+            for k, senders in reversed(levels):
+                perm = tuple((int(i) - (1 << k), int(i)) for i in senders)
+                tables.append((Transfer(perm, zeros, zeros, reduce=False),))
+            return tuple(tables)
+
+    return Schedule("tree", chips, tuple(rounds), n_bytes, n_chunks=1, _fill=fill)
+
+
+SCHEDULE_BUILDERS = {
+    "ring": ring_schedule,
+    "lumorph2": rhd_schedule,
+    "lumorph4": rqq_schedule,
+    "tree": tree_schedule,
+}
+
+
+def build_schedule(algo: str, chips: Sequence[int], n_bytes: float) -> Schedule:
+    try:
+        builder = SCHEDULE_BUILDERS[algo]
+    except KeyError:
+        raise ValueError(f"no schedule builder for {algo!r}; have {sorted(SCHEDULE_BUILDERS)}")
+    return builder(chips, n_bytes)

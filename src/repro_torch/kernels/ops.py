@@ -21,7 +21,7 @@ from repro_torch.kernels import build, ref
 Tensor = torch.Tensor
 
 #: kernel name → number of CUDA launches by its wrapper in this process
-LAUNCHES: dict[str, int] = {"flash_attention": 0}
+LAUNCHES: dict[str, int] = {"flash_attention": 0, "quantize_int8": 0, "dequantize_int8": 0}
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -33,6 +33,16 @@ def _flash_lib() -> ctypes.CDLL:
     lib.flash_attention_fwd.argtypes = [vp, vp, vp, vp, ci, ci, ci, ci, ci, ci, ci, ci,
                                         ctypes.c_float, ci, vp]
     lib.flash_attention_fwd.restype = ci
+    return lib
+
+
+@functools.cache
+def _quant_lib() -> ctypes.CDLL:
+    lib = build.load("grad_compress")
+    vp = ctypes.c_void_p
+    lib.quantize_int8.argtypes = [vp, vp, vp, ctypes.c_longlong, vp]
+    lib.dequantize_int8.argtypes = [vp, vp, vp, ctypes.c_longlong, vp]
+    lib.quantize_int8.restype = lib.dequantize_int8.restype = ctypes.c_int
     return lib
 
 
@@ -99,4 +109,80 @@ def flash_attention(q: Tensor, k: Tensor, v: Tensor, *, causal: bool = True,
     if err != 0:
         raise RuntimeError(f"flash_attention kernel launch failed: cudaError_t {err}")
     LAUNCHES["flash_attention"] += 1
+    return out
+
+
+# ---------------------------------------------------------------------------
+# int8 gradient compression: per-256-block symmetric quantization
+# ---------------------------------------------------------------------------
+
+QUANT_BLOCK = 256
+
+
+def _device_of(*ts: Tensor) -> str:
+    dev = {t.device for t in ts}
+    if len(dev) != 1:
+        raise ValueError(f"tensors lie on different devices: {sorted(map(str, dev))}")
+    kind = ts[0].device.type
+    if kind not in ("cpu", "cuda"):
+        raise ValueError(f"the int8 kernels run on cpu or cuda tensors, not {ts[0].device}")
+    return kind
+
+
+def _aligned(t: Tensor, align: int) -> Tensor:
+    """``t`` contiguous, starting on an ``align``-byte boundary (a copy if not)."""
+    t = t.contiguous()
+    return t if t.data_ptr() % align == 0 else t.clone()
+
+
+def _launch(name: str, fn, *args) -> None:
+    err = fn(*args, torch.cuda.current_stream().cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"{name} kernel launch failed: cudaError_t {err}")
+    LAUNCHES[name] += 1
+
+
+def quantize_int8(x: Tensor) -> tuple[Tensor, Tensor]:
+    """Flat fp32 ``x [n]`` → (``q`` int8 ``[n_pad]``, ``scales`` fp32
+    ``[n_pad/256]``), with ``n`` zero-padded to a multiple of 256; per block
+    ``scale = max(amax, 1e-12)·fp32(1/127)`` and ``q = clip(rint(x/scale), ±127)``.
+    Bit-identical to the JAX package's quantizer as XLA compiles it (the
+    Pallas kernel and the jitted jnp twin; see ``ref.RECIP_127``)."""
+    if x.dim() != 1 or x.numel() == 0:
+        raise ValueError(f"quantize_int8 takes a non-empty flat tensor, got {tuple(x.shape)}")
+    if x.dtype != torch.float32:
+        raise TypeError(f"quantize_int8 takes float32, got {x.dtype}")
+    if _device_of(x) == "cpu":
+        return ref.quantize_int8(x, QUANT_BLOCK)
+    pad = (-x.numel()) % QUANT_BLOCK
+    x = torch.nn.functional.pad(x, (0, pad)) if pad else _aligned(x, 16)
+    lib = _quant_lib()
+    n_blocks = x.numel() // QUANT_BLOCK
+    q = torch.empty(x.numel(), dtype=torch.int8, device=x.device)
+    scales = torch.empty(n_blocks, dtype=torch.float32, device=x.device)
+    with torch.cuda.device(x.device):
+        _launch("quantize_int8", lib.quantize_int8,
+                x.data_ptr(), q.data_ptr(), scales.data_ptr(), n_blocks)
+    return q, scales
+
+
+def dequantize_int8(q: Tensor, scales: Tensor, n: int) -> Tensor:
+    """``float(q) · scale`` per 256-block, truncated to the first ``n``
+    elements: the inverse of :func:`quantize_int8` up to its rounding."""
+    if q.dim() != 1 or q.numel() % QUANT_BLOCK or q.dtype != torch.int8:
+        raise ValueError(f"q must be flat int8 of a multiple of {QUANT_BLOCK} elements, "
+                         f"got {q.dtype} {tuple(q.shape)}")
+    if scales.shape != (q.numel() // QUANT_BLOCK,) or scales.dtype != torch.float32:
+        raise ValueError(f"scales must be float32 [{q.numel() // QUANT_BLOCK}], got "
+                         f"{scales.dtype} {tuple(scales.shape)}")
+    if not 0 < n <= q.numel():
+        raise ValueError(f"n must be in 1..{q.numel()}, got {n}")
+    if _device_of(q, scales) == "cpu":
+        return ref.dequantize_int8(q, scales, n, QUANT_BLOCK)
+    lib = _quant_lib()
+    q, scales = _aligned(q, 4), scales.contiguous()
+    out = torch.empty(n, dtype=torch.float32, device=q.device)
+    with torch.cuda.device(q.device):
+        _launch("dequantize_int8", lib.dequantize_int8,
+                q.data_ptr(), scales.data_ptr(), out.data_ptr(), n)
     return out

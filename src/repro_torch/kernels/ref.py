@@ -41,3 +41,27 @@ def reference_attention(q: Tensor, k: Tensor, v: Tensor, *, causal: bool = True,
     s = torch.where(mask[None], s, -1e30)
     p = torch.softmax(s, dim=-1)
     return torch.einsum("bqk,bkd->bqd", p, v.float()).to(q.dtype)
+
+
+#: 1/127 rounded to fp32. The JAX package writes ``max(amax, 1e-12) / 127``,
+#: and XLA compiles that division by a constant into a multiply by this
+#: reciprocal (in the jitted trainer and in the Pallas kernel alike), so the
+#: port multiplies too, to give the same scales bit for bit. ``x / scale``
+#: stays a true division there and here.
+RECIP_127 = 1.0 / 127.0
+
+
+def quantize_int8(x: Tensor, block: int = 256) -> tuple[Tensor, Tensor]:
+    """Flat x → (int8 [n_pad], fp32 scales [n_pad/block]), per-block symmetric."""
+    n = x.shape[0]
+    pad = (-n) % block
+    xf = torch.nn.functional.pad(x.float(), (0, pad)).reshape(-1, block)
+    amax = torch.amax(torch.abs(xf), dim=1)
+    scale = torch.clamp(amax, min=1e-12) * RECIP_127
+    q = torch.clamp(torch.round(xf / scale[:, None]), -127, 127).to(torch.int8)
+    return q.reshape(-1), scale
+
+
+def dequantize_int8(q: Tensor, scales: Tensor, n: int, block: int = 256) -> Tensor:
+    xf = q.float().reshape(-1, block) * scales[:, None]
+    return xf.reshape(-1)[:n]

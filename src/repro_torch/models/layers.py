@@ -133,3 +133,17 @@ def apply_mlp(p: dict, x: Tensor, style: str) -> Tensor:
     else:
         h = F.gelu(x @ p["wi"].to(dt), approximate="tanh")
     return h @ p["wo"].to(dt)
+
+
+# ---------------------------------------------------------------------------
+# losses
+# ---------------------------------------------------------------------------
+
+def cross_entropy(logits: Tensor, targets: Tensor, mask: Optional[Tensor] = None) -> Tensor:
+    """Mean token cross-entropy; logits promoted to fp32."""
+    logp = torch.log_softmax(logits.float(), dim=-1)
+    nll = -torch.gather(logp, -1, targets[..., None].long())[..., 0]
+    if mask is not None:
+        mask = mask.float()
+        return torch.sum(nll * mask) / torch.clamp(torch.sum(mask), min=1.0)
+    return torch.mean(nll)

@@ -1,11 +1,14 @@
-"""Model assembly for the dense decoder: block pattern → init / forward / decode.
+"""Model assembly for the dense decoder: block pattern → init / forward / loss / decode.
 
 The twin of ``repro.models.transformer`` for ``"dense"`` blocks. Layers are
 grouped into segments of consecutive identical block kinds, and each
 segment's params are stacked along a leading layer axis, as in the JAX
 pytree; a Python loop over that axis takes the place of ``lax.scan``.
-Other block kinds and model kinds raise ``NotImplementedError`` naming the
-ROADMAP item that ports them.
+``cfg.remat`` recomputes each block in the backward pass
+(``torch.utils.checkpoint``, non-reentrant), as ``jax.checkpoint`` does;
+every ``remat_policy`` recomputes the whole block, which changes memory
+and time but not the numbers. Other block kinds and model kinds raise
+``NotImplementedError`` naming the ROADMAP item that ports them.
 """
 
 from __future__ import annotations
@@ -13,10 +16,11 @@ from __future__ import annotations
 from typing import Any
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import attention as attn
-from repro_torch.models.layers import (apply_mlp, apply_norm, dense_init,
+from repro_torch.models.layers import (apply_mlp, apply_norm, cross_entropy, dense_init,
                                        embed_init, init_mlp, init_norm)
 
 Tensor = torch.Tensor
@@ -91,9 +95,16 @@ def init_params(gen: torch.Generator, cfg: ModelConfig) -> Params:
 # forward (full sequence)
 # ---------------------------------------------------------------------------
 
-def _layer(seg_params: dict, i: int) -> dict:
-    """Layer ``i`` of a stacked segment (views, no copies)."""
-    return {k: _layer(v, i) if isinstance(v, dict) else v[i] for k, v in seg_params.items()}
+def _layers(seg_params: dict, count: int) -> list[dict]:
+    """The ``count`` layers of a stacked segment (views, no copies).
+
+    One ``unbind`` per leaf: its backward stacks the layers' gradients once,
+    where indexing each layer (``leaf[i]``) would make every layer's
+    backward write a zero-filled gradient of the whole stack and add it
+    (the same values, with ``count`` times the memory traffic)."""
+    per_key = {k: _layers(v, count) if isinstance(v, dict) else torch.unbind(v)
+               for k, v in seg_params.items()}
+    return [{k: v[i] for k, v in per_key.items()} for i in range(count)]
 
 
 def _block_forward(kind: str, p: dict, x: Tensor, positions: Tensor,
@@ -121,9 +132,12 @@ def forward_logits(params: Params, batch: dict, cfg: ModelConfig) -> tuple[Tenso
     if cfg.scale_embeddings:
         x = x * torch.tensor(cfg.d_model ** 0.5, dtype=cdt)
     positions = torch.arange(s, dtype=torch.int32, device=tokens.device)[None].expand(b, s)
+    remat = cfg.remat and torch.is_grad_enabled()
     for seg_params, (kind, count) in zip(params["segments"], segments_of(cfg)):
-        for i in range(count):
-            x = _block_forward(kind, _layer(seg_params, i), x, positions, cfg, "causal", 0)
+        for layer in _layers(seg_params, count):
+            args = (kind, layer, x, positions, cfg, "causal", 0)
+            x = (checkpoint(_block_forward, *args, use_reentrant=False) if remat
+                 else _block_forward(*args))
     x = apply_norm(cfg.norm, params["final_norm"], x)
     return _unembed(params, x, cfg), torch.zeros((), dtype=torch.float32, device=x.device)
 
@@ -132,6 +146,17 @@ def _unembed(params: Params, x: Tensor, cfg: ModelConfig) -> Tensor:
     if cfg.tie_embeddings:
         return torch.einsum("bsd,vd->bsv", x, params["embed"].to(x.dtype))
     return x @ params["lm_head"].to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# loss
+# ---------------------------------------------------------------------------
+
+def loss_fn(params: Params, batch: dict, cfg: ModelConfig) -> Tensor:
+    """Next-token cross-entropy plus the weighted aux loss (0 for dense)."""
+    logits, aux = forward_logits(params, batch, cfg)
+    ce = cross_entropy(logits[:, :-1], batch["tokens"][:, 1:])
+    return ce + cfg.aux_loss_weight * aux
 
 
 # ---------------------------------------------------------------------------
@@ -156,9 +181,9 @@ def init_caches(cfg: ModelConfig, batch: int, max_len: int, device=None) -> list
 
 
 def _flatten_layer_params(params: Params, cfg: ModelConfig) -> list[tuple[str, dict]]:
-    return [(kind, _layer(seg_params, i))
+    return [(kind, layer)
             for seg_params, (kind, count) in zip(params["segments"], segments_of(cfg))
-            for i in range(count)]
+            for layer in _layers(seg_params, count)]
 
 
 def _decode_block(kind: str, p: dict, x: Tensor, cache: dict, position: int,

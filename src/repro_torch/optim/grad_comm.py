@@ -1,0 +1,181 @@
+"""Gradient communication: bucketing → LUMORPH collective dispatch →
+optional int8 compression with error feedback, over virtual ranks.
+
+The twin of ``repro.optim.grad_comm``. There, every function runs inside
+``shard_map`` and sees one device's gradients. Here every tensor carries
+the ``p`` data-parallel ranks on its leading axis and the collectives are
+the virtual-rank executor's (:mod:`repro_torch.core.collectives`):
+
+  * gradients are flattened, per rank, into one flat vector (leaves in
+    JAX's flatten order) and cut into ~25 MB buckets, tensor boundaries
+    ignored (``make_buckets`` counts 4 B per element whatever the wire
+    dtype, as the reference does);
+  * each bucket is ALLREDUCEd by ``ring`` / ``lumorph2`` / ``lumorph4`` /
+    ``tree`` (``auto``, which prices each bucket with the α–β model, is
+    not ported yet: ROADMAP Queue 1 item 7);
+  * optional int8 compression quantizes every shipped piece with
+    per-256-block scales and dequantizes at the receiver, through the
+    hand-written CUDA kernels on the card (``kernels.ops``). Blocks never
+    span two ranks or two leaves: each rank's piece, and each rank's
+    error-feedback leaf, is padded to 256 on its own.
+
+As in the reference, compression always runs the LUMORPH-2 schedule in
+fp32 whatever ``algo`` says (the bucket log still names ``algo``), and the
+mean over ranks is taken after the fp32 cast.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import functools
+from typing import Any, Optional
+
+import torch
+
+from repro_torch.core import collectives
+from repro_torch.kernels import ops as kops
+from repro_torch.tree import leaves, unflatten
+
+Tensor = torch.Tensor
+Tree = Any
+
+DEFAULT_BUCKET_BYTES = 25 * 1024 * 1024  # 25 MB, torch-DDP-style default
+QUANT_BLOCK = kops.QUANT_BLOCK
+
+
+@dataclasses.dataclass(frozen=True)
+class Bucket:
+    start: int  # element offsets into the flat gradient vector
+    end: int
+
+    @property
+    def n_elems(self) -> int:
+        return self.end - self.start
+
+
+def make_buckets(total_elems: int, bucket_bytes: int = DEFAULT_BUCKET_BYTES,
+                 bytes_per_elem: int = 4) -> list[Bucket]:
+    """DDP-style flat bucketing: the whole gradient is one flat vector cut
+    into ~bucket_bytes ranges, in leaf order."""
+    target = max(1, bucket_bytes // bytes_per_elem)
+    out = []
+    off = 0
+    while off < total_elems:
+        end = min(off + target, total_elems)
+        out.append(Bucket(off, end))
+        off = end
+    return out
+
+
+# ---------------------------------------------------------------------------
+# int8 compression
+# ---------------------------------------------------------------------------
+
+def quantize_int8(x: Tensor) -> tuple[Tensor, Tensor]:
+    """Per-block symmetric int8 quantization of each row of ``x [..., m]``:
+    → (q ``[..., m_pad]``, scales ``[..., m_pad/256]``), every row padded to
+    a multiple of 256 on its own. One kernel launch covers all rows."""
+    lead, m = x.shape[:-1], x.shape[-1]
+    rows = x.float().reshape(-1, m)
+    pad = (-m) % QUANT_BLOCK
+    if pad:
+        rows = torch.nn.functional.pad(rows, (0, pad))
+    q, scales = kops.quantize_int8(rows.reshape(-1))
+    return q.reshape(*lead, m + pad), scales.reshape(*lead, (m + pad) // QUANT_BLOCK)
+
+
+def dequantize_int8(q: Tensor, scales: Tensor, n: int) -> Tensor:
+    """Rows of :func:`quantize_int8`'s output → fp32 ``[..., n]``."""
+    flat = kops.dequantize_int8(q.reshape(-1), scales.reshape(-1), q.numel())
+    return flat.reshape(q.shape)[..., :n]
+
+
+def _int8_encode(piece: Tensor) -> tuple[Tensor, Tensor]:
+    """Per-hop payload transform: each rank's shipped chunks ``piece[r]``
+    quantized to int8 with per-block fp32 scales (1/64 byte overhead)."""
+    return quantize_int8(piece.reshape(piece.shape[0], -1))
+
+
+def _int8_decode(payload: tuple[Tensor, Tensor], like: Tensor) -> Tensor:
+    q, sc = payload
+    return dequantize_int8(q, sc, like[0].numel()).reshape(like.shape)
+
+
+@functools.lru_cache(maxsize=64)
+def _compressed_program(p: int):
+    return collectives.compile_schedule(
+        collectives.schedule_for_execution("lumorph2", p), p,
+        encode=_int8_encode, decode=_int8_decode)
+
+
+def compressed_all_reduce(x: Tensor) -> Tensor:
+    """LUMORPH-2 recursive halving/doubling with int8 payloads, over the
+    rank axis of ``x[p, ...]``: the same Schedule IR as the uncompressed
+    collective, with the int8 encode/decode pair around every hop. Wire
+    bytes ≈ n (int8) + n/64 (scales) against 4n in fp32."""
+    p = x.shape[0]
+    if p == 1:
+        return x
+    if p & (p - 1):
+        raise ValueError("compressed allreduce requires a power-of-two rank count")
+    return _compressed_program(p)(x.float()).to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# bucketed gradient all-reduce
+# ---------------------------------------------------------------------------
+
+def all_reduce_grads(grads: Tree, algo: str = "lumorph2",
+                     bucket_bytes: int = DEFAULT_BUCKET_BYTES,
+                     compress: bool = False,
+                     error_feedback: Optional[Tree] = None,
+                     wire_dtype: torch.dtype = torch.bfloat16,
+                     ) -> tuple[Tree, Optional[Tree], list[tuple[int, str]]]:
+    """Mean-ALLREDUCE ``grads`` (leaves ``[p, ...]``) over the rank axis
+    with LUMORPH collectives, bucket by bucket: the sum over ranks, divided
+    by ``p`` after the fp32 cast.
+
+    Returns (reduced_grads, new_error_feedback, bucket_log), where the log
+    records (bytes per rank, algo) per bucket, as the reference's does.
+    Payloads travel as ``wire_dtype``; with ``compress`` they travel as
+    int8 and the flat vector is fp32.
+    """
+    if algo == "auto":
+        raise NotImplementedError("--comm auto (per-bucket α–β selection) is not ported "
+                                  "yet (ROADMAP Queue 1 item 7)")
+    orig = leaves(grads)
+    gl = orig
+    p = gl[0].shape[0]
+    ef_new: Optional[list[Tensor]] = None
+    if compress and error_feedback is not None:
+        # EF-SGD: compensate with last step's residual, store the *local*
+        # quantization residual (per rank, per leaf) for the next step
+        gl = [g.float() + e for g, e in zip(gl, leaves(error_feedback))]
+        ef_new = []
+        for c in gl:
+            rows = c.reshape(p, -1)
+            q, sc = quantize_int8(rows)
+            ef_new.append(c - dequantize_int8(q, sc, rows.shape[1]).reshape(c.shape))
+    comm_dtype = torch.float32 if compress else wire_dtype
+    flat = torch.cat([g.to(comm_dtype).reshape(p, -1) for g in gl], dim=1)
+    del gl  # the compensated copies; at full width each copy is GBs
+    buckets = make_buckets(flat.shape[1], bucket_bytes)
+
+    log: list[tuple[int, str]] = []
+    parts = []
+    for b in buckets:
+        piece = flat[:, b.start:b.end]
+        log.append((b.n_elems * flat.element_size(), algo + ("+int8" if compress else "")))
+        parts.append(compressed_all_reduce(piece) if compress
+                     else collectives.all_reduce(piece, algo))
+    del flat
+    reduced = torch.cat(parts, dim=1).float()
+    del parts
+    reduced.div_(p)  # in place: the same IEEE division as ``reduced / p``
+    out, off = [], 0
+    for g in orig:
+        n = g[0].numel()
+        out.append(reduced[:, off:off + n].reshape(g.shape).to(g.dtype))
+        off += n
+    new_ef = unflatten(error_feedback, ef_new) if ef_new is not None else None
+    return unflatten(grads, out), new_ef, log

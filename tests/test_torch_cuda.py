@@ -51,3 +51,53 @@ def test_flash_attention_cuda_rejects_without_plain_fallback(card):
     with pytest.raises(ValueError, match="contiguous"):
         ops.flash_attention(q, k, k, causal=True)
     assert ops.LAUNCHES["flash_attention"] == n0
+
+
+# -- int8 gradient compression ----------------------------------------------
+
+def _quant_inputs(n: int, seed: int) -> torch.Tensor:
+    gen = torch.Generator().manual_seed(seed)
+    x = torch.randn(n, generator=gen) * 5
+    if n >= 1024:  # an all-zero block and exact .5 ties (amax 127 → scale 1)
+        x[:256] = 0
+        x[256:512] = 0.0
+        x[256:266] = torch.tensor([127, 0.5, 1.5, 2.5, -0.5, -1.5, -2.5, 126.5, -126.5, 3.5])
+    return x
+
+
+@pytest.mark.parametrize("n", [256, 1000, 65536, 12345, 6_553_600])
+def test_int8_kernels_bit_exact_against_plain(card, n):
+    x = _quant_inputs(n, n)
+    n0 = dict(ops.LAUNCHES)
+    q, s = ops.quantize_int8(x.to(card))
+    deq = ops.dequantize_int8(q, s, n)
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES["quantize_int8"] == n0["quantize_int8"] + 1
+    assert ops.LAUNCHES["dequantize_int8"] == n0["dequantize_int8"] + 1
+    pq, ps = ops.quantize_int8(x)  # the plain versions, on the CPU
+    assert torch.equal(q.cpu(), pq) and torch.equal(s.cpu(), ps)
+    assert torch.equal(deq.cpu(), ops.dequantize_int8(pq, ps, n))
+
+
+def test_int8_kernels_take_unaligned_views(card):
+    x = _quant_inputs(4096, 1).to(card)
+    q, s = ops.quantize_int8(x[3:3 + 2560])  # 12 bytes past a boundary, no padding
+    pq, ps = ops.quantize_int8(x[3:3 + 2560].cpu())
+    assert torch.equal(q.cpu(), pq) and torch.equal(s.cpu(), ps)
+    out = ops.dequantize_int8(q[256:], s[1:], 2300)  # q starts 256 B in
+    assert torch.equal(out.cpu(), ops.dequantize_int8(pq[256:], ps[1:], 2300))
+
+
+def test_virtual_rank_collectives_on_card_equal_cpu(card):
+    from repro_torch.core import collectives
+    from repro_torch.optim import grad_comm
+    gen = torch.Generator().manual_seed(0)
+    for p in (2, 4, 8):
+        x = torch.randn(p, 40_001, generator=gen) * 100
+        for algo in ("ring", "lumorph2", "lumorph4", "tree"):
+            got = collectives.all_reduce(x.to(card), algo)
+            assert torch.equal(got.cpu(), collectives.all_reduce(x, algo)), (algo, p)
+        n0 = ops.LAUNCHES["quantize_int8"]
+        got = grad_comm.compressed_all_reduce(x.to(card))
+        assert ops.LAUNCHES["quantize_int8"] == n0 + 2 * p.bit_length() - 2  # one per hop
+        assert torch.equal(got.cpu(), grad_comm.compressed_all_reduce(x)), p

@@ -75,3 +75,41 @@ def test_default_device_raises_without_cuda(monkeypatch):
     assert resolve_device("cpu") == torch.device("cpu")
     with pytest.raises(RuntimeError, match="--device cpu"):
         serve.main(["--arch", "h2o-danube-1.8b", "--smoke", "--gen", "2"])
+
+
+def test_trainer_raises_without_cuda_unless_asked_for_cpu(monkeypatch):
+    from repro_torch.launch import steps, train
+    from repro_torch.configs import get_smoke_config
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="--device cpu"):
+        train.main(["--arch", "bert-large", "--smoke", "--steps", "1", "--batch", "2",
+                    "--seq", "8", "--data-parallel", "2"])
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        steps.make_train_step(get_smoke_config("bert-large"), comm="ring", dp=2)
+    out = train.main(["--arch", "bert-large", "--smoke", "--steps", "1", "--batch", "2",
+                      "--seq", "8", "--data-parallel", "2", "--device", "cpu"])
+    assert out["device"] == "cpu" and out["steps"] == 1
+
+
+def test_int8_kernels_on_cuda_tensors_never_fall_back(monkeypatch, tmp_path):
+    """A tensor on the card goes to the kernel: where the kernel cannot be
+    built the wrapper raises, and nothing falls back to the plain version."""
+    from repro_torch.kernels import build, ops
+
+    def no_nvcc():
+        raise RuntimeError("nvcc not found")
+    monkeypatch.setattr(build, "nvcc", no_nvcc)
+    monkeypatch.setattr(build, "BUILD_DIR", tmp_path)  # nothing built there
+    monkeypatch.setattr(ops, "_device_of", lambda *ts: "cuda")  # as if on the card
+    monkeypatch.delitem(build._LOADED, "grad_compress", raising=False)
+    ops._quant_lib.cache_clear()
+    launches = dict(ops.LAUNCHES)
+    try:
+        with pytest.raises(RuntimeError, match="nvcc not found"):
+            ops.quantize_int8(torch.ones(300))
+        q = torch.zeros(256, dtype=torch.int8)
+        with pytest.raises(RuntimeError, match="nvcc not found"):
+            ops.dequantize_int8(q, torch.ones(1), 256)
+    finally:
+        ops._quant_lib.cache_clear()
+    assert ops.LAUNCHES == launches

@@ -1,0 +1,369 @@
+"""The port's data-parallel training path against the JAX package, on the
+bert-large smoke config:
+
+  * config, ``cross_entropy``, ``loss_fn`` and every gradient leaf against
+    ``jax.value_and_grad`` in fp32 (1e-5 relative), attention gradients on
+    the dense and chunked paths, ``batch_at`` tokens, AdamW over 5 steps;
+  * the trainer twin of tests/test_train_integration.py on CPU virtual
+    ranks (LUMORPH comm against the library reduction);
+  * a cross-framework run: the JAX trainer on 4 fake devices and the port on
+    4 virtual ranks from the same carried-over state (``bridge``), 4 steps,
+    with the per-rank state under ``--compress`` read per device.
+
+The JAX trainer runs in one subprocess (``XLA_FLAGS`` stays out of the
+pytest process) that writes one pickle under ``tmp_path``.
+"""
+
+import dataclasses
+import os
+import pickle
+import subprocess
+import sys
+from pathlib import Path
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+from repro.configs import get_config as jax_get_config  # noqa: E402
+from repro.configs import get_smoke_config as jax_smoke_config  # noqa: E402
+from repro.data import pipeline as jpipe  # noqa: E402
+from repro.models import attention as jattn  # noqa: E402
+from repro.models import layers as jlayers  # noqa: E402
+from repro.models import transformer as jtf  # noqa: E402
+from repro.optim import adamw as jadamw  # noqa: E402
+from repro_torch import bridge  # noqa: E402
+from repro_torch.configs import get_config, get_smoke_config  # noqa: E402
+from repro_torch.data import pipeline as tpipe  # noqa: E402
+from repro_torch.launch import steps as tsteps  # noqa: E402
+from repro_torch.launch import train as ttrain  # noqa: E402
+from repro_torch.models import attention as tattn  # noqa: E402
+from repro_torch.models import layers as tlayers  # noqa: E402
+from repro_torch.models import transformer as ttf  # noqa: E402
+from repro_torch.optim import adamw as tadamw  # noqa: E402
+from repro_torch.tree import leaves  # noqa: E402
+
+ARCH = "bert-large"
+SRC = str(Path(__file__).resolve().parents[1] / "src")
+STEPS, BATCH, SEQ, DP = 4, 4, 32, 4
+BUCKET = 1 << 16  # 16,384 fp32 per bucket: the smoke gradient spans several
+
+
+def _rel(got, expect) -> float:
+    g = got.detach().float().numpy() if isinstance(got, torch.Tensor) else np.asarray(got)
+    e = np.asarray(expect, np.float32)
+    return float(np.abs(g - e).max() / (np.abs(e).max() + 1e-12))
+
+
+def _setup(**overrides):
+    jcfg = jax_smoke_config(ARCH).replace(compute_dtype="float32", **overrides)
+    tcfg = get_smoke_config(ARCH).replace(compute_dtype="float32", **overrides)
+    params = jtf.init_params(jax.random.PRNGKey(0), jcfg)
+    return jcfg, tcfg, params, bridge.params_from_numpy(jax.tree.map(np.asarray, params))
+
+
+def _tokens(b, s, vocab, seed=0):
+    return np.random.default_rng(seed).integers(0, vocab, (b, s), dtype=np.int32)
+
+
+# ---------------------------------------------------------------------------
+# modules against their JAX counterparts
+# ---------------------------------------------------------------------------
+
+def test_bert_config_converts_field_for_field():
+    for jcfg, tcfg in ((jax_smoke_config(ARCH), get_smoke_config(ARCH)),
+                       (jax_get_config(ARCH), get_config(ARCH))):
+        assert dataclasses.asdict(jcfg) == dataclasses.asdict(tcfg)
+    full = jax.eval_shape(lambda: jtf.init_params(jax.random.PRNGKey(0), jax_get_config(ARCH)))
+    shapes = [x.shape for x in jax.tree.leaves(full)]
+    assert len(shapes) == 13 and sum(int(np.prod(s)) for s in shapes) == 333_344_768
+    own = bridge.flatten_with_paths(ttf.init_params(torch.Generator().manual_seed(0),
+                                                    get_smoke_config(ARCH)))
+    _, _, params, _ = _setup()
+    assert [(k, tuple(t.shape)) for k, t in own] == \
+        [(k, tuple(np.shape(a))) for k, a in bridge.flatten_with_paths(params)]
+
+
+@pytest.mark.parametrize("masked", [False, True])
+def test_cross_entropy_matches_jax(masked):
+    rng = np.random.default_rng(0)
+    logits = (rng.standard_normal((2, 7, 50)) * 4).astype(np.float32)
+    targets = rng.integers(0, 50, (2, 7)).astype(np.int32)
+    mask = (rng.random((2, 7)) > 0.3).astype(np.float32) if masked else None
+    expect = jlayers.cross_entropy(jnp.asarray(logits), jnp.asarray(targets),
+                                   None if mask is None else jnp.asarray(mask))
+    got = tlayers.cross_entropy(torch.from_numpy(logits).bfloat16(), torch.from_numpy(targets),
+                                None if mask is None else torch.from_numpy(mask))
+    expect_bf = jlayers.cross_entropy(jnp.asarray(logits).astype(jnp.bfloat16),
+                                      jnp.asarray(targets),
+                                      None if mask is None else jnp.asarray(mask))
+    assert got.dtype == torch.float32 and _rel(got, expect_bf) < 1e-6
+    got32 = tlayers.cross_entropy(torch.from_numpy(logits), torch.from_numpy(targets),
+                                  None if mask is None else torch.from_numpy(mask))
+    assert _rel(got32, expect) < 1e-6
+
+
+@pytest.mark.parametrize("remat", [True, False])
+def test_loss_and_every_gradient_leaf_match_jax(remat):
+    jcfg, tcfg, params, tparams = _setup(remat=remat)
+    toks = _tokens(2, 24, jcfg.vocab_size)
+    loss, grads = jax.value_and_grad(lambda p: jtf.loss_fn(p, {"tokens": jnp.asarray(toks)},
+                                                          jcfg))(params)
+    plist = [t.requires_grad_() for t in leaves(tparams)]
+    tloss = ttf.loss_fn(tparams, {"tokens": torch.from_numpy(toks)}, tcfg)
+    tgrads = torch.autograd.grad(tloss, plist)
+    assert _rel(tloss, loss) < 1e-5
+    jg = bridge.flatten_with_paths(jax.tree.map(np.asarray, grads))
+    assert len(jg) == len(tgrads) == 13
+    for (path, g), tg in zip(jg, tgrads):
+        assert tg.shape == g.shape and _rel(tg, g) < 1e-5, path
+
+
+@pytest.mark.parametrize("chunked", [False, True])
+def test_attention_gradients_match_jax(chunked):
+    """Autograd through ``attention_forward`` (dense, and chunked with a
+    ragged last chunk) against ``jax.grad``; GQA via danube's smoke heads."""
+    jcfg = jax_smoke_config("h2o-danube-1.8b").replace(compute_dtype="float32", attn_chunk=7,
+                                                      dense_attn_limit=1 if chunked else 1 << 30)
+    tcfg = get_smoke_config("h2o-danube-1.8b").replace(compute_dtype="float32", attn_chunk=7,
+                                                       dense_attn_limit=1 if chunked else 1 << 30)
+    p = jattn.init_attention(jax.random.PRNGKey(1), 64, 4, 2, 16)
+    x = np.random.default_rng(2).standard_normal((2, 20, 64)).astype(np.float32)
+    pos = np.broadcast_to(np.arange(20, dtype=np.int32), (2, 20))
+
+    def jloss(p, x):
+        y = jattn.attention_forward(p, x, jnp.asarray(pos), jcfg)
+        return jnp.sum(y * jnp.cos(y))
+
+    jl, (jgp, jgx) = jax.value_and_grad(jloss, argnums=(0, 1))(p, jnp.asarray(x))
+    tp = bridge.params_from_numpy(jax.tree.map(np.asarray, p))
+    for t in tp.values():
+        t.requires_grad_()
+    tx = torch.from_numpy(x).requires_grad_()
+    y = tattn.attention_forward(tp, tx, torch.from_numpy(pos.copy()), tcfg)
+    tl = torch.sum(y * torch.cos(y))
+    tl.backward()
+    assert _rel(tl, jl) < 1e-5
+    assert _rel(tx.grad, jgx) < 1e-5
+    for k in tp:
+        assert _rel(tp[k].grad, jgp[k]) < 1e-5, k
+
+
+def test_batch_at_tokens_identical():
+    for cfg_j, cfg_t in ((jax_smoke_config(ARCH), get_smoke_config(ARCH)),
+                         (jax_get_config(ARCH), get_config(ARCH))):
+        data_j = jpipe.DataConfig(seed=3, global_batch=8, seq_len=128, host_id=1, n_hosts=2)
+        data_t = tpipe.DataConfig(seed=3, global_batch=8, seq_len=128, host_id=1, n_hosts=2)
+        for (sj, bj), (st, bt) in zip(jpipe.stream(cfg_j, data_j, 5), tpipe.stream(cfg_t, data_t, 5)):
+            assert sj == st
+            assert bt["tokens"].dtype == torch.int32 and bt["tokens"].shape == (4, 128)
+            np.testing.assert_array_equal(bt["tokens"].numpy(), np.asarray(bj["tokens"]))
+            if sj == 7:
+                break
+
+
+def test_adamw_matches_jax_over_five_steps():
+    cfg_j = jadamw.AdamWConfig(lr=1e-2, warmup_steps=2, total_steps=6)
+    cfg_t = tadamw.AdamWConfig(lr=1e-2, warmup_steps=2, total_steps=6)
+    rng = np.random.default_rng(4)
+    shapes = {"w": (5, 7), "b": [(3,), (2, 2)]}
+    mk = lambda s: rng.standard_normal(s).astype(np.float32)
+    params = {"w": mk(shapes["w"]), "b": [mk(s) for s in shapes["b"]]}
+    grads = [{"w": mk(shapes["w"]) * 3, "b": [mk(s) for s in shapes["b"]]} for _ in range(5)]
+    jp, js = jax.tree.map(jnp.asarray, params), jadamw.init_opt_state(jax.tree.map(jnp.asarray, params))
+    tp = bridge.params_from_numpy(params)
+    ts = tadamw.init_opt_state(tp)
+    # the same five steps on two virtual ranks: the per-rank form equals the single one
+    rp = bridge.params_from_numpy(jax.tree.map(lambda a: np.stack([a, a]), params))
+    rs = tadamw.init_opt_state(rp, lead=(2,))
+    for g in grads:
+        jp, js = jadamw.adamw_update(jp, jax.tree.map(jnp.asarray, g), js, cfg_j)
+        tp, ts = tadamw.adamw_update(tp, bridge.params_from_numpy(g), ts, cfg_t)
+        rg = bridge.params_from_numpy(jax.tree.map(lambda a: np.stack([a, a * 0.5]), g))
+        rp, rs = tadamw.adamw_update(rp, rg, rs, cfg_t)
+        for tree_t, tree_j in ((tp, jp), (ts["m"], js["m"]), (ts["v"], js["v"])):
+            for (path, a), t in zip(bridge.flatten_with_paths(jax.tree.map(np.asarray, tree_j)),
+                                    leaves(tree_t)):
+                np.testing.assert_allclose(t.numpy(), a, rtol=1e-6, atol=1e-7, err_msg=path)
+        assert ts["step"].dtype == torch.int32 and int(ts["step"]) == int(js["step"])
+        for a, t in zip(leaves(rp), leaves(tp)):
+            torch.testing.assert_close(a[0], t, rtol=0, atol=0)
+    lr_j = [float(jadamw.lr_at(cfg_j, jnp.int32(s))) for s in range(8)]
+    lr_t = tadamw.lr_at(cfg_t, torch.arange(8, dtype=torch.int32))
+    assert lr_t.dtype == torch.float32
+    np.testing.assert_allclose(lr_t.numpy(), lr_j, rtol=1e-6)
+
+
+# ---------------------------------------------------------------------------
+# the trainer on CPU virtual ranks (twin of tests/test_train_integration.py)
+# ---------------------------------------------------------------------------
+
+def _train(*extra):
+    return ttrain.main(["--arch", ARCH, "--smoke", "--device", "cpu", "--batch", "4",
+                        "--seq", "32", "--data-parallel", "4", "--log-every", "100", *extra])
+
+
+def test_lumorph_comm_matches_library_reduction():
+    common = ["--steps", "4", "--wire-dtype", "float32"]
+    base = _train(*common, "--comm", "xla")
+    assert base["steps"] == 4 and base["device"] == "cpu" and base["step_s"] > 0
+    for comm in ("ring", "lumorph2", "lumorph4"):
+        out = _train(*common, "--comm", comm)
+        assert out["final_loss"] == pytest.approx(base["final_loss"], rel=1e-4), comm
+    bf = _train("--steps", "4", "--comm", "lumorph4")  # bf16 wire
+    assert bf["final_loss"] == pytest.approx(base["final_loss"], rel=2e-2)
+
+
+def test_compressed_training_tracks():
+    base = _train("--steps", "6", "--comm", "lumorph2")
+    comp = _train("--steps", "6", "--comm", "lumorph2", "--compress")
+    assert comp["final_loss"] == pytest.approx(base["final_loss"], rel=0.05)
+    assert comp["final_loss"] != base["final_loss"]
+
+
+def test_microbatches_accumulate_the_same_gradient():
+    cfg = get_smoke_config(ARCH).replace(compute_dtype="float32")
+    batch = tpipe.batch_at(0, cfg, tpipe.DataConfig(global_batch=8, seq_len=16))
+    out = []
+    for mb in (1, 2):
+        params, opt = tsteps.init_train_state(cfg, 2, 0, "cpu")
+        step = tsteps.make_train_step(cfg, comm="ring", dp=2, microbatches=mb,
+                                      wire_dtype=torch.float32, device="cpu")
+        out.append(step(params, opt, batch))
+    assert float(out[0][2]) == pytest.approx(float(out[1][2]), rel=1e-6)
+    for a, b in zip(leaves(out[0][0]), leaves(out[1][0])):
+        torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-6)
+
+
+@pytest.mark.parametrize("flags,item", [
+    (["--comm", "auto"], "item 7"),
+    (["--comm", "lumorph4", "--overlap", "2"], "item 10"),
+    (["--ckpt-dir", "ck"], "item 9"),
+    (["--mesh", "single"], "item 13"),
+])
+def test_unported_flags_exit_naming_their_item(flags, item):
+    with pytest.raises(SystemExit, match=item):
+        _train("--steps", "1", *flags)
+
+
+# ---------------------------------------------------------------------------
+# cross-framework: the JAX trainer and the port from one carried-over state
+# ---------------------------------------------------------------------------
+
+JAX_TRAIN = r"""
+import os, pickle, sys
+os.environ["XLA_FLAGS"] = "--xla_force_host_platform_device_count={dp}"
+sys.path.insert(0, {src!r})
+import jax, jax.numpy as jnp
+from repro.configs import get_smoke_config
+from repro.data.pipeline import DataConfig, stream
+from repro.launch import steps
+from repro.launch.mesh import make_host_mesh
+from repro.optim.adamw import AdamWConfig
+from repro.sharding.policy import make_policy
+from repro_torch.bridge import per_rank_from_shards
+
+cfg = get_smoke_config("bert-large").replace(compute_dtype="float32")
+mesh = make_host_mesh(data={dp}, model=1)
+policy = make_policy(cfg, mesh)
+devices = list(mesh.devices.flatten())  # rank order along "data"
+opt = AdamWConfig(total_steps={steps}, warmup_steps=1)
+out = {{}}
+for name, comm, compress in (("fp32", "lumorph4", False), ("int8", "lumorph2", True)):
+    step = steps.make_train_step(cfg, policy, opt, comm=comm, bucket_bytes={bucket},
+                                 compress=compress, wire_dtype=jnp.float32)
+    params, opt_state = steps.init_sharded_state(cfg, policy, jax.random.PRNGKey(0),
+                                                 init_ef=compress)
+    init = per_rank_from_shards((params, opt_state), devices)
+    losses = []
+    for i, batch in stream(cfg, DataConfig(seed=0, global_batch={batch}, seq_len={seq})):
+        if i >= {steps}:
+            break
+        params, opt_state, loss = step(params, opt_state, batch)
+        losses.append(float(loss))
+    out[name] = dict(init=init, losses=losses,
+                     final=per_rank_from_shards((params, opt_state), devices))
+with open({path!r}, "wb") as f:
+    pickle.dump(out, f)
+"""
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _jax_trainer(tmp_path_factory):
+    """Starts the JAX runs with the module's first test, so that they overlap
+    the tests before the ones that read them."""
+    path = tmp_path_factory.mktemp("train") / "jax_runs.pkl"
+    env = {k: v for k, v in os.environ.items() if k != "XLA_FLAGS"}
+    code = JAX_TRAIN.format(dp=DP, src=SRC, steps=STEPS, bucket=BUCKET, batch=BATCH,
+                            seq=SEQ, path=str(path))
+    proc = subprocess.Popen([sys.executable, "-c", code], stdout=subprocess.PIPE,
+                            stderr=subprocess.PIPE, text=True, env=env)
+    yield proc, path
+    if proc.poll() is None:
+        proc.kill()
+    proc.communicate()
+
+
+@pytest.fixture(scope="module")
+def jax_runs(_jax_trainer):
+    proc, path = _jax_trainer
+    _, err = proc.communicate(timeout=600)
+    assert proc.returncode == 0, err[-3000:]
+    with open(path, "rb") as f:  # written by the subprocess just above
+        return pickle.load(f)
+
+
+def _port_run(run, comm, compress):
+    cfg = get_smoke_config(ARCH).replace(compute_dtype="float32")
+    params, opt_state = bridge.train_state_from_numpy(*run["init"])
+    assert opt_state["step"].shape == (DP,) and opt_state["step"].dtype == torch.int32
+    assert ("ef" in opt_state) == compress
+    step = tsteps.make_train_step(
+        cfg, tadamw.AdamWConfig(total_steps=STEPS, warmup_steps=1), comm=comm, dp=DP,
+        bucket_bytes=BUCKET, compress=compress, wire_dtype=torch.float32, device="cpu")
+    data = tpipe.DataConfig(seed=0, global_batch=BATCH, seq_len=SEQ)
+    losses = []
+    for i, batch in tpipe.stream(cfg, data):
+        if i >= STEPS:
+            break
+        params, opt_state, loss = step(params, opt_state, batch)
+        losses.append(float(loss))
+    return params, opt_state, losses, step.bucket_log
+
+
+def test_port_tracks_jax_trainer_from_the_same_state(jax_runs):
+    run = jax_runs["fp32"]
+    params, opt_state, losses, log = _port_run(run, "lumorph4", False)
+    assert len(log) > 3 and {a for _, a in log} == {"lumorph4"}
+    np.testing.assert_allclose(losses, run["losses"], rtol=1e-4)
+    jparams, jopt = run["final"]
+    for (path, a), t in zip(bridge.flatten_with_paths(jparams), leaves(params)):
+        np.testing.assert_allclose(t.numpy(), a, rtol=0, atol=1e-5, err_msg=path)
+    assert np.array_equal(opt_state["step"].numpy(), jopt["step"])
+
+
+def test_compressed_port_tracks_jax_per_rank(jax_runs):
+    """Under int8 the JAX replicas end apart, device by device; the port's
+    ranks track each device's copy."""
+    run = jax_runs["int8"]
+    params, opt_state, losses, log = _port_run(run, "lumorph2", True)
+    assert {a for _, a in log} == {"lumorph2+int8"}
+    np.testing.assert_allclose(losses, run["losses"], rtol=1e-4)
+    jparams, jopt = run["final"]
+    spread_j = spread_t = 0.0
+    for (path, a), t in zip(bridge.flatten_with_paths(jparams), leaves(params)):
+        t = t.numpy()
+        spread_j = max(spread_j, float(np.abs(a - a[:1]).max()))
+        spread_t = max(spread_t, float(np.abs(t - t[:1]).max()))
+        np.testing.assert_allclose(t, a, rtol=0, atol=2e-5, err_msg=path)
+    assert spread_j > 0 and spread_t > 0  # the replicas differ, in both
+    # error feedback: equal but where the two frameworks' gradients, a few ulps
+    # apart, round to neighbouring int8 levels, which moves the residual by one
+    # quantization step (at most about twice the largest residual)
+    for (path, a), t in zip(bridge.flatten_with_paths(jopt["ef"]), leaves(opt_state["ef"])):
+        diff = np.abs(t.numpy() - a)
+        assert np.mean(diff > 1e-6) < 1e-3, path
+        assert diff.max() <= 2.5 * np.abs(a).max(), path
