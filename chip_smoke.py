@@ -28,10 +28,31 @@ JAX or of the JAX package. No phase's failure is caught.
      limit of tests/test_train_integration.py), then ``--comm lumorph2
      --compress`` (int8 payloads and error feedback through the int8
      kernels; final loss within 5 % of the lumorph4 run).
+     Then overlap mode (``--overlap 4``): ``lumorph4`` (final loss within
+     1e-4 relative of the monolithic lumorph4 run) with checkpoints every 3
+     steps, and ``lumorph2 --compress`` (within 1e-3 relative of the
+     monolithic compressed run); and a checkpoint round trip: the overlap
+     run is restarted from its step-3 checkpoint and must end on the same
+     final loss, exactly.
   6. One profiled training step per comm at the same size (after a warm
-     step): host and device time of the step's stages
-     (``train/forward_backward``, ``train/grad_comm``, ``train/adamw``), the
-     card's busy time and idle share, and the kernels that take the most.
+     step; lumorph4 also with ``--overlap 4``): host and device time of the
+     step's stages (``train/forward_backward``, ``train/grad_comm``,
+     ``train/adamw``), the card's busy time and idle share, and the kernels
+     that take the most.
+  7. Overlap mode, the port's twin of the JAX package's overlap benchmark:
+     8 virtual ranks, lumorph2, each reduced chunk consumed by the RMSNorm
+     kernel over rows of 128 (w = 0), monolithic and C ∈ {2, 4, 8}, at a
+     25 MB gradient bucket and at 256 MB per rank: relative error against
+     the plain RMSNorm of the plain sum within 1e-5, time per call, one
+     kernel launch per chunk. With no consumer, C = 1 equals the monolithic
+     program bit for bit, and at 1 MB per rank C = 4 equals its CPU run.
+
+Phase 2 also holds the RMSNorm kernel against its plain version (fp32
+within 1e-5, bf16 within 2e-2, the limits of tests/test_kernels.py, or one
+bf16 ulp where that is larger) on the shapes of tests/test_kernels.py, odd
+widths, an overlap chunk's rows and danube's prefill rows, and times it
+from a cold L2 at an overlap chunk of phase 7 and at danube's rows, beside
+its plain version and ``torch.nn.functional.rms_norm``.
 
 Phase 2 also holds the int8 quantize/dequantize kernels against their plain
 versions, equal in every bit (``torch.equal``), on the sizes of
@@ -41,17 +62,19 @@ bucket and the leaf sizes: each call from a cold L2 cache (``ms``), and
 back-to-back calls, host gaps and a warm L2 included (``ms_back_to_back``).
 
 Each main path is driven with the launch counters set to 0 just before it
-and read just after: serving (phases 3 and 4) and training (phase 5). The
-last lines are the ``{"kernels": [...]}`` record, the run record, and
-``{"ok": true, "device": {...}}``.
+and read just after: serving (phases 3 and 4), training (phase 5) and
+overlap mode (phase 7). The last lines are the ``{"kernels": [...]}``
+record, the run record, and ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
 
+import functools
 import json
 import math
 import pathlib
 import re
+import shutil
 import subprocess
 import sys
 import time
@@ -92,7 +115,32 @@ KERNEL_KINDS = [("gemm", ("gemm", "xmma", "cutlass", "cublas", "sm90_", "nvjet")
                 ("elementwise", ("elementwise",))]
 TRAIN_RUNS = [("xla", ["--comm", "xla", "--wire-dtype", "float32"]),
               ("lumorph4", ["--comm", "lumorph4", "--wire-dtype", "float32"]),
-              ("lumorph2+int8", ["--comm", "lumorph2", "--compress"])]
+              ("lumorph2+int8", ["--comm", "lumorph2", "--compress"]),
+              ("lumorph4+ovl4", ["--comm", "lumorph4", "--wire-dtype", "float32",
+                                 "--overlap", "4", "--ckpt-every", "3"]),
+              ("lumorph2+int8+ovl4", ["--comm", "lumorph2", "--compress", "--overlap", "4"])]
+CKPT_DIR = ROOT / "build" / "chip_smoke_ckpt"  # gitignored; removed after phase 5
+# overlap mode (phase 7): the JAX package's overlap benchmark (OVERLAP_SCRIPT and
+# CLAIM_BYTES of benchmarks/bench_collective_exec.py) on 8 virtual ranks
+OVL_P, OVL_D, OVL_CHUNKS = 8, 128, (2, 4, 8)
+OVL_SIZES = {"bucket_25MB": BUCKET_N, "claim_256MB": 64_000_000}  # fp32 per rank
+OVL_SMALL = 1024 * 1024 // 4  # 1 MB per rank: card against CPU
+# RMSNorm (phase 2): tests/test_kernels.py's cases, odd widths, one overlap chunk's
+# rows at 25 MB per rank (C = 4) and danube's prefill rows
+RMS_CASES = [((4, 37, 512), torch.float32), ((2, 130, 768), torch.bfloat16),
+             ((1, 1, 2048), torch.float32), ((512, 64), torch.float32),
+             ((5, 37), torch.float32), ((3, 100), torch.bfloat16),
+             ((OVL_P * BUCKET_N // 4 // OVL_D, OVL_D), torch.float32),
+             ((2 * 4608, 2560), torch.bfloat16)]
+# tests/test_kernels.py's limits. In bf16 a value the two versions round to
+# neighbouring bf16 numbers differs by one bf16 ulp, which is above 2e-2 from
+# |x| = 4 on (0.03125 in [4, 8)): the bf16 limit is one ulp of the plain value
+# where that is larger. The fp32 values before the rounding differ by an ulp or so
+# (another summation order); over 23.6 M danube elements a few round apart.
+RMS_TOL = {torch.float32: 1e-5, torch.bfloat16: 2e-2}
+# the timed shapes: one chunk of phase 7's 256 MB call at C = 4, and danube's rows
+RMS_TIMED = {"overlap_chunk": ((OVL_P * 64_000_000 // 4 // OVL_D, OVL_D), torch.float32),
+             "danube_rows": ((2 * 4608, 2560), torch.bfloat16)}
 
 
 def cuda_ms(fn, reps: int) -> float:
@@ -133,6 +181,11 @@ def cold_ms(fn, reps: int) -> float:
     return sum(s.elapsed_time(e) for s, e in pairs) / reps
 
 
+def bf16_ulp(t: torch.Tensor) -> torch.Tensor:
+    """Spacing of bf16 numbers (7 stored mantissa bits) at |t|, normal range."""
+    return torch.exp2(torch.floor(torch.log2(t.abs().clamp(min=2.0 ** -126))) - 7)
+
+
 def live_pairs(sq: int, skv: int, causal: bool, window) -> int:
     """(query, key) pairs the mask keeps: the work this input needs."""
     q = torch.arange(sq, dtype=torch.int64)
@@ -155,10 +208,11 @@ def ptxas_report(log: pathlib.Path) -> dict:
     regs, spills, entry = {}, [], "?"
     for line in log.read_text().splitlines() if log.exists() else []:
         if "Compiling entry function" in line:
-            cols = re.search(r"Li(\d+)E", line)  # flash attention's ⌈D/16⌉ argument
+            # an int template argument: flash attention's ⌈D/16⌉, RMSNorm's unroll
+            cols = re.search(r"Li(\d+)E", line)
             named = re.search(r"(\w+_kernel)", line)
             dtype = "bf16" if "bfloat16" in line else "f32"
-            entry = (f"{dtype}/NC{cols.group(1)}" if cols
+            entry = (f"{dtype}/<{cols.group(1)}>" if cols
                      else named.group(1) if named else line.split()[-1])
         elif "Used" in line and "registers" in line:
             regs[entry] = int(re.search(r"Used (\d+) registers", line).group(1))
@@ -267,10 +321,101 @@ def phase_int8(ops, ref) -> dict:
     return {"checks": checks, "timed": timed}
 
 
+def phase_rmsnorm(ops, ref) -> dict:
+    """Phase 2, RMSNorm: the kernel against its plain version on the card, then
+    timed with the plain version and ``F.rms_norm`` from a cold L2."""
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    checks = []
+    for shape, dt in RMS_CASES:
+        x = torch.randn(shape, generator=gen, device="cuda").to(dt)
+        w = torch.randn(shape[-1], generator=gen, device="cuda") * 0.2
+        out = ops.fused_rmsnorm(x, w).float()
+        plain = ref.reference_rmsnorm(x, w).float()
+        diff = (out - plain).abs()
+        limit = torch.full_like(plain, RMS_TOL[dt])
+        if dt == torch.bfloat16:  # or one bf16 ulp of the plain value, whichever is larger
+            limit = torch.maximum(limit, bf16_ulp(plain))
+        checks.append({"shape": list(shape), "dtype": str(dt).removeprefix("torch."),
+                       "max_abs_err": float(diff.max()), "tol": RMS_TOL[dt],
+                       "max_err_over_limit": float((diff / limit).max())})
+        assert torch.isfinite(out).all(), checks[-1]
+        assert bool((diff <= limit).all()), checks[-1]
+    torch.cuda.synchronize()
+    timed = {}
+    for key, (shape, dt) in RMS_TIMED.items():
+        x = torch.randn(shape, generator=gen, device="cuda").to(dt)
+        w = torch.randn(shape[-1], generator=gen, device="cuda") * 0.2
+        one_plus_w = (1.0 + w).to(dt)  # the library call takes the applied weight
+        rows, d = x.numel() // shape[-1], shape[-1]
+        nbytes = rows * d * 2 * x.element_size() + 4 * d
+        timed[key] = {
+            "shape": list(shape), "dtype": str(dt).removeprefix("torch."),
+            "ms": cold_ms(lambda: ops.fused_rmsnorm(x, w), 20),
+            "plain_ms": cold_ms(lambda: ref.reference_rmsnorm(x, w), 5),
+            "library_ms": cold_ms(lambda: torch.nn.functional.rms_norm(
+                x, (d,), weight=one_plus_w, eps=ops.RMSNORM_EPS), 20),
+            "bound_ms": nbytes / HBM_BYTES_S * 1e3, "bound_by": "bytes",
+            "max_abs_err": max(c["max_abs_err"] for c in checks if c["dtype"] ==
+                               str(dt).removeprefix("torch."))}
+        del x, w, one_plus_w
+        torch.cuda.empty_cache()
+    return {"checks": checks, "timed": timed}
+
+
+def phase_overlap(ops, ref, collectives) -> dict:
+    """Phase 7: overlap mode on 8 virtual ranks, lumorph2, the RMSNorm kernel as
+    each chunk's consumer; monolithic against C ∈ {2, 4, 8} at two sizes."""
+    w = torch.zeros(OVL_D, device="cuda")
+
+    def compute(y):
+        return ops.fused_rmsnorm(y.reshape(-1, OVL_D), w).reshape(y.shape)
+    mono_program = collectives.compile_schedule(
+        collectives.schedule_for_execution("lumorph2", OVL_P), OVL_P)
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    out = {}
+    for name, n in OVL_SIZES.items():
+        x = torch.randn(OVL_P, n, generator=gen, device="cuda")
+        expect = ref.reference_rmsnorm(x.sum(0).reshape(-1, OVL_D), w).reshape(-1)
+        runs = {}
+        for C in (1, *OVL_CHUNKS):
+            if C == 1:
+                fn = lambda: compute(mono_program(x))  # noqa: E731
+            else:
+                fn = collectives.make_overlapped_all_reduce(OVL_P, "lumorph2", C, compute)
+                fn = functools.partial(fn, x)
+            n0 = ops.LAUNCHES["rmsnorm"]
+            y = fn()
+            launches = ops.LAUNCHES["rmsnorm"] - n0
+            rel = float((y - expect).abs().max() / expect.abs().max())
+            assert y.shape == x.shape and torch.isfinite(y).all(), (name, C)
+            assert launches == C, (name, C, launches)
+            assert rel <= 1e-5, (name, C, rel)
+            del y
+            runs["mono" if C == 1 else f"c{C}"] = {
+                "ms": cuda_ms(fn, 3), "rel_err": rel, "rmsnorm_launches_per_call": launches}
+        plain = collectives.overlapped_all_reduce(x, "lumorph2", 1)
+        assert torch.equal(plain, mono_program(x)), name  # the wave split adds no arithmetic
+        runs["bytes_per_rank"] = 4 * n
+        out[name] = runs
+        print(json.dumps({"overlap": name, **runs}), flush=True)
+        del x, expect, plain
+        torch.cuda.empty_cache()
+    small = torch.randn(OVL_P, OVL_SMALL, generator=torch.Generator().manual_seed(6))
+    card = collectives.overlapped_all_reduce(small.cuda(), "lumorph2", 4)
+    out["small_card_equals_cpu"] = torch.equal(
+        card.cpu(), collectives.overlapped_all_reduce(small, "lumorph2", 4))
+    assert out["small_card_equals_cpu"]
+    torch.cuda.synchronize()
+    return out
+
+
 def phase_train(train) -> dict:
     """Phase 5: bert-large data-parallel training at full width, three comms."""
     runs = {}
+    shutil.rmtree(CKPT_DIR, ignore_errors=True)
     for name, flags in TRAIN_RUNS:
+        if "--ckpt-every" in flags:
+            flags = flags + ["--ckpt-dir", str(CKPT_DIR)]
         torch.cuda.reset_peak_memory_stats()
         res = train.main(TRAIN + flags)
         torch.cuda.synchronize()
@@ -280,14 +425,26 @@ def phase_train(train) -> dict:
         torch.cuda.empty_cache()
         assert res["steps"] == 6 and all(math.isfinite(res[k]) for k in ("first_loss",
                                                                          "final_loss")), res
-    base, l4, comp = (runs[k]["final_loss"] for k, _ in TRAIN_RUNS)
+    # the checkpoint round trip: drop the step-6 checkpoint, restart from step 3
+    shutil.rmtree(CKPT_DIR / "step_0000000006")
+    res = train.main(TRAIN + TRAIN_RUNS[3][1] + ["--ckpt-dir", str(CKPT_DIR)])
+    shutil.rmtree(CKPT_DIR)
+    print(json.dumps({"train": "lumorph4+ovl4 restarted at step 3", **res}), flush=True)
+    assert res["steps"] == 3, res
+    runs["restart_final_loss_equal"] = res["final_loss"] == runs["lumorph4+ovl4"]["final_loss"]
+    base, l4, comp, l4o, compo = (runs[k]["final_loss"] for k, _ in TRAIN_RUNS)
     runs["lumorph4_vs_xla_rel"] = abs(l4 - base) / abs(base)
     runs["int8_vs_lumorph4_rel"] = abs(comp - l4) / abs(l4)
-    print(json.dumps({"train_agreement": {k: runs[k] for k in ("lumorph4_vs_xla_rel",
-                                                               "int8_vs_lumorph4_rel")}}),
-          flush=True)
+    runs["ovl4_vs_lumorph4_rel"] = abs(l4o - l4) / abs(l4)
+    runs["int8_ovl4_vs_int8_rel"] = abs(compo - comp) / abs(comp)
+    keys = ("lumorph4_vs_xla_rel", "int8_vs_lumorph4_rel", "ovl4_vs_lumorph4_rel",
+            "int8_ovl4_vs_int8_rel", "restart_final_loss_equal")
+    print(json.dumps({"train_agreement": {k: runs[k] for k in keys}}), flush=True)
     assert runs["lumorph4_vs_xla_rel"] <= 1e-4, runs
     assert runs["int8_vs_lumorph4_rel"] <= 0.05, runs
+    assert runs["ovl4_vs_lumorph4_rel"] <= 1e-4, runs
+    assert runs["int8_ovl4_vs_int8_rel"] <= 1e-3, runs
+    assert runs["restart_final_loss_equal"], runs
     return runs
 
 
@@ -299,13 +456,16 @@ def phase_trace(get_config, steps_lib, pipeline, AdamWConfig) -> dict:
     cfg = get_config("bert-large")
     batch = pipeline.batch_at(0, cfg, pipeline.DataConfig(global_batch=8, seq_len=128))
     out = {}
-    for name, comm, compress, wire in (("xla", "xla", False, torch.float32),
-                                       ("lumorph4", "lumorph4", False, torch.float32),
-                                       ("lumorph2+int8", "lumorph2", True, torch.bfloat16)):
+    for name, comm, compress, wire, overlap in (
+            ("xla", "xla", False, torch.float32, 1),
+            ("lumorph4", "lumorph4", False, torch.float32, 1),
+            ("lumorph2+int8", "lumorph2", True, torch.bfloat16, 1),
+            ("lumorph4+ovl4", "lumorph4", False, torch.float32, 4)):
         params, opt = steps_lib.init_train_state(cfg, 4, 0, "cuda", init_ef=compress)
         step = steps_lib.make_train_step(cfg, AdamWConfig(total_steps=6, warmup_steps=1),
                                          comm=comm, dp=4, compress=compress,
-                                         wire_dtype=wire, device="cuda")
+                                         wire_dtype=wire, overlap_chunks=overlap,
+                                         device="cuda")
         params, opt, _ = step(params, opt, batch)
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -404,6 +564,7 @@ def main() -> None:
         sys.exit("chip_smoke: no CUDA device is available; this script runs on the card only")
     sys.path.insert(0, str(ROOT / "src"))
     from repro_torch.configs import get_config
+    from repro_torch.core import collectives
     from repro_torch.kernels import build, ops, ref
     from repro_torch.data import pipeline
     from repro_torch.launch import serve, train
@@ -436,6 +597,9 @@ def main() -> None:
     print(json.dumps({"kernel_checks": kern["checks"]}), flush=True)
     int8 = phase_int8(ops, ref)
     print(json.dumps({"int8_checks": int8["checks"]}), flush=True)
+    rms = phase_rmsnorm(ops, ref)
+    print(json.dumps({"rmsnorm_checks": rms["checks"], "rmsnorm_timed": rms["timed"]}),
+          flush=True)
 
     # -- phases 3 and 4: the serving path -----------------------------------
     for name in ops.LAUNCHES:
@@ -462,6 +626,15 @@ def main() -> None:
     # -- phase 6: where a training step spends its time ---------------------
     trace = phase_trace(get_config, steps_lib, pipeline, AdamWConfig)
 
+    # -- phase 7: overlap mode, the RMSNorm kernel as each chunk's consumer --
+    for name in ops.LAUNCHES:
+        ops.LAUNCHES[name] = 0
+    overlap = phase_overlap(ops, ref, collectives)
+    torch.cuda.synchronize()
+    overlapping = dict(ops.LAUNCHES)
+    assert overlapping["rmsnorm"] > 0, overlapping
+    print(json.dumps({"launches": {"overlap": overlapping}}), flush=True)
+
     bf, f32 = kern["timed"][torch.bfloat16], kern["timed"][torch.float32]
     records = [{
         "name": "flash_attention", "route": "cuda",
@@ -485,9 +658,19 @@ def main() -> None:
             "bound_ms": t[BUCKET_N]["bound_ms"], "bound_by": "bytes", "library_ms": None,
             "n": BUCKET_N, "leaf": {"n": LEAF_N, **t[LEAF_N]},
         })
+    t = rms["timed"]["overlap_chunk"]
+    records.append({
+        "name": "rmsnorm", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/rmsnorm.cu",
+        "replaces": "src/repro/kernels/rmsnorm.py:18",
+        "launches": overlapping["rmsnorm"],
+        "max_abs_err": t["max_abs_err"], "ms": t["ms"], "plain_ms": t["plain_ms"],
+        "bound_ms": t["bound_ms"], "bound_by": "bytes", "library_ms": t["library_ms"],
+        "shape": t["shape"], "dtype": t["dtype"], "danube_rows": rms["timed"]["danube_rows"],
+    })
     print(json.dumps({"kernels": records}), flush=True)
-    print(json.dumps({"prefill": prefill, "train": runs, "trace": trace, "card": smi,
-                      "total_s": time.perf_counter() - t_start}), flush=True)
+    print(json.dumps({"prefill": prefill, "train": runs, "trace": trace, "overlap": overlap,
+                      "card": smi, "total_s": time.perf_counter() - t_start}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))

@@ -19,6 +19,14 @@ makes, and non-destinations add the zeros ppermute hands them.
 once: ``encode(piece [p, k, L])`` returns a tuple of tensors with the
 rank axis first, which move together; ``decode(payload, piece)`` returns
 a tensor shaped like ``piece``.
+
+:func:`overlapped_all_reduce` is overlap mode: the buffer is cut into
+``C`` slices, each runs its own reduce-scatter and all-gather waves
+(``scheduler.chunk_schedule``), and a ``compute`` consumer of each reduced
+slice is issued for chunk ``c−1`` behind chunk ``c``'s waves, in the JAX
+package's order. Everything is issued on one stream, so on the card the
+chunks' communication and compute run one after another; a side stream
+for the waves is later work.
 """
 
 from __future__ import annotations
@@ -28,9 +36,11 @@ from typing import Any, Callable, Optional
 
 import torch
 
-from repro_torch.core.scheduler import Schedule, build_schedule
+from repro_torch.core.scheduler import (ChunkedSchedule, Schedule, build_schedule,
+                                        chunk_schedule)
 
-__all__ = ["compile_schedule", "schedule_for_execution", "all_reduce", "ALGOS"]
+__all__ = ["compile_schedule", "schedule_for_execution", "all_reduce", "ALGOS",
+           "overlapped_all_reduce", "make_overlapped_all_reduce"]
 
 Tensor = torch.Tensor
 #: encode(piece [p, k, L]) -> payload (a tensor or tuple of tensors, rank axis first)
@@ -127,10 +137,18 @@ def compile_schedule(schedule: Schedule, p: int, encode: Optional[Encode] = None
 
 
 @functools.lru_cache(maxsize=256)
-def schedule_for_execution(algo: str, p: int) -> Schedule:
+def schedule_for_execution(algo: str, p: int,
+                           n_chunks: int = 1) -> "Schedule | ChunkedSchedule":
     """The canonical rank-space schedule for executing ``algo`` over ``p``
-    ranks (participants 0..p−1; byte metadata irrelevant to execution)."""
-    return build_schedule(algo, tuple(range(p)), 0.0)
+    ranks (participants 0..p−1; byte metadata irrelevant to execution).
+
+    ``n_chunks > 1`` returns the chunked (wave) lowering of the cached
+    monolithic program. The LRU is keyed on all three arguments, so a
+    chunked entry never aliases the monolithic one.
+    """
+    if n_chunks == 1:
+        return build_schedule(algo, tuple(range(p)), 0.0)
+    return chunk_schedule(schedule_for_execution(algo, p), n_chunks)
 
 
 @functools.lru_cache(maxsize=256)
@@ -165,3 +183,81 @@ def all_reduce(x: Tensor, algo: str = "lumorph2") -> Tensor:
     except KeyError:
         raise ValueError(f"unknown collective {algo!r}; have {sorted(ALGOS)}")
     return fn(x)
+
+
+#: one compiled program per (wave schedule, p, encode, decode): the waves of
+#: every chunk, and every call, share their index tables on the device
+_wave_program = functools.lru_cache(maxsize=256)(compile_schedule)
+
+
+def overlapped_all_reduce(x: Tensor, algo: str = "lumorph2", n_chunks: int = 1,
+                          compute: Optional[Callable[[Tensor], Tensor]] = None,
+                          encode: Optional[Encode] = None,
+                          decode: Optional[Decode] = None,
+                          schedule: "Optional[Schedule | ChunkedSchedule]" = None,
+                          ) -> Tensor:
+    """Chunked, pipelined ALLREDUCE of ``x[p, ...]`` over its rank axis.
+
+    Each rank's row is flattened and zero-padded on its own to a multiple of
+    ``n_chunks`` and cut into ``C`` slices ``[p, size]``; each slice runs the
+    collective as its own reduce-scatter and all-gather waves. ``compute``
+    maps a reduced slice ``[p, size]`` (rank axis first) to its output of
+    the same shape; chunk ``c−1``'s compute is issued after chunk ``c``'s
+    waves. The result concatenates the slices and drops the padding.
+
+    With ``n_chunks=1`` and no ``compute`` the result is bit-identical to
+    :func:`all_reduce`: the wave split adds no arithmetic. ``encode`` and
+    ``decode`` wrap every hop of every wave. ``schedule`` overrides the
+    rank-space program (a :class:`Schedule` or a prebuilt
+    :class:`ChunkedSchedule` with ``p`` participants).
+    """
+    p = x.shape[0]
+    if schedule is None:
+        a = "ring" if algo == "lumorph2" and p & (p - 1) else algo  # all_reduce's rule
+        chunked = schedule_for_execution(a, p, n_chunks)
+        if not isinstance(chunked, ChunkedSchedule):
+            chunked = chunk_schedule(chunked, n_chunks)
+    else:
+        chunked = (schedule if isinstance(schedule, ChunkedSchedule)
+                   else chunk_schedule(schedule, n_chunks))
+    C = chunked.n_chunks
+    if len(chunked.participants) != p:
+        raise ValueError(f"schedule has {len(chunked.participants)} participants but x "
+                         f"has {p} ranks on its leading axis")
+
+    flat, n = _flatten_pad(x, C)
+    size = flat.shape[1] // C
+    slices = [flat[:, c * size:(c + 1) * size] for c in range(C)]
+    per_chunk: list[list[Callable[[Tensor], Tensor]]] = [[] for _ in range(C)]
+    for w in chunked.waves:
+        per_chunk[w.chunk].append(_wave_program(w.schedule, p, encode, decode))
+
+    reduced: list[Optional[Tensor]] = [None] * C
+    outs: list[Optional[Tensor]] = [None] * C
+
+    def finish(c: int) -> None:
+        outs[c] = reduced[c] if compute is None else compute(reduced[c])
+
+    for c in range(C):
+        y = slices[c]
+        for f in per_chunk[c]:  # chunk c's waves: rs, then ag
+            y = f(y)
+        reduced[c] = y
+        if c > 0:
+            finish(c - 1)  # chunk c−1's compute is issued behind chunk c's waves
+    finish(C - 1)
+    out = torch.cat(outs, dim=1) if C > 1 else outs[0]
+    return out[:, :n].reshape(x.shape)
+
+
+def make_overlapped_all_reduce(p: int, algo: str = "lumorph2", n_chunks: int = 1,
+                               compute: Optional[Callable[[Tensor], Tensor]] = None,
+                               schedule: "Optional[Schedule | ChunkedSchedule]" = None,
+                               ) -> Callable[[Tensor], Tensor]:
+    """:func:`overlapped_all_reduce` bound to its arguments, for ``x[p, ...]``
+    (the twin of the JAX package's jitted global-array wrapper)."""
+    def fn(x: Tensor) -> Tensor:
+        if x.shape[0] != p:
+            raise ValueError(f"built for {p} ranks, x has {x.shape[0]}")
+        return overlapped_all_reduce(x, algo, n_chunks, compute, schedule=schedule)
+    return fn

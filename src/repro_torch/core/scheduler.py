@@ -6,10 +6,14 @@ that execution needs. The builders here are copies of the JAX package's
 ``ring_schedule``, ``rhd_schedule`` (LUMORPH-2), ``rqq_schedule``
 (LUMORPH-4) and ``tree_schedule``, so both executors read the same tables.
 
-Left out, because the port's executor reads only ``participants``,
-``rounds[*].transfers`` and ``n_chunks``: pricing (``Schedule.cost``),
-``validate``, the fabric/rack/health coupling, chunked (overlap) lowering
-and hierarchical composition (ROADMAP Queue 1 items 7 and 10).
+The chunked lowering of overlap mode (:class:`ChunkedSchedule`, its
+:class:`Wave` s and :func:`chunk_schedule`) is copied as shape only.
+
+Left out, because the port's executors read only ``participants``,
+``rounds[*].transfers`` and ``n_chunks``: pricing (``Schedule.cost`` and
+the chunked programs' wave, chunk and overlapped costs), ``validate``, the
+fabric/rack/health coupling (ROADMAP Queue 1 item 7) and hierarchical
+composition, with the ``hier:*`` schedules it makes.
 """
 
 from __future__ import annotations
@@ -368,3 +372,109 @@ def build_schedule(algo: str, chips: Sequence[int], n_bytes: float) -> Schedule:
     except KeyError:
         raise ValueError(f"no schedule builder for {algo!r}; have {sorted(SCHEDULE_BUILDERS)}")
     return builder(chips, n_bytes)
+
+
+# ---------------------------------------------------------------------------
+# chunked / pipelined lowering (overlap mode), shape only
+# ---------------------------------------------------------------------------
+
+_PRICING = ("pricing a chunked schedule needs LinkModel and the rack/pod/health "
+            "coupling, which come with --comm auto (ROADMAP Queue 1 item 7)")
+
+
+@dataclasses.dataclass(frozen=True, eq=False)
+class Wave:
+    """One overlappable unit of a :class:`ChunkedSchedule`: chunk ``chunk``'s
+    reduce-scatter prefix (``phase == "rs"``) or its all-gather suffix
+    (``phase == "ag"``) on one ``1/C`` slice of the payload. ``schedule`` is
+    an ordinary :class:`Schedule` over the slice, shared by every chunk."""
+
+    chunk: int
+    phase: str  # "rs" (reduce-scatter, accumulate) | "ag" (all-gather)
+    schedule: Schedule
+
+
+class ChunkedSchedule:
+    """A :class:`Schedule` lowered onto ``n_chunks`` payload slices.
+
+    The base program's rounds are split at the reduce-scatter/all-gather
+    boundary (the rounds' ``reduce`` tags) and emitted once per chunk at
+    ``n_bytes / C``: ``2·C`` waves (``C`` when a phase is empty). The two
+    per-phase wave schedules share the base's Transfer tables: a ``1/C``
+    slice is a whole buffer with the same chunk granularity.
+    """
+
+    def __init__(self, base: Schedule, n_chunks: int):
+        if n_chunks < 1:
+            raise ValueError(f"n_chunks must be ≥ 1, got {n_chunks}")
+        self.base = base
+        self.n_chunks = n_chunks
+        rs_rounds, ag_rounds = _split_phases(base)
+
+        def scaled(rounds):
+            new = tuple(Round(r.pairs_arr, r.bytes_per_circuit * (1.0 / n_chunks),
+                              egress_fanout=r.egress_fanout, reduce=r.reduce)
+                        for r in rounds)
+
+            def fill():
+                base.materialize()
+                return tuple(r.transfers for r in rounds)
+
+            return Schedule(base.algo, base.participants, new, base.n_bytes / n_chunks,
+                            n_chunks=base.n_chunks, _fill=fill if new else None)
+
+        self._rs = scaled(rs_rounds) if rs_rounds else None
+        self._ag = scaled(ag_rounds) if ag_rounds else None
+        self.waves: tuple[Wave, ...] = tuple(
+            Wave(c, phase, sched) for c in range(n_chunks)
+            for phase, sched in (("rs", self._rs), ("ag", self._ag)) if sched is not None)
+
+    @property
+    def algo(self) -> str:
+        return f"{self.base.algo}|chunks={self.n_chunks}"
+
+    @property
+    def participants(self) -> tuple[int, ...]:
+        return self.base.participants
+
+    def waves_of_chunk(self, chunk: int) -> tuple[Wave, ...]:
+        return tuple(w for w in self.waves if w.chunk == chunk)
+
+    def wave_costs(self, *args, **kwargs):
+        raise NotImplementedError(_PRICING)
+
+    def chunk_costs(self, *args, **kwargs):
+        raise NotImplementedError(_PRICING)
+
+    def cost(self, *args, **kwargs):
+        raise NotImplementedError(_PRICING)
+
+    def overlapped_cost(self, *args, **kwargs):
+        raise NotImplementedError(_PRICING)
+
+    def validate(self, *args, **kwargs):
+        raise NotImplementedError(_PRICING)
+
+
+def chunk_schedule(schedule: Schedule, n_chunks: int) -> ChunkedSchedule:
+    """Lower ``schedule`` into ``n_chunks`` overlappable waves (see
+    :class:`ChunkedSchedule`); builds no Transfer tables."""
+    return ChunkedSchedule(schedule, n_chunks)
+
+
+def _split_phases(sched: Schedule) -> tuple[list[Round], list[Round]]:
+    """An ALLREDUCE schedule's reduce-scatter prefix and all-gather suffix,
+    by the rounds' phase tags; interleaved phases or untagged rounds raise."""
+    rs: list[Round] = []
+    ag: list[Round] = []
+    for r in sched.rounds:
+        if r.reduce is None:
+            raise ValueError(f"{sched.algo}: round without a phase-tagged lowering "
+                             "cannot be composed")
+        if r.reduce:
+            if ag:
+                raise ValueError(f"{sched.algo}: reduce round after all-gather began")
+            rs.append(r)
+        else:
+            ag.append(r)
+    return rs, ag

@@ -21,7 +21,8 @@ from repro_torch.kernels import build, ref
 Tensor = torch.Tensor
 
 #: kernel name → number of CUDA launches by its wrapper in this process
-LAUNCHES: dict[str, int] = {"flash_attention": 0, "quantize_int8": 0, "dequantize_int8": 0}
+LAUNCHES: dict[str, int] = {"flash_attention": 0, "quantize_int8": 0, "dequantize_int8": 0,
+                            "rmsnorm": 0}
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -43,6 +44,15 @@ def _quant_lib() -> ctypes.CDLL:
     lib.quantize_int8.argtypes = [vp, vp, vp, ctypes.c_longlong, vp]
     lib.dequantize_int8.argtypes = [vp, vp, vp, ctypes.c_longlong, vp]
     lib.quantize_int8.restype = lib.dequantize_int8.restype = ctypes.c_int
+    return lib
+
+
+@functools.cache
+def _rmsnorm_lib() -> ctypes.CDLL:
+    lib = build.load("rmsnorm")
+    vp, ci = ctypes.c_void_p, ctypes.c_int
+    lib.rmsnorm_fwd.argtypes = [vp, vp, vp, ctypes.c_longlong, ci, ctypes.c_float, ci, ci, vp]
+    lib.rmsnorm_fwd.restype = ci
     return lib
 
 
@@ -125,7 +135,7 @@ def _device_of(*ts: Tensor) -> str:
         raise ValueError(f"tensors lie on different devices: {sorted(map(str, dev))}")
     kind = ts[0].device.type
     if kind not in ("cpu", "cuda"):
-        raise ValueError(f"the int8 kernels run on cpu or cuda tensors, not {ts[0].device}")
+        raise ValueError(f"the kernels run on cpu or cuda tensors, not {ts[0].device}")
     return kind
 
 
@@ -185,4 +195,36 @@ def dequantize_int8(q: Tensor, scales: Tensor, n: int) -> Tensor:
     with torch.cuda.device(q.device):
         _launch("dequantize_int8", lib.dequantize_int8,
                 q.data_ptr(), scales.data_ptr(), out.data_ptr(), n)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# fused RMSNorm
+# ---------------------------------------------------------------------------
+
+RMSNORM_EPS = 1e-6
+
+
+def fused_rmsnorm(x: Tensor, w: Tensor) -> Tensor:
+    """Per row of ``x [..., d]``: ``x·rsqrt(mean(x²)+1e-6)·(1+w)`` with fp32
+    statistics, in x's dtype; ``w`` is ``[d]`` fp32 (stored as a residual
+    scale, applied as ``1+w``). ``x`` is float32 or bfloat16 and contiguous."""
+    if x.dim() < 1 or x.numel() == 0:
+        raise ValueError(f"fused_rmsnorm takes a non-empty [..., d] tensor, got {tuple(x.shape)}")
+    d = x.shape[-1]
+    if x.dtype not in _DTYPE_CODE:
+        raise TypeError(f"fused_rmsnorm takes float32 or bfloat16 x, got {x.dtype}")
+    if w.shape != (d,) or w.dtype != torch.float32:
+        raise ValueError(f"w must be float32 [{d}], got {w.dtype} {tuple(w.shape)}")
+    if not (x.is_contiguous() and w.is_contiguous()):
+        raise ValueError("x and w must be contiguous")
+    if _device_of(x, w) == "cpu":
+        return ref.reference_rmsnorm(x, w, RMSNORM_EPS)
+    lib = _rmsnorm_lib()
+    out = torch.empty_like(x)
+    vec = d % (16 // x.element_size()) == 0 and x.data_ptr() % 16 == 0 \
+        and out.data_ptr() % 16 == 0
+    with torch.cuda.device(x.device):
+        _launch("rmsnorm", lib.rmsnorm_fwd, x.data_ptr(), w.data_ptr(), out.data_ptr(),
+                x.numel() // d, d, RMSNORM_EPS, _DTYPE_CODE[x.dtype], int(vec))
     return out

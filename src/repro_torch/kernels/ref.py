@@ -43,6 +43,13 @@ def reference_attention(q: Tensor, k: Tensor, v: Tensor, *, causal: bool = True,
     return torch.einsum("bqk,bkd->bqd", p, v.float()).to(q.dtype)
 
 
+def reference_rmsnorm(x: Tensor, w: Tensor, eps: float = 1e-6) -> Tensor:
+    """Per row: ``x·rsqrt(mean(x²)+eps)·(1+w)`` with fp32 statistics, in x's dtype."""
+    xf = x.float()
+    var = torch.mean(xf * xf, dim=-1, keepdim=True)
+    return (xf * torch.rsqrt(var + eps) * (1.0 + w.float())).to(x.dtype)
+
+
 #: 1/127 rounded to fp32. The JAX package writes ``max(amax, 1e-12) / 127``,
 #: and XLA compiles that division by a constant into a multiply by this
 #: reciprocal (in the jitted trainer and in the Pallas kernel alike), so the

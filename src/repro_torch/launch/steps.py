@@ -17,7 +17,8 @@ Two gradient-communication backends, as in the reference:
     divided by ``dp`` (the ideal-switch baseline);
   * ``comm="ring" | "lumorph2" | "lumorph4" | "tree"`` — the Schedule-IR
     collectives, bucket by bucket (``optim.grad_comm.all_reduce_grads``),
-    with int8 payloads and error feedback under ``compress``.
+    with int8 payloads and error feedback under ``compress``, and as
+    chunked waves under ``overlap_chunks > 1``.
 
 With ``cfg.use_pallas`` the prefill's attention runs the hand-written
 flash-attention kernel, once per layer.
@@ -70,7 +71,7 @@ def make_train_step(cfg: ModelConfig, opt_cfg: Optional[AdamWConfig] = None,
                     comm: str = "xla", dp: int = 1,
                     bucket_bytes: int = grad_comm.DEFAULT_BUCKET_BYTES,
                     compress: bool = False, wire_dtype: torch.dtype = torch.bfloat16,
-                    microbatches: int = 1,
+                    microbatches: int = 1, overlap_chunks: int = 1,
                     device: Optional[torch.device] = None) -> Callable:
     """``step(params, opt_state, batch) -> (params, opt_state, loss)``.
 
@@ -78,6 +79,8 @@ def make_train_step(cfg: ModelConfig, opt_cfg: Optional[AdamWConfig] = None,
     global batch, as JAX's ``P("data")`` batch spec gives device ``r``.
     ``loss`` is the mean of the ranks' losses. ``microbatches > 1``
     accumulates fp32 gradients over that many slices of each rank's rows.
+    ``overlap_chunks > 1`` (LUMORPH comms; ignored by ``xla``) runs every
+    bucket's collective as that many chunked waves (overlap mode).
     After each call ``step.bucket_log`` holds the last (bytes, algo) log.
     """
     if comm == "auto":
@@ -140,7 +143,8 @@ def make_train_step(cfg: ModelConfig, opt_cfg: Optional[AdamWConfig] = None,
             else:
                 grads, new_ef, step.bucket_log = grad_comm.all_reduce_grads(
                     grads, algo=comm, bucket_bytes=bucket_bytes, compress=compress,
-                    error_feedback=opt_state.get("ef"), wire_dtype=wire_dtype)
+                    error_feedback=opt_state.get("ef"), wire_dtype=wire_dtype,
+                    overlap_chunks=overlap_chunks)
         core = {k: v for k, v in opt_state.items() if k != "ef"}
         with record_function("train/adamw"):
             params, core = adamw_update(params, grads, core, opt_cfg)

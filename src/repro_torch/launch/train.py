@@ -2,16 +2,25 @@
 
 The twin of ``repro.launch.train``, with its flags: builds the model, the
 LUMORPH gradient-communication backend and the deterministic data stream,
-and runs the training loop on ``--data-parallel`` virtual ranks on one
-device (:mod:`repro_torch.launch.mesh`). It runs on ``cuda`` unless given
+and runs a checkpointed training loop, restarting from the latest
+checkpoint, on ``--data-parallel`` virtual ranks on one device
+(:mod:`repro_torch.launch.mesh`). It runs on ``cuda`` unless given
 ``--device cpu``; ``--smoke`` takes the reduced config.
 
-Example (the paper's regime: BERT, data-parallel, LUMORPH-4 collectives):
-  PYTHONPATH=src python -m repro_torch.launch.train --arch bert-large \\
-      --comm lumorph4 --data-parallel 4 --steps 6 --batch 8 --seq 128
+Checkpoints hold rank 0's params and optimizer state, and a restore gives
+every rank that copy, as the JAX trainer does: its ``save`` writes
+``jax.device_get`` of the replicated state, which is device 0's copy, and
+its restored state is replicated. Under ``--compress`` the ranks differ,
+so a restart makes them equal again.
 
-Not ported yet, and refused rather than ignored: ``--comm auto``,
-``--overlap`` above 1, ``--ckpt-dir`` and ``--mesh single|multi``.
+Example (the paper's regime: BERT, data-parallel, LUMORPH-4 collectives,
+chunked into 4 overlapped waves per bucket, with checkpoints):
+  PYTHONPATH=src python -m repro_torch.launch.train --arch bert-large \\
+      --comm lumorph4 --overlap 4 --data-parallel 4 --steps 6 --batch 8 \\
+      --seq 128 --ckpt-dir /tmp/ck --ckpt-every 3
+
+Not ported yet, and refused rather than ignored: ``--comm auto`` and
+``--mesh single|multi``.
 """
 
 from __future__ import annotations
@@ -23,6 +32,7 @@ import time
 
 import torch
 
+from repro_torch.checkpoint import checkpoint as ckpt_lib
 from repro_torch.configs import get_config, get_smoke_config
 from repro_torch.configs.base import torch_dtype
 from repro_torch.data.pipeline import DataConfig, stream
@@ -30,16 +40,19 @@ from repro_torch.device import resolve_device
 from repro_torch.launch import steps as steps_lib
 from repro_torch.launch.mesh import make_host_mesh
 from repro_torch.optim.adamw import AdamWConfig
+from repro_torch.tree import tree_map
 
 _NOT_PORTED = {
     "comm": "--comm auto (per-bucket α–β algorithm selection) is not ported yet "
             "(ROADMAP Queue 1 item 7)",
-    "overlap": "--overlap CHUNKS > 1 (chunked, pipelined collectives) is not ported yet "
-               "(ROADMAP Queue 1 item 10)",
-    "ckpt": "--ckpt-dir (checkpoint and restart) is not ported yet (ROADMAP Queue 1 item 9)",
     "mesh": "--mesh single|multi (production meshes) is not ported yet; the port trains "
             "on a virtual data-parallel mesh on one device (ROADMAP Queue 1 item 13)",
 }
+
+
+def _rank0(state):
+    """Rank 0's copy of a per-rank state: what the JAX trainer's checkpoint holds."""
+    return tree_map(lambda t: t[0], state)
 
 
 def _sync(dev: torch.device) -> None:
@@ -59,7 +72,9 @@ def main(argv=None) -> dict:
                     choices=["xla", "ring", "lumorph2", "lumorph4", "auto"])
     ap.add_argument("--compress", action="store_true", help="int8 grad collectives")
     ap.add_argument("--overlap", type=int, default=1, metavar="CHUNKS",
-                    help="chunked/pipelined grad collectives (not ported: 1 only)")
+                    help="chunked/pipelined grad collectives: split every "
+                         "bucket into CHUNKS waves (LUMORPH backends only; "
+                         "1 = monolithic; issued on one stream)")
     ap.add_argument("--bucket-mb", type=int, default=25)
     ap.add_argument("--wire-dtype", default="bfloat16", choices=["bfloat16", "float32"],
                     help="gradient collective payload dtype")
@@ -75,13 +90,9 @@ def main(argv=None) -> dict:
 
     if args.comm == "auto":
         raise SystemExit(_NOT_PORTED["comm"])
-    if args.overlap > 1:
-        if args.comm == "xla":
-            raise SystemExit("--overlap needs a LUMORPH comm backend "
-                             "(ring/lumorph2/lumorph4/auto), not xla")
-        raise SystemExit(_NOT_PORTED["overlap"])
-    if args.ckpt_dir:
-        raise SystemExit(_NOT_PORTED["ckpt"])
+    if args.overlap > 1 and args.comm == "xla":
+        raise SystemExit("--overlap needs a LUMORPH comm backend "
+                         "(ring/lumorph2/lumorph4/auto), not xla")
     if args.mesh != "host":
         raise SystemExit(_NOT_PORTED["mesh"])
 
@@ -94,15 +105,23 @@ def main(argv=None) -> dict:
     train_step = steps_lib.make_train_step(
         cfg, opt_cfg, comm=args.comm, dp=mesh.data,
         bucket_bytes=args.bucket_mb * 1024 * 1024, compress=args.compress,
-        wire_dtype=torch_dtype(args.wire_dtype), device=mesh.device)
+        wire_dtype=torch_dtype(args.wire_dtype), overlap_chunks=args.overlap,
+        device=mesh.device)
     params, opt_state = steps_lib.init_train_state(
         cfg, mesh.data, args.seed, mesh.device,
         init_ef=args.compress and args.comm != "xla")
 
+    start_step = 0
+    if args.ckpt_dir and ckpt_lib.latest_step(args.ckpt_dir) is not None:
+        rank0, start_step = ckpt_lib.restore(args.ckpt_dir, _rank0((params, opt_state)))
+        params, opt_state = tree_map(lambda t: t.expand(mesh.data, *t.shape).clone(), rank0)
+        del rank0
+        print(f"[train] restored checkpoint at step {start_step}", flush=True)
+
     data = DataConfig(seed=args.seed, global_batch=args.batch, seq_len=args.seq)
     losses, step_s = [], []
     t_start = time.perf_counter()
-    for step, batch in stream(cfg, data, 0):
+    for step, batch in stream(cfg, data, start_step):
         if step >= args.steps:
             break
         _sync(dev)
@@ -112,7 +131,10 @@ def main(argv=None) -> dict:
         step_s.append(time.perf_counter() - t0)
         if step % args.log_every == 0 or step == args.steps - 1:
             print(f"[train] step={step:5d} loss={losses[-1]:.4f} "
-                  f"({(time.perf_counter() - t_start) / (step + 1):.2f}s/step)", flush=True)
+                  f"({(time.perf_counter() - t_start) / (step - start_step + 1):.2f}s/step)",
+                  flush=True)
+        if args.ckpt_dir and (step + 1) % args.ckpt_every == 0:
+            ckpt_lib.save(args.ckpt_dir, step + 1, _rank0((params, opt_state)))
     result = {"final_loss": losses[-1] if losses else None,
               "first_loss": losses[0] if losses else None,
               "steps": len(losses), "comm": args.comm,

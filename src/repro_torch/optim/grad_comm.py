@@ -108,16 +108,23 @@ def _compressed_program(p: int):
         encode=_int8_encode, decode=_int8_decode)
 
 
-def compressed_all_reduce(x: Tensor) -> Tensor:
+def compressed_all_reduce(x: Tensor, n_chunks: int = 1) -> Tensor:
     """LUMORPH-2 recursive halving/doubling with int8 payloads, over the
     rank axis of ``x[p, ...]``: the same Schedule IR as the uncompressed
     collective, with the int8 encode/decode pair around every hop. Wire
-    bytes ≈ n (int8) + n/64 (scales) against 4n in fp32."""
+    bytes ≈ n (int8) + n/64 (scales) against 4n in fp32. ``n_chunks > 1``
+    runs the chunked, pipelined lowering
+    (:func:`~repro_torch.core.collectives.overlapped_all_reduce`), every
+    wave's hops quantizing their own slice."""
     p = x.shape[0]
     if p == 1:
         return x
     if p & (p - 1):
         raise ValueError("compressed allreduce requires a power-of-two rank count")
+    if n_chunks > 1:
+        return collectives.overlapped_all_reduce(
+            x.float(), "lumorph2", n_chunks=n_chunks, encode=_int8_encode,
+            decode=_int8_decode).to(x.dtype)
     return _compressed_program(p)(x.float()).to(x.dtype)
 
 
@@ -130,6 +137,7 @@ def all_reduce_grads(grads: Tree, algo: str = "lumorph2",
                      compress: bool = False,
                      error_feedback: Optional[Tree] = None,
                      wire_dtype: torch.dtype = torch.bfloat16,
+                     overlap_chunks: int = 1,
                      ) -> tuple[Tree, Optional[Tree], list[tuple[int, str]]]:
     """Mean-ALLREDUCE ``grads`` (leaves ``[p, ...]``) over the rank axis
     with LUMORPH collectives, bucket by bucket: the sum over ranks, divided
@@ -138,7 +146,9 @@ def all_reduce_grads(grads: Tree, algo: str = "lumorph2",
     Returns (reduced_grads, new_error_feedback, bucket_log), where the log
     records (bytes per rank, algo) per bucket, as the reference's does.
     Payloads travel as ``wire_dtype``; with ``compress`` they travel as
-    int8 and the flat vector is fp32.
+    int8 and the flat vector is fp32. ``overlap_chunks > 1`` lowers every
+    bucket through the chunked wave pipeline (overlap mode; the log's algo
+    gains ``+ovl<C>``); ``1`` keeps the monolithic path.
     """
     if algo == "auto":
         raise NotImplementedError("--comm auto (per-bucket α–β selection) is not ported "
@@ -165,9 +175,14 @@ def all_reduce_grads(grads: Tree, algo: str = "lumorph2",
     parts = []
     for b in buckets:
         piece = flat[:, b.start:b.end]
-        log.append((b.n_elems * flat.element_size(), algo + ("+int8" if compress else "")))
-        parts.append(compressed_all_reduce(piece) if compress
-                     else collectives.all_reduce(piece, algo))
+        log.append((b.n_elems * flat.element_size(), algo + ("+int8" if compress else "")
+                    + (f"+ovl{overlap_chunks}" if overlap_chunks > 1 else "")))
+        if compress:
+            parts.append(compressed_all_reduce(piece, n_chunks=overlap_chunks))
+        elif overlap_chunks > 1:
+            parts.append(collectives.overlapped_all_reduce(piece, algo, n_chunks=overlap_chunks))
+        else:
+            parts.append(collectives.all_reduce(piece, algo))
     del flat
     reduced = torch.cat(parts, dim=1).float()
     del parts

@@ -10,7 +10,8 @@ the same numpy inputs and ask for bit-identical fp32 results:
     chunks; non-destinations of a reduce add zeros);
   * the int8 path (``compressed_all_reduce``) at p ∈ {2, 4, 8};
   * ``all_reduce_grads`` on a small gradient tree in several buckets:
-    fp32 and bf16 wires and int8 with error feedback, with the bucket log.
+    fp32 and bf16 wires and int8 with error feedback, with the bucket log,
+    monolithic and in overlap mode (``overlap_chunks=4``).
 
 XLA's CPU backend contracts a dequantize and the add that consumes it
 (the receiver's accumulate in some reduce hops, the error-feedback
@@ -46,6 +47,7 @@ ALGOS = ("ring", "lumorph2", "lumorph4", "tree")
 N = 4099  # not a multiple of any p: every rank's row is padded
 GRAD_SHAPES = {"a": (7, 33), "b": {"c": (300,), "d": (5, 4, 9)}, "e": (2, 200)}
 GRAD_BUCKET_BYTES = 1024  # 256 fp32 per bucket: several buckets, one spans leaves
+GRAD_KEYS = ("fp32", "bf16", "int8", "fp32-ovl4", "bf16-ovl4", "int8-ovl4")
 # hand-made schedules: (perm, send, recv, reduce) on p = 3, one chunk per rank
 PARTIAL = {
     "overwrite": (((0, 1),), [[2], [0], [1]], [[1], [0], [2]], False),
@@ -57,6 +59,13 @@ def _inputs(p: int, n: int, seed: int) -> np.ndarray:
     """Values over six decades, signed, so that the add order shows."""
     rng = np.random.default_rng(seed)
     return (rng.standard_normal((p, n)) * 10.0 ** rng.uniform(-3, 3, (p, n))).astype(np.float32)
+
+
+def grad_kwargs(key: str, wire_dtype) -> dict:
+    """``all_reduce_grads`` keywords of a ``GRAD_KEYS`` case."""
+    wire, _, ovl = key.partition("-")
+    kw = {"fp32": dict(wire_dtype=wire_dtype), "bf16": {}, "int8": dict(compress=True)}[wire]
+    return {**kw, "overlap_chunks": 4} if ovl == "ovl4" else kw
 
 
 def _grad_tree(p: int, seed: int):
@@ -113,10 +122,10 @@ for name, (perm, send, recv, reduce) in T.PARTIAL.items():
     out[f"partial/{{name}}"] = np.asarray(per_rank(compile_schedule(s, "d"), 3, T._inputs(3, 12, 7)))
 
 fence(True)
-for key, kw in (("fp32", dict(wire_dtype=jnp.float32)), ("bf16", {{}}),
-                ("int8", dict(compress=True))):
+for key in T.GRAD_KEYS:
+    kw = T.grad_kwargs(key, wire_dtype=jnp.float32)
     grads = T._grad_tree(4, 1)
-    ef = T._grad_tree(4, 2) if key == "int8" else None
+    ef = T._grad_tree(4, 2) if "compress" in kw else None
     def fn(t, kw=kw, key=key):
         g, e = t
         red, new_ef, log = all_reduce_grads(g, ("d",), algo="lumorph4",
@@ -187,23 +196,24 @@ def test_partial_permutations_match_reference(ref, name):
         assert torch.equal(got[1, 0:4], x[0, 8:12])  # rank 0's chunk 2 landed in chunk 0
 
 
-@pytest.mark.parametrize("key", ["fp32", "bf16", "int8"])
+@pytest.mark.parametrize("key", GRAD_KEYS)
 def test_all_reduce_grads_matches_reference(ref, key):
     arrays, logs = ref
     to_t = lambda node: ({k: to_t(v) for k, v in node.items()} if isinstance(node, dict)
                          else torch.from_numpy(node))
-    ef = to_t(_grad_tree(4, 2)) if key == "int8" else None
-    kw = {"fp32": dict(wire_dtype=torch.float32), "bf16": {}, "int8": dict(compress=True)}[key]
+    kw = grad_kwargs(key, wire_dtype=torch.float32)
+    ef = to_t(_grad_tree(4, 2)) if "compress" in kw else None
     red, new_ef, log = tgc.all_reduce_grads(to_t(_grad_tree(4, 1)), algo="lumorph4",
                                             bucket_bytes=GRAD_BUCKET_BYTES,
                                             error_feedback=ef, **kw)
     assert [list(e) for e in log] == logs[key]
     assert len(log) > 3
+    assert all(a.endswith("+ovl4") == key.endswith("-ovl4") for _, a in log)
     flat = {"['a']": red["a"], "['b']['c']": red["b"]["c"], "['b']['d']": red["b"]["d"],
             "['e']": red["e"]}
     for path, leaf in flat.items():
         np.testing.assert_array_equal(leaf.float().numpy(), arrays[f"grads/{key}/{path}"])
-    if key == "int8":
+    if "compress" in kw:
         for path, leaf in {"['a']": new_ef["a"], "['b']['c']": new_ef["b"]["c"],
                            "['b']['d']": new_ef["b"]["d"], "['e']": new_ef["e"]}.items():
             np.testing.assert_array_equal(leaf.numpy(), arrays[f"ef/{key}/{path}"])

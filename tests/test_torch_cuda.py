@@ -6,7 +6,7 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
-from repro_torch.kernels import ops  # noqa: E402
+from repro_torch.kernels import ops, ref  # noqa: E402
 
 pytestmark = pytest.mark.cuda
 
@@ -101,3 +101,56 @@ def test_virtual_rank_collectives_on_card_equal_cpu(card):
         got = grad_comm.compressed_all_reduce(x.to(card))
         assert ops.LAUNCHES["quantize_int8"] == n0 + 2 * p.bit_length() - 2  # one per hop
         assert torch.equal(got.cpu(), grad_comm.compressed_all_reduce(x)), p
+
+
+# -- fused RMSNorm -------------------------------------------------------------
+
+# tests/test_kernels.py's cases, odd widths (scalar path), the overlap consumer's
+# rows and danube's prefill rows
+RMS_CASES = [((4, 37, 512), "float32"), ((2, 130, 768), "bfloat16"), ((1, 1, 2048), "float32"),
+             ((512, 64), "float32"), ((5, 37), "float32"), ((3, 100), "bfloat16"),
+             ((4096, 128), "float32"), ((2 * 4608, 2560), "bfloat16")]
+
+
+@pytest.mark.parametrize("shape,dt", RMS_CASES)
+def test_rmsnorm_kernel_matches_plain(card, shape, dt):
+    gen = torch.Generator(device=card).manual_seed(0)
+    x = torch.randn(shape, generator=gen, device=card).to(getattr(torch, dt))
+    w = torch.randn(shape[-1], generator=gen, device=card) * 0.2
+    n0 = ops.LAUNCHES["rmsnorm"]
+    out = ops.fused_rmsnorm(x, w)
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES["rmsnorm"] == n0 + 1
+    assert out.dtype == x.dtype and out.shape == x.shape
+    expect = ref.reference_rmsnorm(x, w).float()
+    limit = torch.full_like(expect, 2e-2 if dt == "bfloat16" else 1e-5)  # test_kernels.py's
+    if dt == "bfloat16":  # or one bf16 ulp, where a value rounds to the neighbouring bf16
+        limit = torch.maximum(limit, torch.exp2(torch.floor(torch.log2(
+            expect.abs().clamp(min=2.0 ** -126))) - 7))
+    assert bool(((out.float() - expect).abs() <= limit).all())
+
+
+def test_rmsnorm_kernel_takes_unaligned_rows(card):
+    buf = torch.randn(1 + 64 * 128, device=card)
+    x = buf[1:].view(64, 128)  # contiguous, 4 bytes past a 16-byte boundary
+    w = torch.randn(128, device=card) * 0.2
+    expect = ref.reference_rmsnorm(x, w)
+    assert float((ops.fused_rmsnorm(x, w) - expect).abs().max()) <= 1e-5
+
+
+def test_overlapped_rmsnorm_pipeline_on_card_equals_cpu(card):
+    from repro_torch.core import collectives
+    x = torch.randn(8, 1 << 15, generator=torch.Generator().manual_seed(3))
+    w = torch.zeros(128)
+
+    def consumer(wt):
+        return lambda y: ops.fused_rmsnorm(y.reshape(-1, 128), wt).reshape(y.shape)
+    n0 = ops.LAUNCHES["rmsnorm"]
+    got = collectives.overlapped_all_reduce(x.to(card), "lumorph2", 4,
+                                            compute=consumer(w.to(card)))
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES["rmsnorm"] == n0 + 4  # one launch per chunk covers every rank
+    cpu = collectives.overlapped_all_reduce(x, "lumorph2", 4, compute=consumer(w))
+    assert float((got.cpu() - cpu).abs().max()) <= 1e-5
+    mono = collectives.overlapped_all_reduce(x.to(card), "lumorph2", 1)
+    assert torch.equal(mono, collectives.all_reduce(x.to(card), "lumorph2"))

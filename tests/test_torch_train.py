@@ -8,15 +8,23 @@ bert-large smoke config:
     ranks (LUMORPH comm against the library reduction);
   * a cross-framework run: the JAX trainer on 4 fake devices and the port on
     4 virtual ranks from the same carried-over state (``bridge``), 4 steps,
-    with the per-rank state under ``--compress`` read per device.
+    with the per-rank state under ``--compress`` read per device, monolithic
+    and with ``--overlap 4`` (losses and bucket logs);
+  * checkpoints: the port's twins of tests/test_checkpoint.py, files byte for
+    byte equal to the JAX package's, a JAX trainer's checkpoint (device 0's
+    copy of the replicas) restored into the port, and a port checkpoint
+    restored by JAX.
 
 The JAX trainer runs in one subprocess (``XLA_FLAGS`` stays out of the
-pytest process) that writes one pickle under ``tmp_path``.
+pytest process) that writes one pickle and one checkpoint under
+``tmp_path``.
 """
 
 import dataclasses
+import json
 import os
 import pickle
+import shutil
 import subprocess
 import sys
 from pathlib import Path
@@ -28,6 +36,7 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+from repro.checkpoint import checkpoint as jck  # noqa: E402
 from repro.configs import get_config as jax_get_config  # noqa: E402
 from repro.configs import get_smoke_config as jax_smoke_config  # noqa: E402
 from repro.data import pipeline as jpipe  # noqa: E402
@@ -36,6 +45,7 @@ from repro.models import layers as jlayers  # noqa: E402
 from repro.models import transformer as jtf  # noqa: E402
 from repro.optim import adamw as jadamw  # noqa: E402
 from repro_torch import bridge  # noqa: E402
+from repro_torch.checkpoint import checkpoint as tck  # noqa: E402
 from repro_torch.configs import get_config, get_smoke_config  # noqa: E402
 from repro_torch.data import pipeline as tpipe  # noqa: E402
 from repro_torch.launch import steps as tsteps  # noqa: E402
@@ -44,12 +54,13 @@ from repro_torch.models import attention as tattn  # noqa: E402
 from repro_torch.models import layers as tlayers  # noqa: E402
 from repro_torch.models import transformer as ttf  # noqa: E402
 from repro_torch.optim import adamw as tadamw  # noqa: E402
-from repro_torch.tree import leaves  # noqa: E402
+from repro_torch.tree import leaves, tree_map  # noqa: E402
 
 ARCH = "bert-large"
 SRC = str(Path(__file__).resolve().parents[1] / "src")
 STEPS, BATCH, SEQ, DP = 4, 4, 32, 4
 BUCKET = 1 << 16  # 16,384 fp32 per bucket: the smoke gradient spans several
+BUCKET_OVL = 1 << 17  # fewer, larger buckets under --overlap 4: its programs compile slower
 
 
 def _rel(got, expect) -> float:
@@ -240,13 +251,24 @@ def test_microbatches_accumulate_the_same_gradient():
 
 @pytest.mark.parametrize("flags,item", [
     (["--comm", "auto"], "item 7"),
-    (["--comm", "lumorph4", "--overlap", "2"], "item 10"),
-    (["--ckpt-dir", "ck"], "item 9"),
     (["--mesh", "single"], "item 13"),
 ])
 def test_unported_flags_exit_naming_their_item(flags, item):
     with pytest.raises(SystemExit, match=item):
         _train("--steps", "1", *flags)
+
+
+def test_overlap_needs_a_lumorph_comm():
+    with pytest.raises(SystemExit, match="not xla"):
+        _train("--steps", "1", "--comm", "xla", "--overlap", "2")
+
+
+def test_overlap_training_tracks_monolithic():
+    common = ["--steps", "4", "--wire-dtype", "float32", "--comm", "lumorph4"]
+    base = _train(*common)
+    ovl = _train(*common, "--overlap", "4")
+    assert ovl["overlap"] == 4
+    assert ovl["final_loss"] == pytest.approx(base["final_loss"], rel=1e-4)
 
 
 # ---------------------------------------------------------------------------
@@ -258,6 +280,7 @@ import os, pickle, sys
 os.environ["XLA_FLAGS"] = "--xla_force_host_platform_device_count={dp}"
 sys.path.insert(0, {src!r})
 import jax, jax.numpy as jnp
+from repro.checkpoint import checkpoint as ckpt_lib
 from repro.configs import get_smoke_config
 from repro.data.pipeline import DataConfig, stream
 from repro.launch import steps
@@ -266,15 +289,28 @@ from repro.optim.adamw import AdamWConfig
 from repro.sharding.policy import make_policy
 from repro_torch.bridge import per_rank_from_shards
 
+logs = []
+_all_reduce_grads = steps.grad_comm.all_reduce_grads
+def _logged(*args, **kwargs):  # the bucket log, which the jitted step drops
+    red, ef, log = _all_reduce_grads(*args, **kwargs)
+    logs.append(log)
+    return red, ef, log
+steps.grad_comm.all_reduce_grads = _logged
+
 cfg = get_smoke_config("bert-large").replace(compute_dtype="float32")
 mesh = make_host_mesh(data={dp}, model=1)
 policy = make_policy(cfg, mesh)
 devices = list(mesh.devices.flatten())  # rank order along "data"
 opt = AdamWConfig(total_steps={steps}, warmup_steps=1)
 out = {{}}
-for name, comm, compress in (("fp32", "lumorph4", False), ("int8", "lumorph2", True)):
-    step = steps.make_train_step(cfg, policy, opt, comm=comm, bucket_bytes={bucket},
-                                 compress=compress, wire_dtype=jnp.float32)
+for name, comm, compress, overlap in (("fp32", "lumorph4", False, 1),
+                                      ("int8", "lumorph2", True, 1),
+                                      ("fp32-ovl4", "lumorph4", False, 4),
+                                      ("int8-ovl4", "lumorph2", True, 4)):
+    bucket = {bucket} if overlap == 1 else {bucket_ovl}
+    step = steps.make_train_step(cfg, policy, opt, comm=comm, bucket_bytes=bucket,
+                                 compress=compress, wire_dtype=jnp.float32,
+                                 overlap_chunks=overlap)
     params, opt_state = steps.init_sharded_state(cfg, policy, jax.random.PRNGKey(0),
                                                  init_ef=compress)
     init = per_rank_from_shards((params, opt_state), devices)
@@ -284,8 +320,10 @@ for name, comm, compress in (("fp32", "lumorph4", False), ("int8", "lumorph2", T
             break
         params, opt_state, loss = step(params, opt_state, batch)
         losses.append(float(loss))
-    out[name] = dict(init=init, losses=losses,
+    out[name] = dict(init=init, losses=losses, log=[[int(b), a] for b, a in logs[-1]],
                      final=per_rank_from_shards((params, opt_state), devices))
+    if name == "int8":  # the replicas differ per device: which copy does a checkpoint hold?
+        ckpt_lib.save({ckpt!r}, {steps}, (params, opt_state))
 with open({path!r}, "wb") as f:
     pickle.dump(out, f)
 """
@@ -295,13 +333,14 @@ with open({path!r}, "wb") as f:
 def _jax_trainer(tmp_path_factory):
     """Starts the JAX runs with the module's first test, so that they overlap
     the tests before the ones that read them."""
-    path = tmp_path_factory.mktemp("train") / "jax_runs.pkl"
+    tmp = tmp_path_factory.mktemp("train")
     env = {k: v for k, v in os.environ.items() if k != "XLA_FLAGS"}
-    code = JAX_TRAIN.format(dp=DP, src=SRC, steps=STEPS, bucket=BUCKET, batch=BATCH,
-                            seq=SEQ, path=str(path))
+    code = JAX_TRAIN.format(dp=DP, src=SRC, steps=STEPS, bucket=BUCKET, bucket_ovl=BUCKET_OVL,
+                            batch=BATCH, seq=SEQ, path=str(tmp / "jax_runs.pkl"),
+                            ckpt=str(tmp / "ckpt"))
     proc = subprocess.Popen([sys.executable, "-c", code], stdout=subprocess.PIPE,
                             stderr=subprocess.PIPE, text=True, env=env)
-    yield proc, path
+    yield proc, tmp
     if proc.poll() is None:
         proc.kill()
     proc.communicate()
@@ -309,21 +348,24 @@ def _jax_trainer(tmp_path_factory):
 
 @pytest.fixture(scope="module")
 def jax_runs(_jax_trainer):
-    proc, path = _jax_trainer
+    proc, tmp = _jax_trainer
     _, err = proc.communicate(timeout=600)
     assert proc.returncode == 0, err[-3000:]
-    with open(path, "rb") as f:  # written by the subprocess just above
-        return pickle.load(f)
+    with open(tmp / "jax_runs.pkl", "rb") as f:  # written by the subprocess just above
+        runs = pickle.load(f)
+    runs["ckpt"] = tmp / "ckpt"
+    return runs
 
 
-def _port_run(run, comm, compress):
+def _port_run(run, comm, compress, overlap=1):
     cfg = get_smoke_config(ARCH).replace(compute_dtype="float32")
     params, opt_state = bridge.train_state_from_numpy(*run["init"])
     assert opt_state["step"].shape == (DP,) and opt_state["step"].dtype == torch.int32
     assert ("ef" in opt_state) == compress
     step = tsteps.make_train_step(
         cfg, tadamw.AdamWConfig(total_steps=STEPS, warmup_steps=1), comm=comm, dp=DP,
-        bucket_bytes=BUCKET, compress=compress, wire_dtype=torch.float32, device="cpu")
+        bucket_bytes=BUCKET if overlap == 1 else BUCKET_OVL, compress=compress,
+        wire_dtype=torch.float32, overlap_chunks=overlap, device="cpu")
     data = tpipe.DataConfig(seed=0, global_batch=BATCH, seq_len=SEQ)
     losses = []
     for i, batch in tpipe.stream(cfg, data):
@@ -367,3 +409,164 @@ def test_compressed_port_tracks_jax_per_rank(jax_runs):
         diff = np.abs(t.numpy() - a)
         assert np.mean(diff > 1e-6) < 1e-3, path
         assert diff.max() <= 2.5 * np.abs(a).max(), path
+
+
+@pytest.mark.parametrize("name,comm,compress", [("fp32-ovl4", "lumorph4", False),
+                                                ("int8-ovl4", "lumorph2", True)])
+def test_overlap_port_tracks_jax_trainer(jax_runs, name, comm, compress):
+    """``--overlap 4`` from the carried-over state: the losses track the JAX
+    trainer's within 1e-4, and the bucket logs are equal, ``+ovl4`` included."""
+    run = jax_runs[name]
+    params, opt_state, losses, log = _port_run(run, comm, compress, overlap=4)
+    assert [list(e) for e in log] == run["log"] and len(log) > 1
+    assert {a for _, a in log} == {comm + ("+int8" if compress else "") + "+ovl4"}
+    np.testing.assert_allclose(losses, run["losses"], rtol=1e-4)
+    jparams, _ = run["final"]
+    for (path, a), t in zip(bridge.flatten_with_paths(jparams), leaves(params)):
+        np.testing.assert_allclose(t.numpy(), a, rtol=0, atol=2e-5, err_msg=path)
+
+
+# ---------------------------------------------------------------------------
+# checkpoints
+# ---------------------------------------------------------------------------
+
+def _state(seed=0):
+    """The shape of tests/test_checkpoint.py's state, as tensors."""
+    gen = torch.Generator().manual_seed(seed)
+    return {"params": {"w": torch.randn(4, 8, generator=gen), "b": torch.zeros(8)},
+            "opt": {"m": torch.ones(4, 8), "step": torch.tensor(7, dtype=torch.int32)}}
+
+
+def test_checkpoint_roundtrip(tmp_path):
+    s = _state()
+    tck.save(tmp_path, 7, s)
+    restored, step = tck.restore(tmp_path, tree_map(torch.zeros_like, s))
+    assert step == 7
+    for a, b in zip(leaves(s), leaves(restored)):
+        assert a.dtype == b.dtype and torch.equal(a, b)
+
+
+def test_checkpoint_latest_and_retention(tmp_path):
+    s = _state()
+    for step in (10, 20, 30, 40):
+        tck.save(tmp_path, step, s, keep=2)
+    assert tck.latest_step(tmp_path) == 40
+    assert sorted(d.name for d in Path(tmp_path).iterdir()) == \
+        ["step_0000000030", "step_0000000040"]
+
+
+def test_checkpoint_incomplete_ignored(tmp_path):
+    """A crash mid-write leaves a .tmp dir, and a dir may lack its manifest:
+    neither is ever the latest."""
+    tck.save(tmp_path, 5, _state())
+    bad = Path(tmp_path) / "step_0000000009.tmp"
+    bad.mkdir()
+    (bad / "leaf_00000.npy").write_bytes(b"junk")
+    (Path(tmp_path) / "step_0000000011").mkdir()
+    assert tck.latest_step(tmp_path) == 5
+    assert tck.restore(tmp_path, _state())[1] == 5
+
+
+def test_checkpoint_restore_missing_raises(tmp_path):
+    with pytest.raises(FileNotFoundError):
+        tck.restore(tmp_path, _state())
+    tck.save(tmp_path, 1, {"params": _state()["params"]})
+    with pytest.raises(KeyError, match="opt/m"):
+        tck.restore(tmp_path, _state())
+
+
+def test_checkpoint_shape_mismatch_rejected(tmp_path):
+    tck.save(tmp_path, 1, _state())
+    wrong = _state()
+    wrong["params"]["w"] = torch.zeros(5, 8)
+    with pytest.raises(ValueError, match="params/w"):
+        tck.restore(tmp_path, wrong)
+
+
+def _mixed_state():
+    """fp32, bf16, int32 leaves (a bf16 value with every exponent pattern)."""
+    rng = np.random.default_rng(3)
+    w = rng.standard_normal((3, 5)).astype(np.float32)
+    return {"a": [w, (w * 1e3).astype(np.float32)],
+            "b": {"h": rng.integers(0, 65535, (2, 7), dtype=np.uint16), "step": np.int32(9)}}
+
+
+def test_checkpoint_files_byte_identical_to_jax(tmp_path):
+    """For the same state the two packages write the same bytes, bf16 included."""
+    import ml_dtypes
+    ref = _mixed_state()
+    jstate = {"a": [jnp.asarray(x) for x in ref["a"]],
+              "b": {"h": jnp.asarray(ref["b"]["h"].view(ml_dtypes.bfloat16)),
+                    "step": jnp.int32(9)}}
+    tstate = {"a": [torch.from_numpy(x) for x in ref["a"]],
+              "b": {"h": torch.from_numpy(ref["b"]["h"].view(np.int16)).view(torch.bfloat16),
+                    "step": torch.tensor(9, dtype=torch.int32)}}
+    jdir, tdir = jck.save(tmp_path / "jax", 3, jstate), tck.save(tmp_path / "port", 3, tstate)
+    names = sorted(p.name for p in jdir.iterdir())
+    assert names == sorted(p.name for p in tdir.iterdir()) and len(names) == 5
+    for n in names:
+        assert (jdir / n).read_bytes() == (tdir / n).read_bytes(), n
+    manifest = json.loads((tdir / "manifest.json").read_text())
+    assert [m["dtype"] for m in manifest["leaves"]] == ["float32", "float32", "bfloat16", "int32"]
+    # a JAX-written bf16 leaf restores into the port bit for bit
+    got, step = tck.restore(tmp_path / "jax", tree_map(torch.zeros_like, tstate))
+    assert step == 3
+    for a, b in zip(leaves(got), leaves(tstate)):
+        assert a.dtype == b.dtype and torch.equal(a.view(torch.int16) if a.dtype ==
+                                                  torch.bfloat16 else a,
+                                                  b.view(torch.int16) if b.dtype ==
+                                                  torch.bfloat16 else b)
+    # the JAX package cannot read a bf16 leaf back, not even its own (numpy
+    # loads '<V2', which jnp.asarray will not cast): ROADMAP Queue 3
+    with pytest.raises((ValueError, TypeError)):
+        jck.restore(tmp_path / "jax", jstate)
+
+
+def test_port_checkpoint_restores_into_jax(tmp_path):
+    """A port trainer state (rank 0's copy) restores into the JAX trainer's
+    state tree bit for bit."""
+    cfg = get_smoke_config(ARCH)
+    params, opt = tsteps.init_train_state(cfg, 2, 3, "cpu", init_ef=True)
+    state = tree_map(lambda t: t[0], (params, opt))
+    tck.save(tmp_path, 2, state)
+    jparams = jtf.init_params(jax.random.PRNGKey(1), jax_smoke_config(ARCH))
+    jopt = jadamw.init_opt_state(jparams)
+    jopt["ef"] = jax.tree.map(lambda p: jnp.zeros(p.shape, jnp.float32), jparams)
+    restored, step = jck.restore(tmp_path, (jparams, jopt))
+    assert step == 2
+    got = bridge.flatten_with_paths(jax.tree.map(np.asarray, restored))
+    want = bridge.flatten_with_paths(state)
+    assert [k for k, _ in got] == [k for k, _ in want]
+    for (k, a), (_, t) in zip(got, want):
+        assert a.dtype == t.numpy().dtype and np.array_equal(a, t.numpy()), k
+
+
+def test_jax_trainer_checkpoint_holds_device0_and_restores_into_port(jax_runs):
+    """The JAX trainer's checkpoint under --compress holds device 0's copy of
+    the per-device replicas (``jax.device_get``); the port's trainer writes
+    rank 0 for the same reason. Restored into the port, bit for bit."""
+    jparams, jopt = jax_runs["int8"]["final"]
+    cfg = get_smoke_config(ARCH).replace(compute_dtype="float32")
+    params, opt = tsteps.init_train_state(cfg, DP, 0, "cpu", init_ef=True)
+    (rp, ro), step = tck.restore(jax_runs["ckpt"], tree_map(lambda t: t[0], (params, opt)))
+    assert step == STEPS
+    differs = False
+    for (path, a), t in zip(bridge.flatten_with_paths((jparams, jopt)), leaves((rp, ro))):
+        assert np.array_equal(t.numpy(), a[0]), path
+        differs |= not np.array_equal(a[0], a[1])
+    assert differs  # the devices' copies differ, and the file holds device 0's
+
+
+def test_train_restart_continues(tmp_path):
+    """A killed-and-restarted trainer resumes from the checkpoint and the data
+    stream position; with every rank equal (no compression) the resumed run
+    repeats the uninterrupted one exactly."""
+    common = ["--comm", "lumorph4", "--overlap", "4", "--ckpt-dir", str(tmp_path),
+              "--ckpt-every", "3"]
+    full = _train("--steps", "6", *common)
+    assert tck.latest_step(tmp_path) == 6 and full["steps"] == 6
+    shutil.rmtree(tmp_path / "step_0000000006")
+    resumed = _train("--steps", "6", *common)
+    assert resumed["steps"] == 3 and resumed["final_loss"] == full["final_loss"]
+    more = _train("--steps", "8", *common)
+    assert more["steps"] == 2  # resumed at 6, ran 6..7
