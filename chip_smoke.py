@@ -7,12 +7,20 @@ CUDA kernels from ``src/repro_torch/kernels/csrc`` and imports nothing of
 JAX or of the JAX package. No phase's failure is caught.
 
   1. Device: ``nvidia-smi`` name and power limit, torch and CUDA versions;
-     the kernels build (one nvcc per source, in parallel).
-  2. Each kernel against its plain PyTorch version on the card, on the
-     shapes of tests/test_kernels.py's ATTN_CASES and on danube's prefill
-     shape (fp32 within 1e-4, bf16 within 2e-2, unit-normal inputs), with
-     the kernel, the plain version and one library call timed by CUDA
-     events, and the least time the card could take (``bound_ms``).
+     the kernels build (one nvcc per source, in parallel). Per kernel entry,
+     under a readable name (``flash_fwd_bf16_kernel<80>``): registers, stack
+     and spill bytes from nvcc's ``-Xptxas=-v`` report, the flash kernels'
+     dynamic shared memory at danube's D, and the flash library's count of
+     tensor-core (HMMA: mma.sync, HGMMA: wgmma) and FFMA instructions from
+     ``cuobjdump -sass``.
+  2. Each kernel against its plain PyTorch version on the card. Flash
+     attention on the shapes of tests/test_kernels.py's ATTN_CASES, each
+     again in bf16 (the tensor-core kernel), D = 72 with a non-causal
+     window, danube's heads at S = 320 and danube's prefill shape (fp32
+     within 1e-4, bf16 within 2e-2, unit-normal inputs), and rows with no
+     live key (exactly 0); the kernel, the plain version and one library
+     call timed by CUDA events, the least time the card could take
+     (``bound_ms``), the rate (``tflops``) and its share (``bound_frac``).
   3. The main path, at full width: h2o-danube-1.8b (24 layers, d_model
      2560, random weights from a seed) prefills 2 × 4608 tokens through
      ``launch.steps.make_prefill`` with the flash-attention kernel, against
@@ -94,6 +102,16 @@ ATTN_CASES = [
 ]
 # danube's prefill: 2 × 4608 tokens, 32 query / 8 KV heads of 80, window 4096
 DANUBE = dict(b=2, sq=4608, skv=4608, h=32, kv=8, d=80, causal=True, window=4096)
+# the bf16 (tensor-core) kernel on every shape above, D = 72 with a non-causal
+# window, and danube's heads at a short S (tests/test_torch_cuda.py's cases)
+BF16_CASES = ([(*c[:-1], torch.bfloat16) for c in ATTN_CASES if c[-1] == torch.float32] +
+              [(1, 300, 300, 8, 8, 72, False, 40, torch.bfloat16),
+               (2, 320, 320, 32, 8, 80, True, 256, torch.bfloat16)])
+# the kernel entries danube's D = 80 runs, by dtype
+FLASH_ENTRY = {torch.bfloat16: "flash_fwd_bf16_kernel<80>",
+               torch.float32: "flash_fwd_f32_kernel<5>"}
+# rows with no live key: Sq = 300 against Skv = 100, causal, window 48 (rows 147 on)
+NO_LIVE_KEY = (1, 300, 100, 4, 2, 80, True, 48, torch.bfloat16)
 TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}  # the card sums in another order
 PREFILL_TOL = {"float32": 1e-3, "bfloat16": 5e-2}
 # H100 SXM published dense peaks (NVIDIA data sheet): fp32 on the CUDA cores,
@@ -203,22 +221,72 @@ def attention_bound(b, sq, skv, h, kv, d, causal, window, dtype) -> tuple[float,
     return max(t_ops, t_bytes) * 1e3, "operations" if t_ops >= t_bytes else "bytes"
 
 
+def entry_name(mangled: str) -> str:
+    """A kernel entry's readable name from its mangled one: the kernel's name
+    and its int, float and bf16 template arguments (``flash_fwd_bf16_kernel<80>``)."""
+    i = 3 if mangled.startswith("_ZN") else 2 if mangled.startswith("_Z") else len(mangled)
+    name = ""
+    while i < len(mangled) and mangled[i].isdigit():  # <length><identifier> pieces
+        n = re.match(r"\d+", mangled[i:]).group()
+        name = mangled[i + len(n):i + len(n) + int(n)]
+        i += len(n) + int(n)
+    if not name:
+        return mangled
+    rest = mangled[i:]
+    args, i = [], 1
+    while rest.startswith("I") and i < len(rest) and rest[i] != "E":
+        num = re.match(r"Li(-?\d+)E", rest[i:])
+        if num:
+            args.append(num.group(1))
+            i += num.end()
+        elif rest.startswith("13__nv_bfloat16", i):
+            args.append("bf16")
+            i += len("13__nv_bfloat16")
+        elif rest[i] == "f":
+            args.append("f32")
+            i += 1
+        else:
+            break
+    return f"{name}<{', '.join(args)}>" if args else name
+
+
 def ptxas_report(log: pathlib.Path) -> dict:
-    """Registers per kernel instantiation and any spills, from nvcc's -Xptxas=-v log."""
-    regs, spills, entry = {}, [], "?"
+    """Per kernel entry, from nvcc's -Xptxas=-v log: registers, stack frame and
+    spill bytes (dynamic shared memory is set at launch: see ``launch_info``)."""
+    entries, entry = {}, "?"
     for line in log.read_text().splitlines() if log.exists() else []:
         if "Compiling entry function" in line:
-            # an int template argument: flash attention's ⌈D/16⌉, RMSNorm's unroll
-            cols = re.search(r"Li(\d+)E", line)
-            named = re.search(r"(\w+_kernel)", line)
-            dtype = "bf16" if "bfloat16" in line else "f32"
-            entry = (f"{dtype}/<{cols.group(1)}>" if cols
-                     else named.group(1) if named else line.split()[-1])
+            entry = entry_name(re.search(r"'(\w+)'", line).group(1))
+            entries[entry] = {}
+        elif "bytes stack frame" in line:
+            nums = [int(x) for x in re.findall(r"(\d+) bytes", line)]
+            entries.setdefault(entry, {}).update(stack_bytes=nums[0], spill_stores=nums[1], spill_loads=nums[2])
         elif "Used" in line and "registers" in line:
-            regs[entry] = int(re.search(r"Used (\d+) registers", line).group(1))
-        elif "spill" in line and " 0 bytes spill stores, 0 bytes spill loads" not in line:
-            spills.append(f"{entry}: {line.strip()}")
-    return {"registers": regs, "spills": spills}
+            entries.setdefault(entry, {})["registers"] = int(re.search(r"Used (\d+) registers", line).group(1))
+    spills = [k for k, e in entries.items() if e.get("spill_stores") or e.get("spill_loads")]
+    return {"entries": entries, "spilling": spills}
+
+
+def sass_counts(lib: pathlib.Path, nvcc: str) -> dict:
+    """Tensor-core (HMMA: mma.sync; HGMMA: wgmma) and fp32 FMA (FFMA)
+    instructions per kernel entry of a built library, by ``cuobjdump -sass``
+    (from the toolkit beside nvcc)."""
+    exe = pathlib.Path(nvcc).with_name("cuobjdump")
+    if not exe.exists():
+        raise RuntimeError(f"cuobjdump not found beside nvcc at {exe}")
+    sass = subprocess.run([str(exe), "-sass", str(lib)], check=True, capture_output=True,
+                          text=True, timeout=120).stdout
+    counts, entry = {}, None
+    for line in sass.splitlines():
+        fn = re.search(r"Function : (\S+)", line)
+        if fn:
+            entry = entry_name(fn.group(1))
+            counts[entry] = {"HMMA": 0, "HGMMA": 0, "FFMA": 0}
+        elif entry:
+            op = re.search(r"\*/\s+(?:@!?U?P\w+\s+)?([A-Z0-9]+)", line)
+            if op and op.group(1) in counts[entry]:
+                counts[entry][op.group(1)] += 1
+    return counts
 
 
 def randn_qkv(gen, b, sq, skv, h, kv, d, dtype):
@@ -228,10 +296,11 @@ def randn_qkv(gen, b, sq, skv, h, kv, d, dtype):
 
 
 def phase_kernels(ops) -> dict:
-    """Phase 2: the flash-attention kernel against its plain version."""
+    """Phase 2: the flash-attention kernels against their plain version."""
     gen = torch.Generator(device="cuda").manual_seed(0)
     checks = []
-    cases = ATTN_CASES + [(*DANUBE.values(), dt) for dt in (torch.float32, torch.bfloat16)]
+    cases = ATTN_CASES + BF16_CASES + [(*DANUBE.values(), dt)
+                                       for dt in (torch.float32, torch.bfloat16)]
     for b, sq, skv, h, kv, d, causal, window, dt in cases:
         q, k, v = randn_qkv(gen, b, sq, skv, h, kv, d, dt)
         out = ops.flash_attention(q, k, v, causal=causal, window=window)
@@ -242,6 +311,17 @@ def phase_kernels(ops) -> dict:
                        "max_abs_err": err, "tol": TOL[dt]})
         assert torch.isfinite(out).all(), shape
         assert err <= TOL[dt], (shape, dt, err)
+    # rows that see no key: exactly 0 from the kernel (the plain version averages v)
+    b, sq, skv, h, kv, d, causal, window, dt = NO_LIVE_KEY
+    q, k, v = randn_qkv(gen, b, sq, skv, h, kv, d, dt)
+    out = ops.flash_attention(q, k, v, causal=causal, window=window).float()
+    plain = ops.flash_attention_plain(q, k, v, causal=causal, window=window).float()
+    dead = torch.arange(sq, device="cuda") - (window - 1) >= skv
+    err = float((out[:, ~dead] - plain[:, ~dead]).abs().max())
+    checks.append({"shape": list(NO_LIVE_KEY[:-1]), "dtype": "bfloat16", "max_abs_err": err,
+                   "tol": TOL[dt], "rows_without_key": int(dead.sum()),
+                   "those_rows_zero": bool((out[:, dead] == 0).all())})
+    assert checks[-1]["those_rows_zero"] and err <= TOL[dt], checks[-1]
     torch.cuda.synchronize()
 
     timed = {}
@@ -258,13 +338,17 @@ def phase_kernels(ops) -> dict:
         keep = (pos[None, :] <= pos[:, None]) & (pos[:, None] - pos[None, :] < s["window"])
         sdpa = torch.nn.functional.scaled_dot_product_attention
         bound_ms, bound_by = attention_bound(*s.values(), dt)
+        flops = 4 * s["d"] * s["b"] * s["h"] * live_pairs(s["sq"], s["skv"], True, s["window"])
+        ms = cuda_ms(lambda: ops.flash_attention(q, k, v, **kw), 10)
         timed[dt] = {
-            "ms": cuda_ms(lambda: ops.flash_attention(q, k, v, **kw), 10),
+            "ms": ms, "tflops": flops / ms / 1e9, "bound_frac": bound_ms / ms,
             "plain_ms": cuda_ms(lambda: ops.flash_attention_plain(q, k, v, **kw), 3),
             "library_ms": cuda_ms(lambda: sdpa(qh, kh, vh, attn_mask=keep), 10),
             "bound_ms": bound_ms, "bound_by": bound_by,
             "max_abs_err": next(c["max_abs_err"] for c in reversed(checks)
-                                if c["dtype"] == str(dt).removeprefix("torch.")),
+                                if c["shape"] == list(s.values())
+                                and c["dtype"] == str(dt).removeprefix("torch.")),
+            "launch": ops.flash_attention_launch_info(s["d"], dt),
         }
         del q, k, v, qh, kh, vh, keep
         torch.cuda.empty_cache()
@@ -587,9 +671,14 @@ def main() -> None:
     t0 = time.perf_counter()
     libs = build.build_all()
     build_s = time.perf_counter() - t0
-    for name, path in libs.items():
-        print(json.dumps({"built": name, "build_s": build_s,
-                          "ptxas": ptxas_report(path.with_suffix(".log"))}), flush=True)
+    ptxas = {name: ptxas_report(path.with_suffix(".log")) for name, path in libs.items()}
+    for dt, entry in FLASH_ENTRY.items():
+        ptxas["flash_attention"]["entries"][entry]["dynamic_smem_bytes"] = \
+            ops.flash_attention_launch_info(DANUBE["d"], dt)["smem_bytes"]
+    for name in libs:
+        print(json.dumps({"built": name, "build_s": build_s, "ptxas": ptxas[name]}), flush=True)
+    flash_sass = sass_counts(libs["flash_attention"], build.nvcc())
+    print(json.dumps({"flash_attention_sass": flash_sass}), flush=True)
     torch.cuda.synchronize()
 
     # -- phase 2: kernels against their plain versions ---------------------
@@ -636,6 +725,11 @@ def main() -> None:
     print(json.dumps({"launches": {"overlap": overlapping}}), flush=True)
 
     bf, f32 = kern["timed"][torch.bfloat16], kern["timed"][torch.float32]
+    for dt, t in ((torch.bfloat16, bf), (torch.float32, f32)):  # the entries danube's D runs
+        t["entry"] = FLASH_ENTRY[dt]
+        t["ptxas"] = ptxas["flash_attention"]["entries"][FLASH_ENTRY[dt]]
+        t["sass"] = flash_sass[FLASH_ENTRY[dt]]
+    assert bf["sass"]["HMMA"] + bf["sass"]["HGMMA"] > 0, bf["sass"]
     records = [{
         "name": "flash_attention", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
@@ -643,8 +737,9 @@ def main() -> None:
         "launches": serving["flash_attention"],
         "max_abs_err": bf["max_abs_err"], "ms": bf["ms"], "kernel_ms": bf["ms"],
         "plain_ms": bf["plain_ms"], "bound_ms": bf["bound_ms"], "bound_by": bf["bound_by"],
-        "library_ms": bf["library_ms"], "dtype": "bfloat16",
-        "shape": DANUBE, "fp32": f32,
+        "library_ms": bf["library_ms"], "tflops": bf["tflops"], "bound_frac": bf["bound_frac"],
+        "dtype": "bfloat16", "shape": DANUBE,
+        **{k: bf[k] for k in ("entry", "ptxas", "sass", "launch")}, "fp32": f32,
     }]
     for name, body in (("quantize_int8", 18), ("dequantize_int8", 27)):
         t = int8["timed"][name]

@@ -34,7 +34,23 @@ def _flash_lib() -> ctypes.CDLL:
     lib.flash_attention_fwd.argtypes = [vp, vp, vp, vp, ci, ci, ci, ci, ci, ci, ci, ci,
                                         ctypes.c_float, ci, vp]
     lib.flash_attention_fwd.restype = ci
+    pi = ctypes.POINTER(ci)
+    lib.flash_attention_launch_info.argtypes = [ci, ci, pi, pi, pi, pi]
+    lib.flash_attention_launch_info.restype = ci
     return lib
+
+
+def flash_attention_launch_info(d: int, dtype: torch.dtype) -> dict:
+    """The launch shape of the CUDA kernel for head dim ``d`` and ``dtype``:
+    threads and query rows per block, dynamic shared memory, blocks per SM
+    (on the current card)."""
+    vals = [ctypes.c_int() for _ in range(4)]
+    err = _flash_lib().flash_attention_launch_info(d, _DTYPE_CODE[dtype],
+                                                   *map(ctypes.byref, vals))
+    if err != 0:
+        raise RuntimeError(f"flash_attention_launch_info failed: cudaError_t {err}")
+    return dict(zip(("threads", "rows_per_block", "smem_bytes", "blocks_per_sm"),
+                    (v.value for v in vals)))
 
 
 @functools.cache
@@ -99,13 +115,18 @@ def flash_attention(q: Tensor, k: Tensor, v: Tensor, *, causal: bool = True,
 
     k/v may have fewer (KV) heads; the kernel reads KV head ``h // (H/KV)``
     and never materializes the repeat. Causal masking is top-left (k ≤ q on
-    indices from 0); ``window`` keeps keys with q − k < window.
+    indices from 0); ``window`` keeps keys with q − k < window. On the card
+    bf16 runs on the tensor cores (wgmma, fed by TMA, which needs q/k/v to
+    start on 16-byte boundaries) and fp32 on CUDA-core FMAs.
     """
     _check_attention(q, k, v, window)
     if q.device.type == "cpu":
         return flash_attention_plain(q, k, v, causal=causal, window=window)
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention runs on cpu or cuda tensors, not {q.device}")
+    if q.dtype == torch.bfloat16 and any(t.data_ptr() % 16 for t in (q, k, v)):
+        raise ValueError("bf16 q/k/v must start on 16-byte boundaries for the CUDA kernel "
+                         "(TMA's rule)")
     lib = _flash_lib()
     b, sq, h, d = q.shape
     _, skv, kv, _ = k.shape

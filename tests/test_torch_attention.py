@@ -59,6 +59,67 @@ def test_flash_attention_matches_pallas(b, sq, skv, h, kv, d, causal, window, dt
     assert err < tol, err
 
 
+def _tensor_core_order(q, k, v, causal, window, bk=64):
+    """The bf16 CUDA kernel's order of work (``csrc/flash_attention.cu``,
+    ``tc::flash_fwd_bf16_kernel``) on the CPU: 64-key tiles, S in fp32, an
+    online softmax in base 2 with the scale folded into log2 e, P rounded to
+    bf16 per tile before P·V, fp32 accumulation, O / max(l, 1e-30)."""
+    b, sq, h, d = q.shape
+    skv, rep = k.shape[1], h // k.shape[2]
+    qf = q.float().transpose(1, 2)                                  # [b, h, sq, d]
+    kf = k.float().repeat_interleave(rep, dim=2).transpose(1, 2)    # [b, h, skv, d]
+    vf = v.float().repeat_interleave(rep, dim=2).transpose(1, 2)
+    sl2 = torch.tensor((1.0 / np.sqrt(d)) * np.log2(np.e), dtype=torch.float32)
+    m = torch.full((b, h, sq), -torch.inf)
+    l = torch.zeros((b, h, sq))
+    o = torch.zeros((b, h, sq, d))
+    qi = torch.arange(sq)[:, None]
+    for k0 in range(0, skv, bk):
+        kj = torch.arange(k0, min(k0 + bk, skv))[None, :]
+        live = torch.ones((sq, kj.shape[1]), dtype=torch.bool)
+        if causal:
+            live &= kj <= qi
+        if window is not None:
+            live &= qi - kj < window
+        s = torch.where(live, qf @ kf[:, :, k0:k0 + bk].transpose(-1, -2), -torch.inf)
+        mx = torch.maximum(m, s.amax(-1))
+        base = torch.where(mx == -torch.inf, 0.0, mx * sl2)
+        corr = torch.exp2(m * sl2 - base)
+        p = torch.exp2(s * sl2 - base[..., None])
+        l = l * corr + p.sum(-1)
+        o = o * corr[..., None] + p.bfloat16().float() @ vf[:, :, k0:k0 + bk]
+        m = mx
+    return (o / l.clamp(min=1e-30)[..., None]).transpose(1, 2).to(torch.bfloat16)
+
+
+# tests/test_kernels.py's ATTN_CASES, every one in bf16 (the tensor-core
+# kernel's type), and danube's smoke widths (4/2 heads of 16, window 16)
+TC_CASES = [
+    (2, 128, 128, 4, 4, 64, True, None),
+    (1, 256, 256, 8, 2, 64, True, None),
+    (2, 100, 100, 4, 1, 32, True, 48),
+    (1, 64, 192, 2, 2, 128, False, None),
+    (1, 160, 160, 2, 2, 80, True, None),
+    (1, 96, 96, 3, 3, 64, True, 17),
+    (2, 64, 64, 4, 2, 16, True, 16),
+]
+
+
+@pytest.mark.parametrize("b,sq,skv,h,kv,d,causal,window", TC_CASES)
+def test_tensor_core_order_of_work_matches_pallas(b, sq, skv, h, kv, d, causal, window):
+    """Rounding P to bf16 per 64-key tile, as the bf16 CUDA kernel does, stays
+    within the bf16 limit (2e-2) of the Pallas kernel, which keeps P in fp32."""
+    rs = np.random.default_rng(3)
+    qn, kn, vn = (rs.standard_normal(shape, dtype=np.float32)
+                  for shape in ((b, sq, h, d), (b, skv, kv, d), (b, skv, kv, d)))
+    (qj, qt), (kj, kt), (vj, vt) = (_pair(a, "bfloat16") for a in (qn, kn, vn))
+    expect = jax_kops.flash_attention(qj, kj, vj, causal=causal, window=window)
+    out = _tensor_core_order(qt, kt, vt, causal, window)
+    assert out.shape == (b, sq, h, d)
+    err = float(np.abs(_f32(out) - _f32(expect)).max())
+    assert err < 2e-2, err
+
+
 @pytest.mark.parametrize("bad,match", [
     (dict(d=36), "multiple of 8"),
     (dict(d=136), "at most 128"),

@@ -20,6 +20,9 @@ ATTN_CASES = [
     (1, 96, 96, 3, 3, 64, True, 17, "bfloat16"),
     (1, 300, 300, 8, 8, 72, False, 40, "bfloat16"),  # D not a multiple of 16, non-causal window
 ]
+# the bf16 (tensor-core) twin of every fp32 case above, and danube's heads at a short S
+ATTN_CASES += [(*c[:-1], "bfloat16") for c in ATTN_CASES if c[-1] == "float32"]
+ATTN_CASES += [(2, 320, 320, 32, 8, 80, True, 256, "bfloat16")]
 
 
 @pytest.fixture
@@ -42,6 +45,33 @@ def test_flash_attention_kernel_matches_plain(card, b, sq, skv, h, kv, d, causal
     expect = ops.flash_attention_plain(q, k, v, causal=causal, window=window)
     tol = 2e-2 if dtype == torch.bfloat16 else 1e-4  # the card sums in another order
     assert float((out.float() - expect.float()).abs().max()) <= tol
+
+
+def test_flash_attention_rows_with_no_live_key_are_zero(card):
+    """Sq = 300 against Skv = 100, causal, window 48: rows 147 on see no key.
+    The kernel writes 0 there (the plain version averages v); the rest agree."""
+    gen = torch.Generator(device=card).manual_seed(1)
+    q, k, v = (torch.randn(shape, generator=gen, device=card).to(torch.bfloat16)
+               for shape in ((1, 300, 4, 80), (1, 100, 2, 80), (1, 100, 2, 80)))
+    out = ops.flash_attention(q, k, v, causal=True, window=48).float()
+    expect = ops.flash_attention_plain(q, k, v, causal=True, window=48).float()
+    qi = torch.arange(300, device=card)
+    dead = qi - 47 > 99  # no key in [q − 47, q] ∩ [0, 100)
+    assert int(dead.sum()) == 153
+    assert bool((out[:, dead] == 0).all())
+    assert float((out[:, ~dead] - expect[:, ~dead]).abs().max()) <= 2e-2
+
+
+@pytest.mark.parametrize("which", ["q", "k", "v"])
+def test_flash_attention_cuda_rejects_misaligned_views(card, which):
+    shapes = {"q": (1, 64, 4, 80), "k": (1, 64, 2, 80), "v": (1, 64, 2, 80)}
+    t = {n: torch.randn(s, device=card).to(torch.bfloat16) for n, s in shapes.items()}
+    buf = torch.zeros(1 + t[which].numel(), dtype=torch.bfloat16, device=card)
+    t[which] = buf.flatten()[1:].view(shapes[which])  # contiguous, 2 bytes off a boundary
+    n0 = ops.LAUNCHES["flash_attention"]
+    with pytest.raises(ValueError, match="16-byte"):
+        ops.flash_attention(t["q"], t["k"], t["v"], causal=True)
+    assert ops.LAUNCHES["flash_attention"] == n0
 
 
 def test_flash_attention_cuda_rejects_without_plain_fallback(card):
