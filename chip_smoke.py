@@ -21,6 +21,8 @@ JAX or of the JAX package. No phase's failure is caught.
      live key (exactly 0); the kernel, the plain version and one library
      call timed by CUDA events, the least time the card could take
      (``bound_ms``), the rate (``tflops``) and its share (``bound_frac``).
+     The same at dbrx-132b's attention shape (B=1, S=4096, 48 query / 8 KV
+     heads of 128, causal, no window), against SDPA with ``is_causal``.
   3. The main path, at full width: h2o-danube-1.8b (24 layers, d_model
      2560, random weights from a seed) prefills 2 × 4608 tokens through
      ``launch.steps.make_prefill`` with the flash-attention kernel, against
@@ -54,6 +56,23 @@ JAX or of the JAX package. No phase's failure is caught.
      the plain RMSNorm of the plain sum within 1e-5, time per call, one
      kernel launch per chunk. With no consumer, C = 1 equals the monolithic
      program bit for bit, and at 1 MB per rank C = 4 equals its CPU run.
+  8. The MLA and MoE blocks at full width: deepseek-v2-lite-16b whole (27
+     layers, 15,706,357,760 parameters as ``param_count()`` counts them, fp32
+     params from seed 0): (a) the count on the card; (b) a bf16 prefill of
+     2 × 4096 tokens through ``make_prefill`` with ``use_pallas``, timed, which
+     launches no flash kernel (MLA never reaches it, as in JAX); (c) in fp32,
+     1 × 64 tokens with capacity to spare, the prefill's logits against 64
+     decode steps over the rank-512 latent cache (≤ 1e-3 relative); (d) the
+     first two layers, fp32, 1 × 256 tokens, the card against the CPU (≤ 1e-4
+     relative, argmax agreement 1.0); (e) with those params freed, the serving
+     driver (4 requests, 64-token prompts, 32 generated tokens).
+  9. dbrx-132b's MoE blocks at full width, 2 layers deep (7,751,270,400
+     bf16 parameters): prefill of 1 × 4096 tokens in bf16 and fp32 through the
+     flash kernel (two launches per prefill) against the plain path, held to
+     ``PREFILL_TOL`` in fp32 and printed in bf16 beside a plain-against-plain
+     control (the router's top-k makes bf16 rounding move whole rows); layer
+     0's attention, kernel against plain, held to ``PREFILL_TOL`` in both;
+     then decode steps, finite.
 
 Phase 2 also holds the RMSNorm kernel against its plain version (fp32
 within 1e-5, bf16 within 2e-2, the limits of tests/test_kernels.py, or one
@@ -70,9 +89,10 @@ bucket and the leaf sizes: each call from a cold L2 cache (``ms``), and
 back-to-back calls, host gaps and a warm L2 included (``ms_back_to_back``).
 
 Each main path is driven with the launch counters set to 0 just before it
-and read just after: serving (phases 3 and 4), training (phase 5) and
-overlap mode (phase 7). The last lines are the ``{"kernels": [...]}``
-record, the run record, and ``{"ok": true, "device": {...}}``.
+and read just after: serving (phases 3 and 4), training (phase 5), overlap
+mode (phase 7), deepseek (phase 8) and dbrx (phase 9). Each phase prints its
+seconds. The last lines are the ``{"kernels": [...]}`` record, the run
+record, and ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -107,13 +127,24 @@ DANUBE = dict(b=2, sq=4608, skv=4608, h=32, kv=8, d=80, causal=True, window=4096
 BF16_CASES = ([(*c[:-1], torch.bfloat16) for c in ATTN_CASES if c[-1] == torch.float32] +
               [(1, 300, 300, 8, 8, 72, False, 40, torch.bfloat16),
                (2, 320, 320, 32, 8, 80, True, 256, torch.bfloat16)])
-# the kernel entries danube's D = 80 runs, by dtype
+# dbrx-132b's attention in a 4096-token prefill: 48 query / 8 KV heads of 128, no window
+DBRX = dict(b=1, sq=4096, skv=4096, h=48, kv=8, d=128, causal=True, window=None)
+# the kernel entries danube's D = 80 and dbrx's D = 128 run, by dtype
 FLASH_ENTRY = {torch.bfloat16: "flash_fwd_bf16_kernel<80>",
                torch.float32: "flash_fwd_f32_kernel<5>"}
+FLASH_ENTRY_128 = {torch.bfloat16: "flash_fwd_bf16_kernel<128>",
+                   torch.float32: "flash_fwd_f32_kernel<8>"}
+SDPA = torch.nn.functional.scaled_dot_product_attention  # the library yardstick
 # rows with no live key: Sq = 300 against Skv = 100, causal, window 48 (rows 147 on)
 NO_LIVE_KEY = (1, 300, 100, 4, 2, 80, True, 48, torch.bfloat16)
 TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}  # the card sums in another order
 PREFILL_TOL = {"float32": 1e-3, "bfloat16": 5e-2}
+# phase 8: deepseek-v2-lite-16b; phase 9: dbrx-132b at 2 of its 40 layers
+DEEPSEEK_PREFILL = (2, 4096)
+DEEPSEEK_REPLAY = 64  # tokens, fp32: prefill against token-by-token decode
+DEEPSEEK_DEPTH2 = (("mla_dense", "mla_moe"), 256)  # layers, tokens: card against CPU
+DBRX_LAYERS, DBRX_PREFILL, DBRX_DECODE = 2, (1, 4096), 8
+SERVE = ["--batch", "4", "--prompt-len", "64", "--gen", "32"]
 # H100 SXM published dense peaks (NVIDIA data sheet): fp32 on the CUDA cores,
 # bf16 on the tensor cores; HBM3 bandwidth
 PEAK_FLOPS = {torch.float32: 67e12, torch.bfloat16: 989e12}
@@ -299,7 +330,7 @@ def phase_kernels(ops) -> dict:
     """Phase 2: the flash-attention kernels against their plain version."""
     gen = torch.Generator(device="cuda").manual_seed(0)
     checks = []
-    cases = ATTN_CASES + BF16_CASES + [(*DANUBE.values(), dt)
+    cases = ATTN_CASES + BF16_CASES + [(*s.values(), dt) for s in (DANUBE, DBRX)
                                        for dt in (torch.float32, torch.bfloat16)]
     for b, sq, skv, h, kv, d, causal, window, dt in cases:
         q, k, v = randn_qkv(gen, b, sq, skv, h, kv, d, dt)
@@ -324,36 +355,46 @@ def phase_kernels(ops) -> dict:
     assert checks[-1]["those_rows_zero"] and err <= TOL[dt], checks[-1]
     torch.cuda.synchronize()
 
-    timed = {}
-    for dt in (torch.float32, torch.bfloat16):
-        s = DANUBE
-        q, k, v = randn_qkv(gen, s["b"], s["sq"], s["skv"], s["h"], s["kv"], s["d"], dt)
-        kw = dict(causal=s["causal"], window=s["window"])
-        # the yardstick: one PyTorch call computing the same function, on
-        # [B,H,S,D] copies with the KV heads repeated and the window as a mask
-        qh, kh, vh = (t.transpose(1, 2).contiguous() for t in (q, k, v))
-        kh = kh.repeat_interleave(s["h"] // s["kv"], dim=1)
-        vh = vh.repeat_interleave(s["h"] // s["kv"], dim=1)
-        pos = torch.arange(s["sq"], device="cuda")
-        keep = (pos[None, :] <= pos[:, None]) & (pos[:, None] - pos[None, :] < s["window"])
-        sdpa = torch.nn.functional.scaled_dot_product_attention
-        bound_ms, bound_by = attention_bound(*s.values(), dt)
-        flops = 4 * s["d"] * s["b"] * s["h"] * live_pairs(s["sq"], s["skv"], True, s["window"])
-        ms = cuda_ms(lambda: ops.flash_attention(q, k, v, **kw), 10)
-        timed[dt] = {
-            "ms": ms, "tflops": flops / ms / 1e9, "bound_frac": bound_ms / ms,
-            "plain_ms": cuda_ms(lambda: ops.flash_attention_plain(q, k, v, **kw), 3),
-            "library_ms": cuda_ms(lambda: sdpa(qh, kh, vh, attn_mask=keep), 10),
-            "bound_ms": bound_ms, "bound_by": bound_by,
-            "max_abs_err": next(c["max_abs_err"] for c in reversed(checks)
-                                if c["shape"] == list(s.values())
-                                and c["dtype"] == str(dt).removeprefix("torch.")),
-            "launch": ops.flash_attention_launch_info(s["d"], dt),
-        }
-        del q, k, v, qh, kh, vh, keep
-        torch.cuda.empty_cache()
+    timed = {"danube": {}, "dbrx": {}}
+    for name, s in (("danube", DANUBE), ("dbrx", DBRX)):
+        for dt in (torch.float32, torch.bfloat16):
+            timed[name][dt] = time_attention(ops, gen, s, dt, checks)
+            torch.cuda.empty_cache()
     torch.cuda.synchronize()
     return {"checks": checks, "timed": timed}
+
+
+def time_attention(ops, gen, s: dict, dt, checks) -> dict:
+    """The kernel, its plain version and one library call at shape ``s``, with
+    the least time the card could take. The yardstick computes the same
+    function on [B,H,S,D] copies with the KV heads repeated: with a window it
+    takes the mask, without one ``is_causal`` (SDPA's own flash backend)."""
+    q, k, v = randn_qkv(gen, s["b"], s["sq"], s["skv"], s["h"], s["kv"], s["d"], dt)
+    kw = dict(causal=s["causal"], window=s["window"])
+    qh, kh, vh = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+    kh = kh.repeat_interleave(s["h"] // s["kv"], dim=1)
+    vh = vh.repeat_interleave(s["h"] // s["kv"], dim=1)
+    if s["window"]:
+        pos = torch.arange(s["sq"], device="cuda")
+        keep = (pos[None, :] <= pos[:, None]) & (pos[:, None] - pos[None, :] < s["window"])
+        library = functools.partial(SDPA, qh, kh, vh, attn_mask=keep)
+    else:
+        library = functools.partial(SDPA, qh, kh, vh, is_causal=s["causal"])
+    bound_ms, bound_by = attention_bound(*s.values(), dt)
+    flops = 4 * s["d"] * s["b"] * s["h"] * live_pairs(s["sq"], s["skv"], s["causal"],
+                                                      s["window"])
+    ms = cuda_ms(lambda: ops.flash_attention(q, k, v, **kw), 10)
+    return {
+        "ms": ms, "tflops": flops / ms / 1e9, "flops": flops, "bound_frac": bound_ms / ms,
+        "plain_ms": cuda_ms(lambda: ops.flash_attention_plain(q, k, v, **kw), 3),
+        "library_ms": cuda_ms(library, 10),
+        "library": "SDPA, " + ("attn_mask" if s["window"] else "is_causal"),
+        "bound_ms": bound_ms, "bound_by": bound_by,
+        "max_abs_err": next(c["max_abs_err"] for c in reversed(checks)
+                            if c["shape"] == list(s.values())
+                            and c["dtype"] == str(dt).removeprefix("torch.")),
+        "launch": ops.flash_attention_launch_info(s["d"], dt),
+    }
 
 
 def quant_inputs(gen, n: int) -> torch.Tensor:
@@ -624,6 +665,182 @@ def phase_prefill(get_config, tf, make_prefill, ops) -> dict:
     return out
 
 
+def _rel(got: torch.Tensor, expect: torch.Tensor) -> float:
+    got, expect = got.float(), expect.float()
+    return float((got - expect).abs().max() / expect.abs().max())
+
+
+def _agree(got: torch.Tensor, expect: torch.Tensor) -> float:
+    return float((got.argmax(-1) == expect.argmax(-1)).float().mean())
+
+
+def _map(fn, tree):
+    if isinstance(tree, dict):
+        return {k: _map(fn, v) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_map(fn, v) for v in tree]
+    return fn(tree)
+
+
+def _is_norm(path: str) -> bool:
+    return "ln1" in path or "ln2" in path or "final_norm" in path
+
+
+def phase_deepseek(get_config, tf, steps_lib, flatten_with_paths, ops) -> dict:
+    """Phase 8 (a)–(d): deepseek-v2-lite-16b whole on the card, fp32 params
+    from seed 0. Returns numbers only, so its params die with the call."""
+    dev = torch.device("cuda")
+    cfg = get_config("deepseek-v2-lite-16b")
+    t0 = time.perf_counter()
+    params = tf.init_params(torch.Generator(device=dev).manual_seed(0), cfg)
+    torch.cuda.synchronize()
+    flat = flatten_with_paths(params)
+    counted = sum(t.numel() for k, t in flat if not _is_norm(k))
+    out = {"arch": cfg.name, "n_layers": cfg.n_layers, "init_s": time.perf_counter() - t0,
+           "params_counted": counted, "param_count": cfg.param_count(),
+           "params_with_norms": sum(t.numel() for _, t in flat),
+           "param_gb": sum(t.numel() * t.element_size() for _, t in flat) / 1e9}
+    del flat
+    print(json.dumps({"deepseek_params": out}), flush=True)
+    assert counted == cfg.param_count(), out  # 15,706,357,760 (tests/test_torch_mla.py)
+
+    # (b) the bf16 prefill: MLA takes the dense path, no flash launch
+    gen = torch.Generator(device=dev).manual_seed(1)
+    batch = {"tokens": torch.randint(0, cfg.vocab_size, DEEPSEEK_PREFILL, generator=gen,
+                                     device=dev)}
+    prefill = steps_lib.make_prefill(cfg.replace(use_pallas=True), dev)
+    n0 = ops.LAUNCHES["flash_attention"]
+    torch.cuda.reset_peak_memory_stats()
+    logits, first_s = _timed(prefill, params, batch)
+    del logits
+    logits, prefill_s = _timed(prefill, params, batch)
+    launches = ops.LAUNCHES["flash_attention"] - n0
+    out["prefill_bf16"] = {"tokens": list(DEEPSEEK_PREFILL), "first_s": first_s,
+                           "prefill_s": prefill_s, "flash_launches": launches,
+                           "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+                           "finite": bool(torch.isfinite(logits).all())}
+    print(json.dumps({"deepseek_prefill": out["prefill_bf16"]}), flush=True)
+    assert logits.shape == (*DEEPSEEK_PREFILL, cfg.vocab_size), logits.shape
+    assert out["prefill_bf16"]["finite"] and launches == 0, out["prefill_bf16"]
+    del logits, batch
+    torch.cuda.empty_cache()
+
+    # (c) fp32, capacity to spare: prefill against token replay over the latent cache
+    c32 = cfg.replace(compute_dtype="float32", moe_capacity_factor=50.0)
+    toks = torch.randint(0, cfg.vocab_size, (1, DEEPSEEK_REPLAY), generator=gen, device=dev)
+    full = steps_lib.make_prefill(c32, dev)(params, {"tokens": toks})
+    decode = steps_lib.make_decode_step(c32, dev)
+    caches = tf.init_caches(c32, 1, DEEPSEEK_REPLAY, dev)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    errs = []
+    for i in range(DEEPSEEK_REPLAY):
+        step_logits, caches = decode(params, caches, toks[:, i:i + 1], i)
+        errs.append(_rel(step_logits[:, 0], full[:, i]))
+    torch.cuda.synchronize()
+    out["replay_fp32"] = {"tokens": DEEPSEEK_REPLAY, "rel_err_last": errs[-1],
+                          "rel_err_max": max(errs), "tol": 1e-3,
+                          "decode_step_s": (time.perf_counter() - t0) / DEEPSEEK_REPLAY}
+    print(json.dumps({"deepseek_replay": out["replay_fp32"]}), flush=True)
+    assert max(errs) <= 1e-3, out["replay_fp32"]
+    del full, caches, step_logits
+
+    # (d) the first two layers, fp32: the card against the CPU on the same params
+    kinds, s2 = DEEPSEEK_DEPTH2
+    c2 = cfg.replace(n_layers=len(kinds), block_pattern=kinds, compute_dtype="float32")
+    p2 = {**params, "segments": [params["segments"][0],
+                                 _map(lambda t: t[:1], params["segments"][1])]}
+    toks = torch.randint(0, cfg.vocab_size, (1, s2), generator=gen, device=dev)
+    card, card_aux = tf.forward_logits(p2, {"tokens": toks}, c2)
+    p2_cpu = _map(lambda t: t.cpu(), p2)
+    cpu, cpu_aux = tf.forward_logits(p2_cpu, {"tokens": toks.cpu()}, c2)
+    out["depth2_card_vs_cpu"] = {"layers": list(kinds), "tokens": s2,
+                                 "rel_err": _rel(card.cpu(), cpu), "tol": 1e-4,
+                                 "argmax_agree": _agree(card.cpu(), cpu),
+                                 "aux_card": float(card_aux), "aux_cpu": float(cpu_aux)}
+    print(json.dumps({"deepseek_depth2": out["depth2_card_vs_cpu"]}), flush=True)
+    assert out["depth2_card_vs_cpu"]["rel_err"] <= 1e-4, out["depth2_card_vs_cpu"]
+    assert out["depth2_card_vs_cpu"]["argmax_agree"] == 1.0, out["depth2_card_vs_cpu"]
+    assert abs(float(card_aux) - float(cpu_aux)) <= 1e-5 * float(cpu_aux)
+    return out
+
+
+def phase_dbrx(get_config, tf, attn, apply_norm, steps_lib, ops) -> dict:
+    """Phase 9: dbrx-132b's MoE blocks at full width, ``DBRX_LAYERS`` deep, bf16
+    params from seed 0: prefills through the flash kernel against the plain
+    path, and decode. The launch count is read after them, before layer 0's
+    attention launches the kernel once more per dtype to compare it.
+
+    In bf16 the whole-model comparison is printed, not held to a limit: the
+    router's top-k turns a rounding difference into another expert for the
+    tokens near a tie, which moves their rows by O(1). Two plain paths that
+    round differently (chunked attention, fp32 inside, against dense, P in
+    bf16) show the same; fp32 rounds too little to move a choice."""
+    dev = torch.device("cuda")
+    cfg = get_config("dbrx-132b")
+    cfg = cfg.replace(n_layers=DBRX_LAYERS, block_pattern=("moe",) * DBRX_LAYERS)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    params = tf.init_params(gen, cfg)
+    tokens = torch.randint(0, cfg.vocab_size, DBRX_PREFILL, generator=gen, device=dev)
+    out = {"arch": cfg.name, "n_layers": cfg.n_layers, "tokens": list(DBRX_PREFILL),
+           "params": sum(t.numel() for t in _leaves(params)),
+           "param_count": cfg.param_count()}
+    for dtype in ("bfloat16", "float32"):
+        c = cfg.replace(compute_dtype=dtype)
+        n0 = ops.LAUNCHES["flash_attention"]
+        kern, kern_s = _timed(steps_lib.make_prefill(c.replace(use_pallas=True), dev),
+                              params, {"tokens": tokens})
+        launches = ops.LAUNCHES["flash_attention"] - n0
+        plain, plain_s = _timed(steps_lib.make_prefill(c, dev), params, {"tokens": tokens})
+        assert kern.shape == (*DBRX_PREFILL, cfg.vocab_size) and kern.dtype == c.cdtype
+        assert torch.isfinite(kern).all() and torch.isfinite(plain).all()
+        out[dtype] = {"rel_max_err": _rel(kern, plain), "tol": PREFILL_TOL[dtype],
+                      "argmax_agree": _agree(kern, plain), "kernel_prefill_s": kern_s,
+                      "plain_prefill_s": plain_s, "launches_per_prefill": launches}
+        if dtype == "bfloat16":
+            chunked = steps_lib.make_prefill(c.replace(dense_attn_limit=0), dev)(
+                params, {"tokens": tokens})
+            out[dtype]["tol"] = "printed only (top-k routing)"
+            out[dtype]["control_plain_chunked_vs_dense"] = {
+                "rel_max_err": _rel(chunked, plain), "argmax_agree": _agree(chunked, plain)}
+            del chunked
+        print(json.dumps({"dbrx_prefill": dtype, **out[dtype]}), flush=True)
+        assert launches == cfg.n_layers, launches
+        if dtype == "float32":
+            assert out[dtype]["rel_max_err"] <= PREFILL_TOL[dtype], (dtype, out[dtype])
+        del plain, kern
+        torch.cuda.empty_cache()
+    # decode: token replay of the prompt's first tokens, bf16
+    decode = steps_lib.make_decode_step(cfg, dev)
+    caches = tf.init_caches(cfg, 1, DBRX_DECODE, dev)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for i in range(DBRX_DECODE):
+        logits, caches = decode(params, caches, tokens[:, i:i + 1], i)
+    torch.cuda.synchronize()
+    out["decode"] = {"steps": DBRX_DECODE, "step_s": (time.perf_counter() - t0) / DBRX_DECODE,
+                     "finite": bool(torch.isfinite(logits).all())}
+    print(json.dumps({"dbrx_decode": out["decode"]}), flush=True)
+    assert out["decode"]["finite"], out["decode"]
+    out["launches"] = dict(ops.LAUNCHES)  # the main path's, read before the check below
+
+    # layer 0's attention on its own input, the kernel against the plain path
+    layer0 = _map(lambda t: t[0], params["segments"][0])
+    positions = torch.arange(DBRX_PREFILL[1], dtype=torch.int32, device=dev)[None]
+    out["layer0_attention"] = {}
+    for dtype in ("bfloat16", "float32"):
+        c = cfg.replace(compute_dtype=dtype)
+        with torch.inference_mode():
+            h = apply_norm(c.norm, layer0["ln1"], params["embed"][tokens].to(c.cdtype))
+            kern = attn.attention_forward(layer0["attn"], h, positions, c, use_pallas=True)
+            plain = attn.attention_forward(layer0["attn"], h, positions, c)
+        out["layer0_attention"][dtype] = {"rel_max_err": _rel(kern, plain),
+                                          "tol": PREFILL_TOL[dtype]}
+        assert out["layer0_attention"][dtype]["rel_max_err"] <= PREFILL_TOL[dtype], out
+    print(json.dumps({"dbrx_layer0_attention": out["layer0_attention"]}), flush=True)
+    return out
+
+
 def _leaves(tree):
     if isinstance(tree, dict):
         for v in tree.values():
@@ -647,6 +864,7 @@ def main() -> None:
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: no CUDA device is available; this script runs on the card only")
     sys.path.insert(0, str(ROOT / "src"))
+    from repro_torch.bridge import flatten_with_paths
     from repro_torch.configs import get_config
     from repro_torch.core import collectives
     from repro_torch.kernels import build, ops, ref
@@ -655,13 +873,25 @@ def main() -> None:
     from repro_torch.launch import steps as steps_lib
     from repro_torch.optim.adamw import AdamWConfig
     from repro_torch.launch.steps import make_prefill
+    from repro_torch.models import attention as attn
     from repro_torch.models import transformer as tf
+    from repro_torch.models.layers import apply_norm
 
     torch.backends.cuda.matmul.allow_tf32 = False  # fp32 products in full fp32
     torch.backends.cudnn.allow_tf32 = False
     t_start = time.perf_counter()
+    phase_s = {}
+
+    def done(phase: str, t0: float) -> None:
+        phase_s[phase] = time.perf_counter() - t0
+        print(json.dumps({"phase": phase, "s": phase_s[phase]}), flush=True)
+
+    def reset_launches() -> None:
+        for name in ops.LAUNCHES:
+            ops.LAUNCHES[name] = 0
 
     # -- phase 1: device and build ----------------------------------------
+    t_phase = time.perf_counter()
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], check=True, capture_output=True,
                          text=True, timeout=60).stdout.strip().splitlines()[0]
@@ -672,16 +902,19 @@ def main() -> None:
     libs = build.build_all()
     build_s = time.perf_counter() - t0
     ptxas = {name: ptxas_report(path.with_suffix(".log")) for name, path in libs.items()}
-    for dt, entry in FLASH_ENTRY.items():
-        ptxas["flash_attention"]["entries"][entry]["dynamic_smem_bytes"] = \
-            ops.flash_attention_launch_info(DANUBE["d"], dt)["smem_bytes"]
+    for d, entries in ((DANUBE["d"], FLASH_ENTRY), (DBRX["d"], FLASH_ENTRY_128)):
+        for dt, entry in entries.items():
+            ptxas["flash_attention"]["entries"][entry]["dynamic_smem_bytes"] = \
+                ops.flash_attention_launch_info(d, dt)["smem_bytes"]
     for name in libs:
         print(json.dumps({"built": name, "build_s": build_s, "ptxas": ptxas[name]}), flush=True)
     flash_sass = sass_counts(libs["flash_attention"], build.nvcc())
     print(json.dumps({"flash_attention_sass": flash_sass}), flush=True)
     torch.cuda.synchronize()
+    done("1_build", t_phase)
 
     # -- phase 2: kernels against their plain versions ---------------------
+    t_phase = time.perf_counter()
     kern = phase_kernels(ops)
     print(json.dumps({"kernel_checks": kern["checks"]}), flush=True)
     int8 = phase_int8(ops, ref)
@@ -689,47 +922,87 @@ def main() -> None:
     rms = phase_rmsnorm(ops, ref)
     print(json.dumps({"rmsnorm_checks": rms["checks"], "rmsnorm_timed": rms["timed"]}),
           flush=True)
+    done("2_kernels", t_phase)
 
     # -- phases 3 and 4: the serving path -----------------------------------
-    for name in ops.LAUNCHES:
-        ops.LAUNCHES[name] = 0
+    t_phase = time.perf_counter()
+    reset_launches()
     prefill = phase_prefill(get_config, tf, make_prefill, ops)
-    res = serve.main(["--arch", "h2o-danube-1.8b", "--batch", "4",
-                      "--prompt-len", "64", "--gen", "32"])
+    res = serve.main(["--arch", "h2o-danube-1.8b", *SERVE])
     torch.cuda.synchronize()
     serving = dict(ops.LAUNCHES)
     assert res["finite"] and res["generated_shape"] == [4, 32], res
     assert res["ttft_s"] > 0 and res["tpot_s"] > 0, res
     assert serving["flash_attention"] > 0, serving
     torch.cuda.empty_cache()
+    done("3_4_serving", t_phase)
 
     # -- phase 5: the training path -----------------------------------------
-    for name in ops.LAUNCHES:
-        ops.LAUNCHES[name] = 0
+    t_phase = time.perf_counter()
+    reset_launches()
     runs = phase_train(train)
     torch.cuda.synchronize()
     training = dict(ops.LAUNCHES)
     assert training["quantize_int8"] > 0 and training["dequantize_int8"] > 0, training
     print(json.dumps({"launches": {"serving": serving, "training": training}}), flush=True)
+    done("5_training", t_phase)
 
     # -- phase 6: where a training step spends its time ---------------------
+    t_phase = time.perf_counter()
     trace = phase_trace(get_config, steps_lib, pipeline, AdamWConfig)
+    done("6_trace", t_phase)
 
     # -- phase 7: overlap mode, the RMSNorm kernel as each chunk's consumer --
-    for name in ops.LAUNCHES:
-        ops.LAUNCHES[name] = 0
+    t_phase = time.perf_counter()
+    reset_launches()
     overlap = phase_overlap(ops, ref, collectives)
     torch.cuda.synchronize()
     overlapping = dict(ops.LAUNCHES)
     assert overlapping["rmsnorm"] > 0, overlapping
     print(json.dumps({"launches": {"overlap": overlapping}}), flush=True)
+    done("7_overlap", t_phase)
 
-    bf, f32 = kern["timed"][torch.bfloat16], kern["timed"][torch.float32]
+    # -- phase 8: deepseek-v2-lite-16b whole: MLA and MoE at full width -------
+    t_phase = time.perf_counter()
+    torch.cuda.empty_cache()
+    reset_launches()
+    deepseek = phase_deepseek(get_config, tf, steps_lib, flatten_with_paths, ops)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    held_gb = torch.cuda.memory_allocated() / 1e9  # (e) starts with nothing of (a)–(d)
+    assert held_gb < 1.0, held_gb
+    res = serve.main(["--arch", "deepseek-v2-lite-16b", *SERVE])
+    torch.cuda.synchronize()
+    deepseek["serve"] = {**res, "held_gb_before": held_gb}
+    deepseek["launches"] = dict(ops.LAUNCHES)
+    assert res["finite"] and res["generated_shape"] == [4, 32], res
+    assert res["ttft_s"] > 0 and res["tpot_s"] > 0, res
+    assert deepseek["launches"]["flash_attention"] == 0, deepseek["launches"]  # MLA: no kernel
+    torch.cuda.empty_cache()
+    done("8_deepseek", t_phase)
+
+    # -- phase 9: dbrx-132b's MoE blocks, 2 layers, through the flash kernel ---
+    t_phase = time.perf_counter()
+    reset_launches()
+    dbrx = phase_dbrx(get_config, tf, attn, apply_norm, steps_lib, ops)
+    torch.cuda.synchronize()
+    assert dbrx["launches"]["flash_attention"] == 2 * DBRX_LAYERS, dbrx["launches"]
+    print(json.dumps({"launches": {"deepseek": deepseek["launches"],
+                                   "dbrx": dbrx["launches"]}}), flush=True)
+    torch.cuda.empty_cache()
+    done("9_dbrx", t_phase)
+
+    bf, f32 = kern["timed"]["danube"][torch.bfloat16], kern["timed"]["danube"][torch.float32]
     for dt, t in ((torch.bfloat16, bf), (torch.float32, f32)):  # the entries danube's D runs
         t["entry"] = FLASH_ENTRY[dt]
         t["ptxas"] = ptxas["flash_attention"]["entries"][FLASH_ENTRY[dt]]
         t["sass"] = flash_sass[FLASH_ENTRY[dt]]
     assert bf["sass"]["HMMA"] + bf["sass"]["HGMMA"] > 0, bf["sass"]
+    dbrx_attn = {"shape": DBRX, "launches": dbrx["launches"]["flash_attention"]}
+    for dt, t in kern["timed"]["dbrx"].items():  # the entries dbrx's D = 128 runs
+        dbrx_attn[str(dt).removeprefix("torch.")] = {
+            **t, "entry": FLASH_ENTRY_128[dt], "sass": flash_sass[FLASH_ENTRY_128[dt]],
+            "ptxas": ptxas["flash_attention"]["entries"][FLASH_ENTRY_128[dt]]}
     records = [{
         "name": "flash_attention", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
@@ -740,6 +1013,7 @@ def main() -> None:
         "library_ms": bf["library_ms"], "tflops": bf["tflops"], "bound_frac": bf["bound_frac"],
         "dtype": "bfloat16", "shape": DANUBE,
         **{k: bf[k] for k in ("entry", "ptxas", "sass", "launch")}, "fp32": f32,
+        "dbrx": dbrx_attn,
     }]
     for name, body in (("quantize_int8", 18), ("dequantize_int8", 27)):
         t = int8["timed"][name]
@@ -765,6 +1039,7 @@ def main() -> None:
     })
     print(json.dumps({"kernels": records}), flush=True)
     print(json.dumps({"prefill": prefill, "train": runs, "trace": trace, "overlap": overlap,
+                      "deepseek": deepseek, "dbrx": dbrx, "phase_s": phase_s,
                       "card": smi, "total_s": time.perf_counter() - t_start}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

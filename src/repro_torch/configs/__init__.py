@@ -6,10 +6,10 @@ others join as their blocks are ported (ROADMAP Queue 1).
 
 from __future__ import annotations
 
-from repro_torch.configs import bert_large, h2o_danube_1_8b
+from repro_torch.configs import bert_large, dbrx_132b, deepseek_v2_lite_16b, h2o_danube_1_8b
 from repro_torch.configs.base import ModelConfig  # noqa: F401
 
-_MODULES = [bert_large, h2o_danube_1_8b]
+_MODULES = [bert_large, dbrx_132b, deepseek_v2_lite_16b, h2o_danube_1_8b]
 
 REGISTRY: dict[str, object] = {m.ARCH_ID: m for m in _MODULES}
 

@@ -21,7 +21,8 @@ Two gradient-communication backends, as in the reference:
     chunked waves under ``overlap_chunks > 1``.
 
 With ``cfg.use_pallas`` the prefill's attention runs the hand-written
-flash-attention kernel, once per layer.
+flash-attention kernel, once per standard-attention layer (``"dense"``,
+``"moe"``); MLA layers take the dense or chunked path, as in JAX.
 
 The train step marks its three stages for ``torch.profiler``
 (``train/forward_backward``, ``train/grad_comm``, ``train/adamw``), which

@@ -1,4 +1,4 @@
-"""Attention: GQA / MQA / sliding-window, dense + chunked + kernel paths.
+"""Attention: GQA / MQA / sliding-window, dense + chunked + kernel paths, and MLA.
 
 The twin of ``repro.models.attention`` for the standard attention block:
 
@@ -11,6 +11,10 @@ The twin of ``repro.models.attention`` for the standard attention block:
 Decode keeps a KV cache; sliding-window archs (h2o-danube) use a ring
 buffer of ``window`` slots. Unlike the JAX package, the port updates the
 cache in place (an eager program gains nothing from a copy).
+
+MLA (DeepSeek-V2's multi-head latent attention) takes the dense or chunked
+path only, as in the JAX package: its query/key dim (nope + rope) differs
+from its value dim, and the kernel takes one head dim.
 """
 
 from __future__ import annotations
@@ -221,4 +225,101 @@ def decode_attention(p: dict, x: Tensor, cache: dict, position: int, cfg) -> tup
     cache["pos"][:, slot] = position
     mask = build_mask(pos_b, cache["pos"], "causal", cfg.sliding_window)
     out = dense_attention(q, cache["k"].to(x.dtype), cache["v"].to(x.dtype), mask)
+    return torch.einsum("bshk,hkd->bsd", out, p["wo"].to(x.dtype)), cache
+
+
+# ---------------------------------------------------------------------------
+# MLA (multi-head latent attention, DeepSeek-V2)
+# ---------------------------------------------------------------------------
+
+def init_mla(gen: torch.Generator, d: int, n_heads: int, kv_lora_rank: int,
+             qk_nope_dim: int, qk_rope_dim: int, v_dim: int, dtype=torch.float32,
+             lead: tuple[int, ...] = ()) -> dict:
+    return {
+        # queries (lite model: no q-lora)
+        "wq": dense_init(gen, (d, n_heads, qk_nope_dim + qk_rope_dim), dtype=dtype, lead=lead),
+        # latent KV compression
+        "w_dkv": dense_init(gen, (d, kv_lora_rank), dtype=dtype, lead=lead),
+        "w_kpe": dense_init(gen, (d, qk_rope_dim), dtype=dtype, lead=lead),  # shared by heads
+        # decompression
+        "w_uk": dense_init(gen, (kv_lora_rank, n_heads, qk_nope_dim), dtype=dtype, lead=lead),
+        "w_uv": dense_init(gen, (kv_lora_rank, n_heads, v_dim), dtype=dtype, lead=lead),
+        "wo": dense_init(gen, (n_heads, v_dim, d), dtype=dtype, lead=lead),
+    }
+
+
+def _mla_query(p: dict, x: Tensor, positions: Tensor, cfg) -> Tensor:
+    """[B,S,H,nope+rope]: the nope lanes as projected, the rope lanes roped."""
+    q = torch.einsum("bsd,dhk->bshk", x, p["wq"].to(x.dtype))
+    nope = cfg.mla_qk_nope_dim
+    return torch.cat([q[..., :nope], apply_rope(q[..., nope:], positions, cfg.rope_theta)],
+                     dim=-1)
+
+
+def _mla_latent(p: dict, x: Tensor, positions: Tensor, cfg) -> tuple[Tensor, Tensor]:
+    """The cached pair: latent ``c_kv`` [B,S,rank] and roped ``k_pe`` [B,S,rope]
+    (full rotary on the interleaved lanes, one head shared by all)."""
+    dt = x.dtype
+    c_kv = torch.einsum("bsd,dr->bsr", x, p["w_dkv"].to(dt))
+    k_pe = torch.einsum("bsd,dk->bsk", x, p["w_kpe"].to(dt))[:, :, None, :]
+    return c_kv, apply_rope(k_pe, positions, cfg.rope_theta)[:, :, 0, :]
+
+
+def _mla_keys_values(p: dict, c_kv: Tensor, k_pe: Tensor, cfg) -> tuple[Tensor, Tensor]:
+    """Decompress the latent: K = [c_kv·w_uk, k_pe broadcast over heads], V = c_kv·w_uv."""
+    dt = c_kv.dtype
+    k_nope = torch.einsum("bsr,rhk->bshk", c_kv, p["w_uk"].to(dt))
+    v = torch.einsum("bsr,rhk->bshk", c_kv, p["w_uv"].to(dt))
+    k_pe = k_pe[:, :, None, :].expand(*k_nope.shape[:3], cfg.mla_qk_rope_dim)
+    return torch.cat([k_nope, k_pe], dim=-1), v
+
+
+def _mla_scale(cfg) -> float:
+    return 1.0 / math.sqrt(cfg.mla_qk_nope_dim + cfg.mla_qk_rope_dim)
+
+
+def mla_forward(p: dict, x: Tensor, positions: Tensor, cfg,
+                use_chunked: Optional[bool] = None) -> Tensor:
+    """Full-sequence MLA. The latent c_kv (rank 512) + shared k_pe (64) are
+    what a server caches: 576 values per token against 2·H·D = 4096."""
+    q = _mla_query(p, x, positions, cfg)
+    c_kv, k_pe = _mla_latent(p, x, positions, cfg)
+    k, v = _mla_keys_values(p, c_kv, k_pe, cfg)
+    s = x.shape[1]
+    if use_chunked is None:
+        use_chunked = s * s > cfg.dense_attn_limit
+    if use_chunked:
+        out = chunked_attention(q, k, v, positions, positions, "causal", None, 0,
+                                chunk=cfg.attn_chunk, scale=_mla_scale(cfg))
+    else:
+        mask = build_mask(positions, positions, "causal")
+        out = dense_attention(q, k, v, mask, scale=_mla_scale(cfg))
+    return torch.einsum("bshk,hkd->bsd", out, p["wo"].to(x.dtype))
+
+
+def init_mla_cache(batch: int, max_len: int, kv_lora_rank: int, rope_dim: int,
+                   dtype=torch.bfloat16, device=None) -> dict:
+    return {
+        "c_kv": torch.zeros((batch, max_len, kv_lora_rank), dtype=dtype, device=device),
+        "k_pe": torch.zeros((batch, max_len, rope_dim), dtype=dtype, device=device),
+        "pos": torch.full((batch, max_len), -1, dtype=torch.int32, device=device),
+    }
+
+
+def mla_decode(p: dict, x: Tensor, cache: dict, position: int, cfg) -> tuple[Tensor, dict]:
+    """One-token MLA decode against the latent cache, written in place at
+    slot ``position % max_len``. K and V are decompressed from the whole
+    cache every step, as the JAX package does (``w_uk`` is not absorbed
+    into the query)."""
+    b = x.shape[0]
+    pos_b = torch.full((b, 1), position, dtype=torch.int32, device=x.device)
+    q = _mla_query(p, x, pos_b, cfg)
+    c_new, kpe_new = _mla_latent(p, x, pos_b, cfg)
+    slot = position % cache["c_kv"].shape[1]
+    cache["c_kv"][:, slot] = c_new[:, 0].to(cache["c_kv"].dtype)
+    cache["k_pe"][:, slot] = kpe_new[:, 0].to(cache["k_pe"].dtype)
+    cache["pos"][:, slot] = position
+    k, v = _mla_keys_values(p, cache["c_kv"].to(x.dtype), cache["k_pe"].to(x.dtype), cfg)
+    mask = build_mask(pos_b, cache["pos"], "causal")
+    out = dense_attention(q, k, v, mask, scale=_mla_scale(cfg))
     return torch.einsum("bshk,hkd->bsd", out, p["wo"].to(x.dtype)), cache

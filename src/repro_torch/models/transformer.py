@@ -1,13 +1,16 @@
-"""Model assembly for the dense decoder: block pattern → init / forward / loss / decode.
+"""Model assembly for the decoder: block pattern → init / forward / loss / decode.
 
-The twin of ``repro.models.transformer`` for ``"dense"`` blocks. Layers are
-grouped into segments of consecutive identical block kinds, and each
-segment's params are stacked along a leading layer axis, as in the JAX
-pytree; a Python loop over that axis takes the place of ``lax.scan``.
-``cfg.remat`` recomputes each block in the backward pass
-(``torch.utils.checkpoint``, non-reentrant), as ``jax.checkpoint`` does;
-every ``remat_policy`` recomputes the whole block, which changes memory
-and time but not the numbers. Other block kinds and model kinds raise
+The twin of ``repro.models.transformer`` for the ``"dense"`` and ``"moe"``
+blocks (standard attention, then an MLP or MoE) and the ``"mla_dense"`` and
+``"mla_moe"`` blocks (MLA, then an MLP or MoE). Layers are grouped into
+segments of consecutive identical block kinds, and each segment's params
+are stacked along a leading layer axis, as in the JAX pytree; a Python loop
+over that axis takes the place of ``lax.scan``. ``cfg.remat`` recomputes
+each block in the backward pass (``torch.utils.checkpoint``,
+non-reentrant), as ``jax.checkpoint`` does; every ``remat_policy``
+recomputes the whole block, which changes memory and time but not the
+numbers. The MoE blocks' balance loss is summed over layers into
+``forward_logits``'s aux. Other block kinds and model kinds raise
 ``NotImplementedError`` naming the ROADMAP item that ports them.
 """
 
@@ -20,6 +23,7 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import attention as attn
+from repro_torch.models import moe as moe_lib
 from repro_torch.models.layers import (apply_mlp, apply_norm, cross_entropy, dense_init,
                                        embed_init, init_mlp, init_norm)
 
@@ -28,6 +32,7 @@ Params = Any  # nested dict/list of tensors, shaped like the JAX pytree
 
 _NOT_PORTED = ("block kind {!r} is not ported yet (ROADMAP Queue 1 item 11: "
                "the remaining block kinds)")
+_PORTED_KINDS = ("dense", "moe", "mla_dense", "mla_moe")
 
 
 def _check_supported(cfg: ModelConfig) -> None:
@@ -38,7 +43,7 @@ def _check_supported(cfg: ModelConfig) -> None:
         raise NotImplementedError("the zamba2 shared attention block is not ported yet "
                                   "(ROADMAP Queue 1 item 11)")
     for kind in cfg.block_pattern:
-        if kind != "dense":
+        if kind not in _PORTED_KINDS:
             raise NotImplementedError(_NOT_PORTED.format(kind))
 
 
@@ -66,16 +71,24 @@ def segments_of(cfg: ModelConfig) -> list[tuple[str, int]]:
 
 def _init_block(gen: torch.Generator, kind: str, cfg: ModelConfig, count: int) -> dict:
     """``count`` stacked blocks of ``kind`` (leading layer axis on every leaf)."""
-    if kind != "dense":
+    if kind not in _PORTED_KINDS:
         raise NotImplementedError(_NOT_PORTED.format(kind))
     d, pd, lead, dev = cfg.d_model, cfg.pdtype, (count,), gen.device
-    return {
-        "ln1": init_norm(cfg.norm, d, lead, dev),
-        "attn": attn.init_attention(gen, d, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim,
-                                    cfg.qkv_bias, pd, lead),
-        "ln2": init_norm(cfg.norm, d, lead, dev),
-        "mlp": init_mlp(gen, d, cfg.d_ff, cfg.mlp_style, pd, lead),
-    }
+    if kind in ("dense", "moe"):
+        mix = attn.init_attention(gen, d, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim,
+                                  cfg.qkv_bias, pd, lead)
+    else:
+        mix = attn.init_mla(gen, d, cfg.n_heads, cfg.mla_kv_lora_rank, cfg.mla_qk_nope_dim,
+                            cfg.mla_qk_rope_dim, cfg.mla_v_dim, pd, lead)
+    p = {"ln1": init_norm(cfg.norm, d, lead, dev), "attn": mix,
+         "ln2": init_norm(cfg.norm, d, lead, dev)}
+    if kind in ("dense", "mla_dense"):
+        p["mlp"] = init_mlp(gen, d, cfg.d_ff, cfg.mlp_style, pd, lead)
+    else:
+        p["moe"] = moe_lib.init_moe(gen, d, cfg.moe_d_ff, cfg.moe_experts,
+                                    cfg.moe_shared_experts,
+                                    cfg.moe_shared_experts * cfg.moe_d_ff or None, pd, lead)
+    return p
 
 
 def init_params(gen: torch.Generator, cfg: ModelConfig) -> Params:
@@ -107,22 +120,35 @@ def _layers(seg_params: dict, count: int) -> list[dict]:
     return [{k: v[i] for k, v in per_key.items()} for i in range(count)]
 
 
+def _ffn(kind: str, p: dict, h: Tensor, cfg: ModelConfig,
+         capacity_factor: float) -> tuple[Tensor, Tensor]:
+    """A block's second half: its MLP, or its MoE and balance loss."""
+    if kind in ("dense", "mla_dense"):
+        return apply_mlp(p["mlp"], h, cfg.mlp_style), torch.zeros(
+            (), dtype=torch.float32, device=h.device)
+    return moe_lib.apply_moe(p["moe"], h, cfg.moe_top_k, capacity_factor)
+
+
 def _block_forward(kind: str, p: dict, x: Tensor, positions: Tensor,
-                   cfg: ModelConfig, mask_kind: str, prefix_len: int) -> Tensor:
-    if kind != "dense":
+                   cfg: ModelConfig, mask_kind: str, prefix_len: int) -> tuple[Tensor, Tensor]:
+    if kind not in _PORTED_KINDS:
         raise NotImplementedError(_NOT_PORTED.format(kind))
     h = apply_norm(cfg.norm, p["ln1"], x)
-    x = x + attn.attention_forward(p["attn"], h, positions, cfg, mask_kind,
-                                   prefix_len, use_pallas=cfg.use_pallas)
+    if kind in ("dense", "moe"):
+        x = x + attn.attention_forward(p["attn"], h, positions, cfg, mask_kind,
+                                       prefix_len, use_pallas=cfg.use_pallas)
+    else:
+        x = x + attn.mla_forward(p["attn"], h, positions, cfg)
     h = apply_norm(cfg.norm, p["ln2"], x)
-    return x + apply_mlp(p["mlp"], h, cfg.mlp_style)
+    y, aux = _ffn(kind, p, h, cfg, cfg.moe_capacity_factor)
+    return x + y, aux
 
 
 def forward_logits(params: Params, batch: dict, cfg: ModelConfig) -> tuple[Tensor, Tensor]:
     """Full-sequence forward → (logits [B,S,V], aux_loss).
 
     ``batch``: {"tokens": [B,S]}. Positions are 0..S−1. The aux loss is the
-    MoE balance term, 0 for dense blocks.
+    MoE balance term summed over layers, 0 without MoE blocks.
     """
     _check_supported(cfg)
     cdt = cfg.cdtype
@@ -133,13 +159,15 @@ def forward_logits(params: Params, batch: dict, cfg: ModelConfig) -> tuple[Tenso
         x = x * torch.tensor(cfg.d_model ** 0.5, dtype=cdt)
     positions = torch.arange(s, dtype=torch.int32, device=tokens.device)[None].expand(b, s)
     remat = cfg.remat and torch.is_grad_enabled()
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for seg_params, (kind, count) in zip(params["segments"], segments_of(cfg)):
         for layer in _layers(seg_params, count):
             args = (kind, layer, x, positions, cfg, "causal", 0)
-            x = (checkpoint(_block_forward, *args, use_reentrant=False) if remat
-                 else _block_forward(*args))
+            x, a = (checkpoint(_block_forward, *args, use_reentrant=False) if remat
+                    else _block_forward(*args))
+            aux = aux + a
     x = apply_norm(cfg.norm, params["final_norm"], x)
-    return _unembed(params, x, cfg), torch.zeros((), dtype=torch.float32, device=x.device)
+    return _unembed(params, x, cfg), aux
 
 
 def _unembed(params: Params, x: Tensor, cfg: ModelConfig) -> Tensor:
@@ -153,7 +181,7 @@ def _unembed(params: Params, x: Tensor, cfg: ModelConfig) -> Tensor:
 # ---------------------------------------------------------------------------
 
 def loss_fn(params: Params, batch: dict, cfg: ModelConfig) -> Tensor:
-    """Next-token cross-entropy plus the weighted aux loss (0 for dense)."""
+    """Next-token cross-entropy plus the weighted MoE balance loss."""
     logits, aux = forward_logits(params, batch, cfg)
     ce = cross_entropy(logits[:, :-1], batch["tokens"][:, 1:])
     return ce + cfg.aux_loss_weight * aux
@@ -170,14 +198,21 @@ def cache_layout(cfg: ModelConfig) -> list[str]:
 
 
 def init_caches(cfg: ModelConfig, batch: int, max_len: int, device=None) -> list:
-    """One KV cache per ``cache_layout`` entry; SWA archs keep ``window`` slots."""
-    if cfg.kv_cache_dtype == "int8":
-        raise NotImplementedError(
-            "the int8 (KIVI) KV cache is not ported yet (ROADMAP Queue 1 item 12)")
+    """One cache per ``cache_layout`` entry: a KV cache for standard attention
+    (SWA archs keep ``window`` slots), a latent cache of ``max_len`` slots in
+    the compute dtype for MLA (whatever ``kv_cache_dtype`` says, as in JAX)."""
+    cdt = cfg.cdtype
     kv_len = min(max_len, cfg.sliding_window) if cfg.sliding_window else max_len
-    return [attn.init_kv_cache(batch, kv_len, cfg.n_kv_heads, cfg.head_dim,
-                               cfg.cdtype, device)
-            for _ in cache_layout(cfg)]
+    kv_dt = "int8" if cfg.kv_cache_dtype == "int8" else cdt  # int8: init_kv_cache refuses
+    caches = []
+    for tag in cache_layout(cfg):
+        if tag in ("dense", "moe"):
+            caches.append(attn.init_kv_cache(batch, kv_len, cfg.n_kv_heads, cfg.head_dim,
+                                             kv_dt, device))
+        else:
+            caches.append(attn.init_mla_cache(batch, max_len, cfg.mla_kv_lora_rank,
+                                              cfg.mla_qk_rope_dim, cdt, device))
+    return caches
 
 
 def _flatten_layer_params(params: Params, cfg: ModelConfig) -> list[tuple[str, dict]]:
@@ -188,13 +223,17 @@ def _flatten_layer_params(params: Params, cfg: ModelConfig) -> list[tuple[str, d
 
 def _decode_block(kind: str, p: dict, x: Tensor, cache: dict, position: int,
                   cfg: ModelConfig) -> tuple[Tensor, dict]:
-    if kind != "dense":
+    if kind not in _PORTED_KINDS:
         raise NotImplementedError(_NOT_PORTED.format(kind))
     h = apply_norm(cfg.norm, p["ln1"], x)
-    a, cache = attn.decode_attention(p["attn"], h, cache, position, cfg)
+    if kind in ("dense", "moe"):
+        a, cache = attn.decode_attention(p["attn"], h, cache, position, cfg)
+    else:
+        a, cache = attn.mla_decode(p["attn"], h, cache, position, cfg)
     x = x + a
     h = apply_norm(cfg.norm, p["ln2"], x)
-    return x + apply_mlp(p["mlp"], h, cfg.mlp_style), cache
+    # the JAX package decodes MoE at a literal capacity factor of 2.0 (cap = 1 at S = 1)
+    return x + _ffn(kind, p, h, cfg, 2.0)[0], cache
 
 
 def decode_step(params: Params, caches: list, tokens: Tensor, position: int,

@@ -23,6 +23,8 @@ ATTN_CASES = [
 # the bf16 (tensor-core) twin of every fp32 case above, and danube's heads at a short S
 ATTN_CASES += [(*c[:-1], "bfloat16") for c in ATTN_CASES if c[-1] == "float32"]
 ATTN_CASES += [(2, 320, 320, 32, 8, 80, True, 256, "bfloat16")]
+# dbrx's heads (48 query / 8 KV of 128, causal, no window) at a short S
+ATTN_CASES += [(1, 512, 512, 48, 8, 128, True, None, dt) for dt in ("bfloat16", "float32")]
 
 
 @pytest.fixture
@@ -184,3 +186,52 @@ def test_overlapped_rmsnorm_pipeline_on_card_equals_cpu(card):
     assert float((got.cpu() - cpu).abs().max()) <= 1e-5
     mono = collectives.overlapped_all_reduce(x.to(card), "lumorph2", 1)
     assert torch.equal(mono, collectives.all_reduce(x.to(card), "lumorph2"))
+
+
+# -- the MoE and MLA block kinds --------------------------------------------------
+
+@pytest.mark.parametrize("cf,dt", [(1.25, "float32"), (0.5, "float32"), (1.25, "bfloat16")])
+def test_apply_moe_on_card_equals_cpu(card, cf, dt):
+    """Top-k, the stable argsort, ``searchsorted`` and ``index_add_`` route the
+    same assignments on the card as on the CPU (deepseek smoke widths; cf 0.5
+    drops assignments)."""
+    from repro_torch.models import moe
+    gen = torch.Generator().manual_seed(0)
+    p = moe.init_moe(gen, 64, 32, 8, 2, dtype=getattr(torch, dt))
+    x = torch.randn(2, 16, 64, generator=gen).to(getattr(torch, dt))
+    y_cpu, aux_cpu = moe.apply_moe(p, x, 2, cf)
+    y, aux = moe.apply_moe(_to(p, card), x.to(card), 2, cf)
+    tol = 2e-2 if dt == "bfloat16" else 1e-5
+    rel = float((y.cpu().float() - y_cpu.float()).abs().max() / y_cpu.float().abs().max())
+    assert rel <= tol
+    assert abs(float(aux) - float(aux_cpu)) <= 1e-5 * float(aux_cpu)
+
+
+@pytest.mark.parametrize("arch", ["deepseek-v2-lite-16b", "dbrx-132b"])
+def test_moe_and_mla_smoke_models_on_card_equal_cpu(card, arch):
+    """The smoke model's prefill on the card against its CPU run (fp32); dbrx's
+    attention goes through the flash kernel, once per layer."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models import transformer as tf
+    cfg = get_smoke_config(arch).replace(compute_dtype="float32",
+                                         use_pallas=arch == "dbrx-132b")
+    params = tf.init_params(torch.Generator().manual_seed(0), cfg)
+    toks = torch.randint(0, cfg.vocab_size, (2, 24), generator=torch.Generator().manual_seed(1))
+    expect, aux_cpu = tf.forward_logits(params, {"tokens": toks}, cfg)
+    moved = _to(params, card)
+    n0 = ops.LAUNCHES["flash_attention"]
+    with torch.no_grad():
+        got, aux = tf.forward_logits(moved, {"tokens": toks.to(card)}, cfg)
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES["flash_attention"] == n0 + (cfg.n_layers if cfg.use_pallas else 0)
+    rel = float((got.cpu() - expect).abs().max() / expect.abs().max())
+    assert rel <= 1e-4
+    assert abs(float(aux) - float(aux_cpu)) <= 1e-5 * float(aux_cpu)
+
+
+def _to(tree, dev):
+    if isinstance(tree, dict):
+        return {k: _to(v, dev) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_to(v, dev) for v in tree]
+    return tree.to(dev)

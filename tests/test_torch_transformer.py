@@ -115,6 +115,6 @@ def test_unported_block_kinds_raise():
     cfg = get_smoke_config(ARCH)
     with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 11"):
         ttf.init_params(torch.Generator().manual_seed(0),
-                        cfg.replace(block_pattern=("dense", "moe")))
+                        cfg.replace(block_pattern=("dense", "mamba2")))
     with pytest.raises(NotImplementedError, match="int8"):
         ttf.init_caches(cfg.replace(kv_cache_dtype="int8"), 1, 8)
