@@ -22,7 +22,9 @@ JAX or of the JAX package. No phase's failure is caught.
      call timed by CUDA events, the least time the card could take
      (``bound_ms``), the rate (``tflops``) and its share (``bound_frac``).
      The same at dbrx-132b's attention shape (B=1, S=4096, 48 query / 8 KV
-     heads of 128, causal, no window), against SDPA with ``is_causal``.
+     heads of 128, causal, no window) and at zamba2-1.2b's shared block
+     (B=2, S=4096, 32/32 heads of 64, causal, no window), against SDPA with
+     ``is_causal``.
   3. The main path, at full width: h2o-danube-1.8b (24 layers, d_model
      2560, random weights from a seed) prefills 2 × 4608 tokens through
      ``launch.steps.make_prefill`` with the flash-attention kernel, against
@@ -73,6 +75,27 @@ JAX or of the JAX package. No phase's failure is caught.
      control (the router's top-k makes bf16 rounding move whole rows); layer
      0's attention, kernel against plain, held to ``PREFILL_TOL`` in both;
      then decode steps, finite.
+ 10. The dense trio at full width, one model at a time, its fp32 params
+     (seed 0) freed before the next: phi3-medium-14b (40 layers, 40/10 heads
+     of 128), codeqwen1.5-7b (32 layers, 32/32 heads, QKV biases) and
+     glm4-9b (40 layers, 32/2 heads, half the lanes rotated). Each prefills
+     1 × 4096 tokens through ``make_prefill`` with the flash kernel against
+     the plain dense path, in bf16 and fp32, held to ``PREFILL_TOL``, with
+     one launch per layer. Then glm4-9b through the serving launcher.
+ 11. The SSM and hybrid block kinds whole, at full width and depth:
+     zamba2-1.2b (38 mamba2 layers, d_model 2048, the shared dense block
+     before layers 6, 12, …, 36; 32/32 heads of 64) and xlstm-125m (12
+     layers, mLSTM with sLSTM at 3 and 9), fp32 params from seed 0. Each:
+     (a) ``param_count()``; (b) a bf16 prefill of 2 × 4096 tokens through
+     ``make_prefill`` with ``use_pallas``, timed: zamba2 launches the flash
+     kernel once per shared call site (6), xlstm never; one block of each
+     kind (and one shared call site) timed on the prefill's embeddings, with
+     its share of the prefill; (c) fp32, 1 × 64
+     tokens, the prefill's logits against 64 decode steps (≤ 1e-3
+     relative); (d) the leading layers in fp32 at 1 × 256, the card
+     against the CPU (≤ 1e-4, argmax agreement 1.0): zamba2's first 7
+     layers with the first shared site, xlstm's layers 0–3 (mLSTM and
+     sLSTM); (e) with those params freed, the serving launcher.
 
 Phase 2 also holds the RMSNorm kernel against its plain version (fp32
 within 1e-5, bf16 within 2e-2, the limits of tests/test_kernels.py, or one
@@ -90,7 +113,8 @@ back-to-back calls, host gaps and a warm L2 included (``ms_back_to_back``).
 
 Each main path is driven with the launch counters set to 0 just before it
 and read just after: serving (phases 3 and 4), training (phase 5), overlap
-mode (phase 7), deepseek (phase 8) and dbrx (phase 9). Each phase prints its
+mode (phase 7), deepseek (phase 8), dbrx (phase 9), the dense trio (phase
+10, per model) and the SSM models (phase 11, per model). Each phase prints its
 seconds. The last lines are the ``{"kernels": [...]}`` record, the run
 record, and ``{"ok": true, "device": {...}}``.
 """
@@ -129,11 +153,15 @@ BF16_CASES = ([(*c[:-1], torch.bfloat16) for c in ATTN_CASES if c[-1] == torch.f
                (2, 320, 320, 32, 8, 80, True, 256, torch.bfloat16)])
 # dbrx-132b's attention in a 4096-token prefill: 48 query / 8 KV heads of 128, no window
 DBRX = dict(b=1, sq=4096, skv=4096, h=48, kv=8, d=128, causal=True, window=None)
-# the kernel entries danube's D = 80 and dbrx's D = 128 run, by dtype
+# zamba2-1.2b's shared block in a 2 × 4096-token prefill: 32/32 heads of 64, no window
+ZAMBA2 = dict(b=2, sq=4096, skv=4096, h=32, kv=32, d=64, causal=True, window=None)
+# the kernel entries danube's D = 80, dbrx's D = 128 and zamba2's D = 64 run, by dtype
 FLASH_ENTRY = {torch.bfloat16: "flash_fwd_bf16_kernel<80>",
                torch.float32: "flash_fwd_f32_kernel<5>"}
 FLASH_ENTRY_128 = {torch.bfloat16: "flash_fwd_bf16_kernel<128>",
                    torch.float32: "flash_fwd_f32_kernel<8>"}
+FLASH_ENTRY_64 = {torch.bfloat16: "flash_fwd_bf16_kernel<64>",
+                  torch.float32: "flash_fwd_f32_kernel<4>"}
 SDPA = torch.nn.functional.scaled_dot_product_attention  # the library yardstick
 # rows with no live key: Sq = 300 against Skv = 100, causal, window 48 (rows 147 on)
 NO_LIVE_KEY = (1, 300, 100, 4, 2, 80, True, 48, torch.bfloat16)
@@ -144,6 +172,14 @@ DEEPSEEK_PREFILL = (2, 4096)
 DEEPSEEK_REPLAY = 64  # tokens, fp32: prefill against token-by-token decode
 DEEPSEEK_DEPTH2 = (("mla_dense", "mla_moe"), 256)  # layers, tokens: card against CPU
 DBRX_LAYERS, DBRX_PREFILL, DBRX_DECODE = 2, (1, 4096), 8
+# phase 10: the dense trio at full width; glm4-9b also serves
+DENSE_TRIO, DENSE_PREFILL, DENSE_SERVED = ("phi3-medium-14b", "codeqwen1.5-7b",
+                                           "glm4-9b"), (1, 4096), "glm4-9b"
+# phase 11: per SSM arch, its param_count() (tests/test_torch_hybrid.py), its flash
+# launches per prefill (one per shared call site) and its leading layers card vs CPU
+SSM_ARCHS = {"zamba2-1.2b": dict(param_count=1_112_919_040, launches=6, lead=7),
+             "xlstm-125m": dict(param_count=154_423_296, launches=0, lead=4)}
+SSM_PREFILL, SSM_REPLAY, SSM_LEAD_TOKENS = (2, 4096), 64, 256
 SERVE = ["--batch", "4", "--prompt-len", "64", "--gen", "32"]
 # H100 SXM published dense peaks (NVIDIA data sheet): fp32 on the CUDA cores,
 # bf16 on the tensor cores; HBM3 bandwidth
@@ -330,7 +366,7 @@ def phase_kernels(ops) -> dict:
     """Phase 2: the flash-attention kernels against their plain version."""
     gen = torch.Generator(device="cuda").manual_seed(0)
     checks = []
-    cases = ATTN_CASES + BF16_CASES + [(*s.values(), dt) for s in (DANUBE, DBRX)
+    cases = ATTN_CASES + BF16_CASES + [(*s.values(), dt) for s in (DANUBE, DBRX, ZAMBA2)
                                        for dt in (torch.float32, torch.bfloat16)]
     for b, sq, skv, h, kv, d, causal, window, dt in cases:
         q, k, v = randn_qkv(gen, b, sq, skv, h, kv, d, dt)
@@ -355,8 +391,8 @@ def phase_kernels(ops) -> dict:
     assert checks[-1]["those_rows_zero"] and err <= TOL[dt], checks[-1]
     torch.cuda.synchronize()
 
-    timed = {"danube": {}, "dbrx": {}}
-    for name, s in (("danube", DANUBE), ("dbrx", DBRX)):
+    timed = {"danube": {}, "dbrx": {}, "zamba2": {}}
+    for name, s in (("danube", DANUBE), ("dbrx", DBRX), ("zamba2", ZAMBA2)):
         for dt in (torch.float32, torch.bfloat16):
             timed[name][dt] = time_attention(ops, gen, s, dt, checks)
             torch.cuda.empty_cache()
@@ -841,6 +877,158 @@ def phase_dbrx(get_config, tf, attn, apply_norm, steps_lib, ops) -> dict:
     return out
 
 
+def _init_counted(tf, flatten_with_paths, cfg, seed: int = 0) -> tuple[dict, dict]:
+    """Full-width fp32 params from ``seed`` on the card, and their count."""
+    t0 = time.perf_counter()
+    params = tf.init_params(torch.Generator(device="cuda").manual_seed(seed), cfg)
+    torch.cuda.synchronize()
+    flat = flatten_with_paths(params)
+    info = {"arch": cfg.name, "n_layers": cfg.n_layers, "d_model": cfg.d_model,
+            "heads": [cfg.n_heads, cfg.n_kv_heads, cfg.head_dim],
+            "init_s": time.perf_counter() - t0, "param_count": cfg.param_count(),
+            "params_with_all_leaves": sum(t.numel() for _, t in flat),
+            "param_gb": sum(t.numel() * t.element_size() for _, t in flat) / 1e9}
+    return params, info
+
+
+def phase_dense(get_config, tf, steps_lib, flatten_with_paths, ops, arch: str) -> dict:
+    """Phase 10, one model: full width and depth, fp32 params from seed 0; a
+    1 × 4096 prefill through the flash kernel against the plain dense path,
+    bf16 then fp32. Returns numbers only, so its params die with the call."""
+    dev = torch.device("cuda")
+    cfg = get_config(arch)
+    params, out = _init_counted(tf, flatten_with_paths, cfg)
+    gen = torch.Generator(device=dev).manual_seed(1)
+    batch = {"tokens": torch.randint(0, cfg.vocab_size, DENSE_PREFILL, generator=gen,
+                                     device=dev)}
+    for dtype in ("bfloat16", "float32"):
+        c = cfg.replace(compute_dtype=dtype)
+        torch.cuda.reset_peak_memory_stats()
+        n0 = ops.LAUNCHES["flash_attention"]
+        kern, kern_s = _timed(steps_lib.make_prefill(c.replace(use_pallas=True), dev),
+                              params, batch)
+        launches = ops.LAUNCHES["flash_attention"] - n0
+        plain, plain_s = _timed(steps_lib.make_prefill(c, dev), params, batch)
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        assert kern.shape == (*DENSE_PREFILL, cfg.vocab_size) and kern.dtype == c.cdtype
+        assert torch.isfinite(kern).all() and torch.isfinite(plain).all()
+        out[dtype] = {"rel_max_err": _rel(kern, plain), "tol": PREFILL_TOL[dtype],
+                      "argmax_agree": _agree(kern, plain), "kernel_prefill_s": kern_s,
+                      "plain_prefill_s": plain_s, "launches_per_prefill": launches,
+                      "peak_gb": peak_gb}
+        del kern, plain
+        torch.cuda.empty_cache()
+        print(json.dumps({"dense_prefill": arch, "dtype": dtype, **out[dtype]}), flush=True)
+        assert launches == cfg.n_layers, (arch, dtype, launches)
+        assert out[dtype]["rel_max_err"] <= PREFILL_TOL[dtype], (arch, dtype, out[dtype])
+    return out
+
+
+def _leading(tf, params, cfg, n: int) -> tuple[object, dict]:
+    """The config and params of the model's first ``n`` layers (and the shared
+    call sites among them): each segment's stack cut to the layers it keeps."""
+    c = cfg.replace(n_layers=n, block_pattern=cfg.block_pattern[:n])
+    segs = [_map(lambda t, k=count: t[:k], p)
+            for p, (_, count) in zip(params["segments"], tf.segments_of(c))]
+    return c, {**params, "segments": segs}
+
+
+def phase_ssm(get_config, tf, steps_lib, flatten_with_paths, ops, arch: str) -> dict:
+    """Phase 11 (a)–(d), one model whole on the card, fp32 params from seed 0.
+    Returns numbers only, so its params die with the call."""
+    dev, want = torch.device("cuda"), SSM_ARCHS[arch]
+    cfg = get_config(arch)
+    params, out = _init_counted(tf, flatten_with_paths, cfg)
+    print(json.dumps({"ssm_params": out}), flush=True)
+    assert out["param_count"] == want["param_count"], out
+
+    # (b) the bf16 prefill, timed: the flash kernel runs at the shared call sites only
+    gen = torch.Generator(device=dev).manual_seed(1)
+    batch = {"tokens": torch.randint(0, cfg.vocab_size, SSM_PREFILL, generator=gen,
+                                     device=dev)}
+    prefill = steps_lib.make_prefill(cfg.replace(use_pallas=True), dev)
+    torch.cuda.reset_peak_memory_stats()
+    n0 = ops.LAUNCHES["flash_attention"]
+    logits, first_s = _timed(prefill, params, batch)
+    first_launches = ops.LAUNCHES["flash_attention"] - n0
+    del logits
+    n0 = ops.LAUNCHES["flash_attention"]
+    logits, prefill_s = _timed(prefill, params, batch)
+    launches = ops.LAUNCHES["flash_attention"] - n0
+    out["prefill_bf16"] = {"tokens": list(SSM_PREFILL), "first_s": first_s,
+                           "prefill_s": prefill_s, "flash_launches": launches,
+                           "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+                           "finite": bool(torch.isfinite(logits).all())}
+    print(json.dumps({"ssm_prefill": arch, **out["prefill_bf16"]}), flush=True)
+    assert logits.shape == (*SSM_PREFILL, cfg.vocab_size), logits.shape
+    assert out["prefill_bf16"]["finite"], out["prefill_bf16"]
+    assert launches == first_launches == want["launches"], (launches, first_launches)
+    del logits
+
+    # (b') one block of each kind (and one shared call site) on the prefill's
+    # embeddings, timed by CUDA events over 3 calls after a warm one (the
+    # events span the gaps while the host queues work): where the prefill's time goes.
+    # Its launches are not the main path's: they are counted apart and
+    # subtracted.
+    n0 = ops.LAUNCHES["flash_attention"]
+    c = cfg.replace(use_pallas=True)
+    with torch.inference_mode():
+        x = params["embed"][batch["tokens"]].to(c.cdtype)
+        pos = torch.arange(SSM_PREFILL[1], dtype=torch.int32, device=dev)[None].expand(
+            *SSM_PREFILL)
+        blocks = {}
+        for seg, (kind, _) in zip(params["segments"], tf.segments_of(c)):
+            if kind not in blocks:
+                layer = _map(lambda t: t[0], seg)
+                blocks[kind] = {"count": c.block_pattern.count(kind), "block_ms": cuda_ms(
+                    lambda: tf._block_forward(kind, layer, x, pos, c, "causal", 0), 3)}
+        if c.shared_attn_every:
+            blocks["shared"] = {"count": tf.cache_layout(c).count("shared"), "block_ms": cuda_ms(
+                lambda: tf._shared_block_forward(params, x, x, pos, c), 3)}
+    for b_ in blocks.values():
+        b_["share_of_prefill"] = b_["count"] * b_["block_ms"] / (prefill_s * 1e3)
+    out["prefill_bf16"]["blocks"] = blocks
+    out["timing_launches"] = ops.LAUNCHES["flash_attention"] - n0
+    print(json.dumps({"ssm_blocks": arch, **blocks}), flush=True)
+    del x, batch
+    torch.cuda.empty_cache()
+
+    # (c) fp32: the prefill against token replay through the recurrent states
+    c32 = cfg.replace(compute_dtype="float32")
+    toks = torch.randint(0, cfg.vocab_size, (1, SSM_REPLAY), generator=gen, device=dev)
+    full = steps_lib.make_prefill(c32, dev)(params, {"tokens": toks})
+    decode = steps_lib.make_decode_step(c32, dev)
+    caches = tf.init_caches(c32, 1, SSM_REPLAY, dev)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    errs = []
+    for i in range(SSM_REPLAY):
+        step_logits, caches = decode(params, caches, toks[:, i:i + 1], i)
+        errs.append(_rel(step_logits[:, 0], full[:, i]))
+    torch.cuda.synchronize()
+    out["replay_fp32"] = {"tokens": SSM_REPLAY, "rel_err_last": errs[-1],
+                          "rel_err_max": max(errs), "tol": 1e-3,
+                          "decode_step_s": (time.perf_counter() - t0) / SSM_REPLAY}
+    print(json.dumps({"ssm_replay": arch, **out["replay_fp32"]}), flush=True)
+    assert max(errs) <= 1e-3, out["replay_fp32"]
+    del full, caches, step_logits
+
+    # (d) the leading layers, fp32: the card against the CPU on the same params
+    c_lead, p_lead = _leading(tf, params, c32, want["lead"])
+    toks = torch.randint(0, cfg.vocab_size, (1, SSM_LEAD_TOKENS), generator=gen, device=dev)
+    with torch.inference_mode():
+        card, _ = tf.forward_logits(p_lead, {"tokens": toks}, c_lead)
+        cpu, _ = tf.forward_logits(_map(lambda t: t.cpu(), p_lead), {"tokens": toks.cpu()},
+                                   c_lead)
+    out["leading_card_vs_cpu"] = {"layers": list(tf.cache_layout(c_lead)),
+                                  "tokens": SSM_LEAD_TOKENS, "rel_err": _rel(card.cpu(), cpu),
+                                  "tol": 1e-4, "argmax_agree": _agree(card.cpu(), cpu)}
+    print(json.dumps({"ssm_leading": arch, **out["leading_card_vs_cpu"]}), flush=True)
+    assert out["leading_card_vs_cpu"]["rel_err"] <= 1e-4, out["leading_card_vs_cpu"]
+    assert out["leading_card_vs_cpu"]["argmax_agree"] == 1.0, out["leading_card_vs_cpu"]
+    return out
+
+
 def _leaves(tree):
     if isinstance(tree, dict):
         for v in tree.values():
@@ -902,7 +1090,8 @@ def main() -> None:
     libs = build.build_all()
     build_s = time.perf_counter() - t0
     ptxas = {name: ptxas_report(path.with_suffix(".log")) for name, path in libs.items()}
-    for d, entries in ((DANUBE["d"], FLASH_ENTRY), (DBRX["d"], FLASH_ENTRY_128)):
+    for d, entries in ((DANUBE["d"], FLASH_ENTRY), (DBRX["d"], FLASH_ENTRY_128),
+                       (ZAMBA2["d"], FLASH_ENTRY_64)):
         for dt, entry in entries.items():
             ptxas["flash_attention"]["entries"][entry]["dynamic_smem_bytes"] = \
                 ops.flash_attention_launch_info(d, dt)["smem_bytes"]
@@ -992,6 +1181,56 @@ def main() -> None:
     torch.cuda.empty_cache()
     done("9_dbrx", t_phase)
 
+    # -- phase 10: phi3, codeqwen and glm4 at full width, one at a time -------
+    t_phase = time.perf_counter()
+    dense, dense_launches = {}, {}
+    for arch in DENSE_TRIO:
+        torch.cuda.empty_cache()
+        reset_launches()
+        dense[arch] = phase_dense(get_config, tf, steps_lib, flatten_with_paths, ops, arch)
+        torch.cuda.synchronize()
+        dense_launches[arch] = dict(ops.LAUNCHES)
+        # bf16 and fp32 prefills, each one launch per layer
+        assert dense_launches[arch]["flash_attention"] == 2 * dense[arch]["n_layers"], arch
+    torch.cuda.empty_cache()
+    held_gb = torch.cuda.memory_allocated() / 1e9  # the serving launcher starts with no model held
+    assert held_gb < 1.0, held_gb
+    reset_launches()
+    res = serve.main(["--arch", DENSE_SERVED, *SERVE])
+    torch.cuda.synchronize()
+    dense["serve"] = {"arch": DENSE_SERVED, **res, "held_gb_before": held_gb}
+    dense_launches["serve"] = dict(ops.LAUNCHES)
+    assert res["finite"] and res["generated_shape"] == [4, 32], res
+    assert res["ttft_s"] > 0 and res["tpot_s"] > 0, res
+    print(json.dumps({"launches": {"dense": dense_launches}}), flush=True)
+    torch.cuda.empty_cache()
+    done("10_dense_trio", t_phase)
+
+    # -- phase 11: zamba2-1.2b and xlstm-125m whole: mamba2, mLSTM, sLSTM ------
+    t_phase = time.perf_counter()
+    ssm_runs, ssm_launches = {}, {}
+    for arch in SSM_ARCHS:
+        torch.cuda.empty_cache()
+        reset_launches()
+        ssm_runs[arch] = phase_ssm(get_config, tf, steps_lib, flatten_with_paths, ops, arch)
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        held_gb = torch.cuda.memory_allocated() / 1e9
+        assert held_gb < 1.0, held_gb
+        res = serve.main(["--arch", arch, *SERVE])
+        torch.cuda.synchronize()
+        ssm_runs[arch]["serve"] = {**res, "held_gb_before": held_gb}
+        ssm_launches[arch] = dict(ops.LAUNCHES)
+        assert res["finite"] and res["generated_shape"] == [4, 32], res
+        assert res["ttft_s"] > 0 and res["tpot_s"] > 0, res
+        # the main path's: two bf16 prefills (the replay, card-vs-CPU check and
+        # serving launch none), less (b')'s timing launches
+        ssm_launches[arch]["flash_attention"] -= ssm_runs[arch]["timing_launches"]
+        assert ssm_launches[arch]["flash_attention"] == 2 * SSM_ARCHS[arch]["launches"], arch
+        torch.cuda.empty_cache()
+    print(json.dumps({"launches": {"ssm": ssm_launches}}), flush=True)
+    done("11_ssm_hybrid", t_phase)
+
     bf, f32 = kern["timed"]["danube"][torch.bfloat16], kern["timed"]["danube"][torch.float32]
     for dt, t in ((torch.bfloat16, bf), (torch.float32, f32)):  # the entries danube's D runs
         t["entry"] = FLASH_ENTRY[dt]
@@ -1003,6 +1242,14 @@ def main() -> None:
         dbrx_attn[str(dt).removeprefix("torch.")] = {
             **t, "entry": FLASH_ENTRY_128[dt], "sass": flash_sass[FLASH_ENTRY_128[dt]],
             "ptxas": ptxas["flash_attention"]["entries"][FLASH_ENTRY_128[dt]]}
+    zamba2_attn = {"shape": ZAMBA2,
+                   "launches": ssm_launches["zamba2-1.2b"]["flash_attention"],
+                   "launches_per_prefill": ssm_runs["zamba2-1.2b"]["prefill_bf16"][
+                       "flash_launches"]}
+    for dt, t in kern["timed"]["zamba2"].items():  # the entries zamba2's D = 64 runs
+        zamba2_attn[str(dt).removeprefix("torch.")] = {
+            **t, "entry": FLASH_ENTRY_64[dt], "sass": flash_sass[FLASH_ENTRY_64[dt]],
+            "ptxas": ptxas["flash_attention"]["entries"][FLASH_ENTRY_64[dt]]}
     records = [{
         "name": "flash_attention", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
@@ -1013,7 +1260,11 @@ def main() -> None:
         "library_ms": bf["library_ms"], "tflops": bf["tflops"], "bound_frac": bf["bound_frac"],
         "dtype": "bfloat16", "shape": DANUBE,
         **{k: bf[k] for k in ("entry", "ptxas", "sass", "launch")}, "fp32": f32,
-        "dbrx": dbrx_attn,
+        "dbrx": dbrx_attn, "zamba2": zamba2_attn,
+        "launches_by_path": {"danube_serving": serving["flash_attention"],
+                             "dbrx": dbrx["launches"]["flash_attention"],
+                             **{a: dense_launches[a]["flash_attention"] for a in DENSE_TRIO},
+                             **{a: ssm_launches[a]["flash_attention"] for a in SSM_ARCHS}},
     }]
     for name, body in (("quantize_int8", 18), ("dequantize_int8", 27)):
         t = int8["timed"][name]
@@ -1039,7 +1290,8 @@ def main() -> None:
     })
     print(json.dumps({"kernels": records}), flush=True)
     print(json.dumps({"prefill": prefill, "train": runs, "trace": trace, "overlap": overlap,
-                      "deepseek": deepseek, "dbrx": dbrx, "phase_s": phase_s,
+                      "deepseek": deepseek, "dbrx": dbrx, "dense": dense, "ssm": ssm_runs,
+                      "phase_s": phase_s,
                       "card": smi, "total_s": time.perf_counter() - t_start}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

@@ -2,7 +2,9 @@
 
 A JAX pytree brought to numpy (``jax.tree.map(np.asarray, params)``) is a
 nested dict/list of arrays. ``params_from_numpy`` turns it into the port's
-tensor tree of the same structure. ``flatten_with_paths`` lists the leaves
+tensor tree of the same structure, whatever its leaves: stacked segments
+(the SSM leaves ``A_log``, ``D``, ``conv_w``, ``w_if``, ``w_h`` … included)
+and zamba2's unstacked ``shared_block`` alike. ``flatten_with_paths`` lists the leaves
 under the ``/``-joined paths that ``repro.checkpoint._flatten_with_paths``
 produces (dict keys in sorted order, list indices as numbers), so two trees
 can be compared path for path.

@@ -6,10 +6,13 @@ others join as their blocks are ported (ROADMAP Queue 1).
 
 from __future__ import annotations
 
-from repro_torch.configs import bert_large, dbrx_132b, deepseek_v2_lite_16b, h2o_danube_1_8b
+from repro_torch.configs import (bert_large, codeqwen1_5_7b, dbrx_132b, deepseek_v2_lite_16b,
+                                 glm4_9b, h2o_danube_1_8b, phi3_medium_14b, xlstm_125m,
+                                 zamba2_1_2b)
 from repro_torch.configs.base import ModelConfig  # noqa: F401
 
-_MODULES = [bert_large, dbrx_132b, deepseek_v2_lite_16b, h2o_danube_1_8b]
+_MODULES = [h2o_danube_1_8b, phi3_medium_14b, codeqwen1_5_7b, glm4_9b, dbrx_132b,
+            deepseek_v2_lite_16b, xlstm_125m, zamba2_1_2b, bert_large]
 
 REGISTRY: dict[str, object] = {m.ARCH_ID: m for m in _MODULES}
 

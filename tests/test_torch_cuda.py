@@ -25,6 +25,9 @@ ATTN_CASES += [(*c[:-1], "bfloat16") for c in ATTN_CASES if c[-1] == "float32"]
 ATTN_CASES += [(2, 320, 320, 32, 8, 80, True, 256, "bfloat16")]
 # dbrx's heads (48 query / 8 KV of 128, causal, no window) at a short S
 ATTN_CASES += [(1, 512, 512, 48, 8, 128, True, None, dt) for dt in ("bfloat16", "float32")]
+# zamba2's shared block (32/32 heads of 64) and glm4's GQA of 16 (32/2 heads of 128)
+ATTN_CASES += [(1, 512, 512, h, kv, d, True, None, dt)
+               for h, kv, d in ((32, 32, 64), (32, 2, 128)) for dt in ("bfloat16", "float32")]
 
 
 @pytest.fixture
@@ -227,6 +230,38 @@ def test_moe_and_mla_smoke_models_on_card_equal_cpu(card, arch):
     rel = float((got.cpu() - expect).abs().max() / expect.abs().max())
     assert rel <= 1e-4
     assert abs(float(aux) - float(aux_cpu)) <= 1e-5 * float(aux_cpu)
+
+
+# -- the SSM and hybrid block kinds, and the dense trio ----------------------------
+
+@pytest.mark.parametrize("arch", ["zamba2-1.2b", "xlstm-125m", "phi3-medium-14b",
+                                  "codeqwen1.5-7b", "glm4-9b"])
+def test_ssm_and_dense_smoke_models_on_card_equal_cpu(card, arch):
+    """The smoke model's prefill (fp32, the flash kernel on) and its decode
+    steps on the card against the CPU: zamba2 launches the kernel once per
+    shared call site (2), the dense trio once per layer, xlstm never."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models import transformer as tf
+    cfg = get_smoke_config(arch).replace(compute_dtype="float32", use_pallas=True)
+    params = tf.init_params(torch.Generator().manual_seed(0), cfg)
+    toks = torch.randint(0, cfg.vocab_size, (2, 21), generator=torch.Generator().manual_seed(1))
+    expect, _ = tf.forward_logits(params, {"tokens": toks}, cfg)
+    moved = _to(params, card)
+    n0 = ops.LAUNCHES["flash_attention"]
+    with torch.no_grad():
+        got, _ = tf.forward_logits(moved, {"tokens": toks.to(card)}, cfg)
+    torch.cuda.synchronize()
+    sites = tf.cache_layout(cfg).count("shared")
+    attn_layers = sum(k == "dense" for k in cfg.block_pattern)
+    assert ops.LAUNCHES["flash_attention"] == n0 + sites + attn_layers
+    assert float((got.cpu() - expect).abs().max() / expect.abs().max()) <= 1e-4
+    c_cpu, c_card = tf.init_caches(cfg, 2, 8), tf.init_caches(cfg, 2, 8, card)
+    with torch.no_grad():
+        for t in range(8):
+            l_cpu, c_cpu = tf.decode_step(params, c_cpu, toks[:, t:t + 1], t, cfg)
+            l_card, c_card = tf.decode_step(moved, c_card, toks[:, t:t + 1].to(card), t, cfg)
+            rel = float((l_card.cpu() - l_cpu).abs().max() / l_cpu.abs().max())
+            assert rel <= 1e-4, t
 
 
 def _to(tree, dev):

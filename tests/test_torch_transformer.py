@@ -112,9 +112,15 @@ def test_sliding_window_ring_buffer():
 
 
 def test_unported_block_kinds_raise():
+    """Every decoder block kind is ported; the encdec and vlm model kinds
+    (whisper, paligemma) raise naming their ROADMAP item, and an unknown
+    block kind is refused as JAX refuses it."""
     cfg = get_smoke_config(ARCH)
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 11"):
+    for kind in ("encdec", "vlm"):
+        with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 11"):
+            ttf.init_params(torch.Generator().manual_seed(0), cfg.replace(kind=kind))
+    with pytest.raises(ValueError, match="unknown block kind 'conv'"):
         ttf.init_params(torch.Generator().manual_seed(0),
-                        cfg.replace(block_pattern=("dense", "mamba2")))
+                        cfg.replace(block_pattern=("dense", "conv")))
     with pytest.raises(NotImplementedError, match="int8"):
         ttf.init_caches(cfg.replace(kv_cache_dtype="int8"), 1, 8)
