@@ -96,6 +96,27 @@ JAX or of the JAX package. No phase's failure is caught.
      against the CPU (≤ 1e-4, argmax agreement 1.0): zamba2's first 7
      layers with the first shared site, xlstm's layers 0–3 (mLSTM and
      sLSTM); (e) with those params freed, the serving launcher.
+ 12. The encdec and vlm kinds whole, at full width and depth, fp32 params
+     from seed 0. First the flash kernel alone at whisper-tiny's encoder
+     shape (B=4, 1500 frames, 6/6 heads of 64, bidirectional, no window:
+     1500 is a multiple of neither the 64-key tile nor the 192-row query
+     block), against its plain version (bf16 2e-2, fp32 1e-4; and, relative
+     to the output's RMS, within ``TAIL_TOL``, which the plain version over
+     zero-padded keys, an unmasked last key tile's answer, must exceed) and
+     timed beside SDPA with no mask. whisper-tiny (4 encoder and 4 decoder layers,
+     d_model 384): (a) the encoder over 4 × 1500 frames through the kernel,
+     one launch per encoder layer, timed; (b) against the dense encoder,
+     bf16 within 5e-2 and fp32 within 1e-3 relative, argmax agreement
+     printed; (c) fp32, the decoder's logits over 10 tokens against 10
+     decode steps over the self and cross caches (≤ 1e-3); (d) the serving
+     example ``examples/torch_whisper_serve.py`` (4 requests, 24 tokens,
+     bf16), its launches counted alone: one per encoder layer. paligemma-3b (18 layers, d_model 2048, 8/1 heads of 256): (a)
+     bf16 and fp32 prefills of 2 × (256 image + 512 text) tokens through
+     ``make_prefill`` on the dense path (no flash launch: the kernel cannot
+     take the prefix mask), timed, with peak memory; (b) its first 2
+     layers, fp32, 1 × (256 + 32), the card against the CPU (≤ 1e-4, argmax
+     agreement 1.0); (c) with those params freed, the serving launcher
+     (text tokens by replay, as in JAX), its launches counted alone: none.
 
 Phase 2 also holds the RMSNorm kernel against its plain version (fp32
 within 1e-5, bf16 within 2e-2, the limits of tests/test_kernels.py, or one
@@ -114,14 +135,15 @@ back-to-back calls, host gaps and a warm L2 included (``ms_back_to_back``).
 Each main path is driven with the launch counters set to 0 just before it
 and read just after: serving (phases 3 and 4), training (phase 5), overlap
 mode (phase 7), deepseek (phase 8), dbrx (phase 9), the dense trio (phase
-10, per model) and the SSM models (phase 11, per model). Each phase prints its
-seconds. The last lines are the ``{"kernels": [...]}`` record, the run
+10, per model), the SSM models (phase 11, per model) and whisper and
+paligemma (phase 12, per model). Each phase prints its seconds. The last lines are the ``{"kernels": [...]}`` record, the run
 record, and ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
 
 import functools
+import importlib.util
 import json
 import math
 import pathlib
@@ -143,6 +165,10 @@ ATTN_CASES = [
     (1, 64, 192, 2, 2, 128, False, None, torch.float32),
     (1, 160, 160, 2, 2, 80, True, None, torch.float32),
     (1, 96, 96, 3, 3, 64, True, 17, torch.bfloat16),
+    # bidirectional, no window, Skv ragged against the 64-key tile: only the
+    # Skv mask guards the last tile (an unmasked tail would dominate the output)
+    (2, 100, 100, 4, 4, 64, False, None, torch.float32),
+    (1, 70, 70, 2, 2, 64, False, None, torch.float32),
 ]
 # danube's prefill: 2 × 4608 tokens, 32 query / 8 KV heads of 80, window 4096
 DANUBE = dict(b=2, sq=4608, skv=4608, h=32, kv=8, d=80, causal=True, window=4096)
@@ -166,6 +192,10 @@ SDPA = torch.nn.functional.scaled_dot_product_attention  # the library yardstick
 # rows with no live key: Sq = 300 against Skv = 100, causal, window 48 (rows 147 on)
 NO_LIVE_KEY = (1, 300, 100, 4, 2, 80, True, 48, torch.bfloat16)
 TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}  # the card sums in another order
+# whisper's shape, error relative to the output's RMS: the 36 zero keys an
+# unmasked last tile would add shift each row by ~1.4 %, the sound bf16 kernel
+# ~0.2 % (rounding); the unmasked answer must exceed the limit in the run
+TAIL_TOL = {torch.float32: 1e-4, torch.bfloat16: 5e-3}
 PREFILL_TOL = {"float32": 1e-3, "bfloat16": 5e-2}
 # phase 8: deepseek-v2-lite-16b; phase 9: dbrx-132b at 2 of its 40 layers
 DEEPSEEK_PREFILL = (2, 4096)
@@ -180,6 +210,15 @@ DENSE_TRIO, DENSE_PREFILL, DENSE_SERVED = ("phi3-medium-14b", "codeqwen1.5-7b",
 SSM_ARCHS = {"zamba2-1.2b": dict(param_count=1_112_919_040, launches=6, lead=7),
              "xlstm-125m": dict(param_count=154_423_296, launches=0, lead=4)}
 SSM_PREFILL, SSM_REPLAY, SSM_LEAD_TOKENS = (2, 4096), 64, 256
+# phase 12: whisper-tiny's encoder attention (B=4, 1500 frames, 6/6 heads of 64,
+# bidirectional, no window; 1500 is a multiple of neither the 64-key tile nor the
+# 192-row query block), its fp32 decoder replay, and its serving example
+WHISPER = dict(b=4, sq=1500, skv=1500, h=6, kv=6, d=64, causal=False, window=None)
+WHISPER_REPLAY = 10
+WHISPER_SERVE = ["--batch", "4", "--gen", "24"]
+# paligemma-3b: prefill of 2 × (256 image + 512 text) tokens; its first 2 layers
+# card against CPU at 1 × (256 + 32)
+PALIGEMMA_PREFILL, PALIGEMMA_LEAD = (2, 512), (2, 32)
 SERVE = ["--batch", "4", "--prompt-len", "64", "--gen", "32"]
 # H100 SXM published dense peaks (NVIDIA data sheet): fp32 on the CUDA cores,
 # bf16 on the tensor cores; HBM3 bandwidth
@@ -404,7 +443,8 @@ def time_attention(ops, gen, s: dict, dt, checks) -> dict:
     """The kernel, its plain version and one library call at shape ``s``, with
     the least time the card could take. The yardstick computes the same
     function on [B,H,S,D] copies with the KV heads repeated: with a window it
-    takes the mask, without one ``is_causal`` (SDPA's own flash backend)."""
+    takes the mask, without one ``is_causal`` (no mask where bidirectional;
+    SDPA's own flash backend)."""
     q, k, v = randn_qkv(gen, s["b"], s["sq"], s["skv"], s["h"], s["kv"], s["d"], dt)
     kw = dict(causal=s["causal"], window=s["window"])
     qh, kh, vh = (t.transpose(1, 2).contiguous() for t in (q, k, v))
@@ -414,8 +454,10 @@ def time_attention(ops, gen, s: dict, dt, checks) -> dict:
         pos = torch.arange(s["sq"], device="cuda")
         keep = (pos[None, :] <= pos[:, None]) & (pos[:, None] - pos[None, :] < s["window"])
         library = functools.partial(SDPA, qh, kh, vh, attn_mask=keep)
-    else:
+        label = "attn_mask"
+    else:  # no mask at all where bidirectional
         library = functools.partial(SDPA, qh, kh, vh, is_causal=s["causal"])
+        label = "is_causal" if s["causal"] else "no mask"
     bound_ms, bound_by = attention_bound(*s.values(), dt)
     flops = 4 * s["d"] * s["b"] * s["h"] * live_pairs(s["sq"], s["skv"], s["causal"],
                                                       s["window"])
@@ -424,7 +466,7 @@ def time_attention(ops, gen, s: dict, dt, checks) -> dict:
         "ms": ms, "tflops": flops / ms / 1e9, "flops": flops, "bound_frac": bound_ms / ms,
         "plain_ms": cuda_ms(lambda: ops.flash_attention_plain(q, k, v, **kw), 3),
         "library_ms": cuda_ms(library, 10),
-        "library": "SDPA, " + ("attn_mask" if s["window"] else "is_causal"),
+        "library": "SDPA, " + label,
         "bound_ms": bound_ms, "bound_by": bound_by,
         "max_abs_err": next(c["max_abs_err"] for c in reversed(checks)
                             if c["shape"] == list(s.values())
@@ -1029,6 +1071,172 @@ def phase_ssm(get_config, tf, steps_lib, flatten_with_paths, ops, arch: str) -> 
     return out
 
 
+def _load_example(name: str):
+    """A port example (``examples/<name>.py``) as a module."""
+    spec = importlib.util.spec_from_file_location(name, ROOT / "examples" / f"{name}.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def phase_flash_whisper(ops) -> dict:
+    """Phase 12, the kernel alone at whisper's encoder shape: against its plain
+    version, then timed beside SDPA with no mask. Not the main path's launches."""
+    gen = torch.Generator(device="cuda").manual_seed(12)
+    checks, out = [], {}
+    for dt in (torch.bfloat16, torch.float32):
+        q, k, v = randn_qkv(gen, *[WHISPER[x] for x in ("b", "sq", "skv", "h", "kv", "d")], dt)
+        got = ops.flash_attention(q, k, v, causal=False)
+        plain = ops.flash_attention_plain(q, k, v, causal=False)
+        err = float((got.float() - plain.float()).abs().max())
+        checks.append({"shape": list(WHISPER.values()), "dtype": str(dt).removeprefix("torch."),
+                       "max_abs_err": err, "tol": TOL[dt]})
+        # the control: the plain version over keys zero-padded to the tile, as the
+        # TMA box reads them past Skv, i.e. what an unmasked last tile gives
+        pad = -WHISPER["skv"] % 64
+        kp, vp = (torch.nn.functional.pad(t, (0, 0, 0, 0, 0, pad)) for t in (k, v))
+        unmasked = ops.flash_attention_plain(q, kp, vp, causal=False)
+        checks[-1].update(rel_rms_err=_rel_rms(got, plain), rel_rms_tol=TAIL_TOL[dt],
+                          unmasked_tail_rel_rms=_rel_rms(unmasked, plain), padded_keys=pad)
+        assert got.shape == q.shape and torch.isfinite(got).all(), checks[-1]
+        assert err <= TOL[dt], checks[-1]
+        assert checks[-1]["unmasked_tail_rel_rms"] > TAIL_TOL[dt], checks[-1]
+        assert checks[-1]["rel_rms_err"] <= TAIL_TOL[dt], checks[-1]
+        print(json.dumps({"whisper_flash_check": checks[-1]}), flush=True)
+        del q, k, v, got, plain, kp, vp, unmasked
+        out[dt] = time_attention(ops, gen, WHISPER, dt, checks)
+        print(json.dumps({"whisper_flash": str(dt).removeprefix("torch."),
+                          **{k_: v_ for k_, v_ in out[dt].items() if k_ != "launch"}}),
+              flush=True)
+    torch.cuda.empty_cache()
+    return out
+
+
+def _rel_rms(got: torch.Tensor, expect: torch.Tensor) -> float:
+    return float((got.float() - expect.float()).norm() / expect.float().norm())
+
+
+def phase_whisper(get_config, tf, flatten_with_paths, ops) -> dict:
+    """Phase 12, whisper-tiny whole at full width (fp32 params from seed 0):
+    (a) the bf16 encoder over 4 × 1500 frames through the flash kernel,
+    timed, one launch per encoder layer; (b) the kernel encoder against the
+    dense one, bf16 and fp32; (c) fp32, the decoder's logits over
+    ``WHISPER_REPLAY`` tokens against as many decode steps over the self and
+    cross caches. Returns numbers only, so its params die with the call."""
+    dev = torch.device("cuda")
+    cfg = get_config("whisper-tiny")
+    params, out = _init_counted(tf, flatten_with_paths, cfg)
+    out["enc_layers"] = cfg.enc_layers
+    print(json.dumps({"whisper_params": out}), flush=True)
+    gen = torch.Generator(device=dev).manual_seed(1)
+    frames = torch.randn((WHISPER["b"], cfg.enc_seq_len, cfg.d_model), generator=gen,
+                         device=dev)
+
+    # (a) and (b): each kernel encode launches the kernel once per encoder layer
+    def encode(c):
+        n0 = ops.LAUNCHES["flash_attention"]
+        with torch.inference_mode():
+            y, s_ = _timed(tf.encoder_forward, params["encoder"], frames, c)
+        launches = ops.LAUNCHES["flash_attention"] - n0
+        assert launches == (cfg.enc_layers if c.use_pallas else 0), (c.compute_dtype, launches)
+        return y, s_, launches
+    for dtype in ("bfloat16", "float32"):
+        c = cfg.replace(compute_dtype=dtype)
+        _, first_s, _ = encode(c.replace(use_pallas=True))
+        kern, kern_s, launches = encode(c.replace(use_pallas=True))
+        _, plain_first_s, _ = encode(c)  # the dense path's first call sets up its products
+        plain, plain_s, _ = encode(c)
+        assert kern.shape == frames.shape and kern.dtype == c.cdtype
+        assert torch.isfinite(kern).all() and torch.isfinite(plain).all()
+        out[f"encode_{dtype}"] = {
+            "frames": [WHISPER["b"], cfg.enc_seq_len], "first_s": first_s,
+            "kernel_encode_s": kern_s, "plain_first_s": plain_first_s, "plain_encode_s": plain_s,
+            "launches_per_encode": launches, "rel_max_err": _rel(kern, plain),
+            "tol": PREFILL_TOL[dtype], "argmax_agree": _agree(kern, plain)}
+        print(json.dumps({"whisper_encode": dtype, **out[f"encode_{dtype}"]}), flush=True)
+        assert out[f"encode_{dtype}"]["rel_max_err"] <= PREFILL_TOL[dtype], out
+        del kern, plain
+
+    # (c) fp32: the decoder's logits against token-by-token decode
+    c32 = cfg.replace(compute_dtype="float32")
+    toks = torch.randint(0, cfg.vocab_size, (WHISPER["b"], WHISPER_REPLAY), generator=gen,
+                         device=dev)
+    with torch.inference_mode():
+        full, _ = tf.forward_logits(params, {"tokens": toks, "frames": frames}, c32)
+        caches = tf.init_caches(c32, WHISPER["b"], WHISPER_REPLAY, dev)
+        tf.fill_cross_caches(params, tf.encoder_forward(params["encoder"], frames, c32),
+                             caches, c32)
+        errs = []
+        for i in range(WHISPER_REPLAY):
+            step_logits, caches = tf.decode_step(params, caches, toks[:, i:i + 1], i, c32)
+            errs.append(_rel(step_logits[:, 0], full[:, i]))
+    out["replay_fp32"] = {"tokens": WHISPER_REPLAY, "rel_err_max": max(errs), "tol": 1e-3}
+    print(json.dumps({"whisper_replay": out["replay_fp32"]}), flush=True)
+    assert max(errs) <= 1e-3, out["replay_fp32"]
+    return out
+
+
+def phase_paligemma(get_config, tf, steps_lib, flatten_with_paths, ops) -> dict:
+    """Phase 12, paligemma-3b whole at full width (fp32 params from seed 0):
+    (a) bf16 and fp32 prefills of 2 × (256 image + 512 text) tokens through
+    ``make_prefill`` on the dense path (the kernel cannot take the prefix
+    mask), timed, with their peak memory; (b) its first 2 layers, fp32, the
+    card against the CPU. Returns numbers only, so its params die with the call."""
+    dev = torch.device("cuda")
+    cfg = get_config("paligemma-3b")
+    params, out = _init_counted(tf, flatten_with_paths, cfg)
+    print(json.dumps({"paligemma_params": out}), flush=True)
+    gen = torch.Generator(device=dev).manual_seed(1)
+
+    def batch_of(b, s):
+        return {"tokens": torch.randint(0, cfg.vocab_size, (b, s), generator=gen, device=dev),
+                "image_embeds": torch.randn((b, cfg.num_image_tokens, cfg.d_model),
+                                            generator=gen, device=dev)}
+    batch = batch_of(*PALIGEMMA_PREFILL)
+    s_all = cfg.num_image_tokens + PALIGEMMA_PREFILL[1]
+    logits = {}
+    for dtype in ("bfloat16", "float32"):
+        c = cfg.replace(compute_dtype=dtype)
+        prefill = steps_lib.make_prefill(c, dev)
+        n0 = ops.LAUNCHES["flash_attention"]
+        torch.cuda.reset_peak_memory_stats()
+        y, first_s = _timed(prefill, params, batch)
+        del y
+        logits[dtype], prefill_s = _timed(prefill, params, batch)
+        y = logits[dtype]
+        out[f"prefill_{dtype}"] = {
+            "tokens": [PALIGEMMA_PREFILL[0], s_all], "first_s": first_s, "prefill_s": prefill_s,
+            "flash_launches": ops.LAUNCHES["flash_attention"] - n0,
+            "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+            "finite": bool(torch.isfinite(y).all())}
+        print(json.dumps({"paligemma_prefill": dtype, **out[f"prefill_{dtype}"]}), flush=True)
+        assert y.shape == (PALIGEMMA_PREFILL[0], s_all, cfg.vocab_size) and y.dtype == c.cdtype
+        assert out[f"prefill_{dtype}"]["finite"], out
+        assert out[f"prefill_{dtype}"]["flash_launches"] == 0, out
+    out["bf16_vs_fp32"] = {"rel_max_err": _rel(logits["bfloat16"], logits["float32"]),
+                           "argmax_agree": _agree(logits["bfloat16"], logits["float32"]),
+                           "tol": "printed only"}
+    print(json.dumps({"paligemma_bf16_vs_fp32": out["bf16_vs_fp32"]}), flush=True)
+    del logits, y, batch
+    torch.cuda.empty_cache()
+
+    # (b) the first two layers, fp32: the card against the CPU on the same params
+    c_lead, p_lead = _leading(tf, params, cfg.replace(compute_dtype="float32"), 2)
+    lead = batch_of(*PALIGEMMA_LEAD)
+    with torch.inference_mode():
+        card, _ = tf.forward_logits(p_lead, lead, c_lead)
+        cpu, _ = tf.forward_logits(_map(lambda t: t.cpu(), p_lead),
+                                   {k: v.cpu() for k, v in lead.items()}, c_lead)
+    out["leading_card_vs_cpu"] = {"layers": c_lead.n_layers,
+                                  "tokens": [cfg.num_image_tokens, PALIGEMMA_LEAD[1]],
+                                  "rel_err": _rel(card.cpu(), cpu), "tol": 1e-4,
+                                  "argmax_agree": _agree(card.cpu(), cpu)}
+    print(json.dumps({"paligemma_leading": out["leading_card_vs_cpu"]}), flush=True)
+    assert out["leading_card_vs_cpu"]["rel_err"] <= 1e-4, out["leading_card_vs_cpu"]
+    assert out["leading_card_vs_cpu"]["argmax_agree"] == 1.0, out["leading_card_vs_cpu"]
+    return out
+
+
 def _leaves(tree):
     if isinstance(tree, dict):
         for v in tree.values():
@@ -1231,6 +1439,48 @@ def main() -> None:
     print(json.dumps({"launches": {"ssm": ssm_launches}}), flush=True)
     done("11_ssm_hybrid", t_phase)
 
+    # -- phase 12: whisper-tiny and paligemma-3b whole: the encdec and vlm kinds --
+    t_phase = time.perf_counter()
+    whisper_flash = phase_flash_whisper(ops)
+    reset_launches()
+    whisper = phase_whisper(get_config, tf, flatten_with_paths, ops)
+    torch.cuda.synchronize()
+    # two kernel encodes per dtype in (a)-(b)
+    whisper["check_launches"] = dict(ops.LAUNCHES)
+    assert whisper["check_launches"]["flash_attention"] == 4 * whisper["enc_layers"], whisper
+    torch.cuda.empty_cache()
+    reset_launches()  # the main path: the serving example alone
+    res = _load_example("torch_whisper_serve").main(WHISPER_SERVE)
+    torch.cuda.synchronize()
+    whisper["serve"] = res
+    whisper["launches"] = dict(ops.LAUNCHES)
+    assert res["finite"] and res["generated_shape"] == [4, 24], res
+    assert res["encode_s"] > 0 and res["ttft_s"] > 0 and res["tpot_s"] > 0, res
+    assert whisper["launches"]["flash_attention"] == whisper["enc_layers"], whisper  # one encode
+    torch.cuda.empty_cache()
+    reset_launches()
+    paligemma = phase_paligemma(get_config, tf, steps_lib, flatten_with_paths, ops)
+    torch.cuda.synchronize()
+    paligemma["check_launches"] = dict(ops.LAUNCHES)
+    torch.cuda.empty_cache()
+    held_gb = torch.cuda.memory_allocated() / 1e9
+    assert held_gb < 1.0, held_gb
+    reset_launches()  # the main path: the serving launcher alone
+    res = serve.main(["--arch", "paligemma-3b", *SERVE])
+    torch.cuda.synchronize()
+    paligemma["serve"] = {**res, "held_gb_before": held_gb}
+    paligemma["launches"] = dict(ops.LAUNCHES)
+    assert res["finite"] and res["generated_shape"] == [4, 32], res
+    assert res["ttft_s"] > 0 and res["tpot_s"] > 0, res
+    assert paligemma["launches"]["flash_attention"] == 0, paligemma["launches"]  # prefix mask
+    print(json.dumps({"launches": {"whisper_serve": whisper["launches"],
+                                   "whisper_checks": whisper["check_launches"],
+                                   "paligemma_serve": paligemma["launches"],
+                                   "paligemma_checks": paligemma["check_launches"]}}),
+          flush=True)
+    torch.cuda.empty_cache()
+    done("12_whisper_paligemma", t_phase)
+
     bf, f32 = kern["timed"]["danube"][torch.bfloat16], kern["timed"]["danube"][torch.float32]
     for dt, t in ((torch.bfloat16, bf), (torch.float32, f32)):  # the entries danube's D runs
         t["entry"] = FLASH_ENTRY[dt]
@@ -1250,6 +1500,13 @@ def main() -> None:
         zamba2_attn[str(dt).removeprefix("torch.")] = {
             **t, "entry": FLASH_ENTRY_64[dt], "sass": flash_sass[FLASH_ENTRY_64[dt]],
             "ptxas": ptxas["flash_attention"]["entries"][FLASH_ENTRY_64[dt]]}
+    whisper_attn = {"shape": WHISPER, "launches": whisper["launches"]["flash_attention"],
+                    "launches_per_encode": whisper["enc_layers"],
+                    "check_launches": whisper["check_launches"]["flash_attention"]}
+    for dt, t in whisper_flash.items():  # whisper's D = 64, bidirectional
+        whisper_attn[str(dt).removeprefix("torch.")] = {
+            **t, "entry": FLASH_ENTRY_64[dt], "sass": flash_sass[FLASH_ENTRY_64[dt]],
+            "ptxas": ptxas["flash_attention"]["entries"][FLASH_ENTRY_64[dt]]}
     records = [{
         "name": "flash_attention", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
@@ -1260,11 +1517,13 @@ def main() -> None:
         "library_ms": bf["library_ms"], "tflops": bf["tflops"], "bound_frac": bf["bound_frac"],
         "dtype": "bfloat16", "shape": DANUBE,
         **{k: bf[k] for k in ("entry", "ptxas", "sass", "launch")}, "fp32": f32,
-        "dbrx": dbrx_attn, "zamba2": zamba2_attn,
+        "dbrx": dbrx_attn, "zamba2": zamba2_attn, "whisper": whisper_attn,
         "launches_by_path": {"danube_serving": serving["flash_attention"],
                              "dbrx": dbrx["launches"]["flash_attention"],
                              **{a: dense_launches[a]["flash_attention"] for a in DENSE_TRIO},
-                             **{a: ssm_launches[a]["flash_attention"] for a in SSM_ARCHS}},
+                             **{a: ssm_launches[a]["flash_attention"] for a in SSM_ARCHS},
+                             "whisper-tiny": whisper["launches"]["flash_attention"],
+                             "paligemma-3b": paligemma["launches"]["flash_attention"]},
     }]
     for name, body in (("quantize_int8", 18), ("dequantize_int8", 27)):
         t = int8["timed"][name]
@@ -1291,6 +1550,7 @@ def main() -> None:
     print(json.dumps({"kernels": records}), flush=True)
     print(json.dumps({"prefill": prefill, "train": runs, "trace": trace, "overlap": overlap,
                       "deepseek": deepseek, "dbrx": dbrx, "dense": dense, "ssm": ssm_runs,
+                      "whisper": whisper, "paligemma": paligemma,
                       "phase_s": phase_s,
                       "card": smi, "total_s": time.perf_counter() - t_start}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -4,7 +4,9 @@
 --prompt-len 64 --gen 32`` runs prefill over a random token batch, then
 autoregressive decode with greedy sampling, and prints one JSON line with
 the same keys as ``repro.launch.serve``. It runs on ``cuda`` unless given
-``--device cpu``.
+``--device cpu``. A vlm (paligemma-3b) is served as the JAX launcher serves
+it: text tokens only, with no image prefix. Enc-dec serving (whisper-tiny)
+is ``examples/torch_whisper_serve.py``'s.
 """
 
 from __future__ import annotations
@@ -58,7 +60,7 @@ def main(argv=None) -> dict:
     dev = resolve_device(args.device)
     cfg = get_smoke_config(args.arch) if args.smoke else get_config(args.arch)
     if cfg.kind == "encdec":
-        raise SystemExit("use examples/whisper_serve.py for enc-dec serving")
+        raise SystemExit("use examples/torch_whisper_serve.py for enc-dec serving")
     # The JAX launcher validates the arch's serving sharding policy here
     # (make_policy); that check waits for the sharding port (ROADMAP Queue 1
     # item 13). The port serves on one device.

@@ -1,7 +1,8 @@
 """Shared neural-net layers: plain functions on tensors, params as dicts.
 
 Numerically the twin of ``repro.models.layers``: fp32 norm statistics,
-interleaved RoPE lanes, weights cast to the activation dtype on every call.
+interleaved RoPE lanes, whisper's sinusoidal positions, weights cast to the
+activation dtype on every call.
 """
 
 from __future__ import annotations
@@ -106,6 +107,19 @@ def apply_rope(x: Tensor, positions: Tensor, theta: float = 10000.0,
     if rd == d:
         return rot
     return torch.cat([rot, x[..., rd:]], dim=-1)
+
+
+def sinusoidal_positions(seq_len: int, d: int, offset: int = 0, device=None) -> Tensor:
+    """Whisper-style sinusoidal absolute embeddings [seq_len, d], fp32:
+    angle ``pos / 10000 ** (dim / d)``, sin in the even lanes, cos in the odd
+    ones. ``offset`` shifts the positions (the decode position)."""
+    pos = (torch.arange(seq_len, dtype=torch.float32, device=device) + offset)[:, None]
+    dim = torch.arange(0, d, 2, dtype=torch.float32, device=device)[None, :]
+    ang = pos / (10000.0 ** (dim / d))
+    out = torch.empty((seq_len, d), dtype=torch.float32, device=device)
+    out[:, 0::2] = torch.sin(ang)
+    out[:, 1::2] = torch.cos(ang)
+    return out
 
 
 # ---------------------------------------------------------------------------

@@ -1,10 +1,10 @@
-"""Model assembly for the decoder: block pattern → init / forward / loss / decode.
+"""Model assembly: block pattern → init / forward / loss / decode.
 
-The twin of ``repro.models.transformer`` for every decoder block kind: the
-``"dense"`` and ``"moe"`` blocks (standard attention, then an MLP or MoE),
-the ``"mla_dense"`` and ``"mla_moe"`` blocks (MLA, then an MLP or MoE), and
-the ``"mamba2"``, ``"mlstm"`` and ``"slstm"`` mixers of ``models/ssm.py``;
-and zamba2's weight-shared dense block, interposed before every
+The twin of ``repro.models.transformer`` for every model kind and block
+kind: the ``"dense"`` and ``"moe"`` blocks (standard attention, then an MLP
+or MoE), the ``"mla_dense"`` and ``"mla_moe"`` blocks (MLA, then an MLP or
+MoE), and the ``"mamba2"``, ``"mlstm"`` and ``"slstm"`` mixers of
+``models/ssm.py``; and zamba2's weight-shared dense block, interposed before every
 ``shared_attn_every``-th layer over ``concat(x, x_embed)``. Layers are
 grouped into segments of consecutive identical block kinds, and each
 segment's params are stacked along a leading layer axis, as in the JAX
@@ -13,9 +13,15 @@ shared block is one unstacked block. ``cfg.remat`` recomputes each block in
 the backward pass (``torch.utils.checkpoint``, non-reentrant), as
 ``jax.checkpoint`` does; every ``remat_policy`` recomputes the whole block,
 which changes memory and time but not the numbers. The MoE blocks' balance
-loss is summed over layers into ``forward_logits``'s aux. The encdec and
-vlm model kinds raise ``NotImplementedError`` naming the ROADMAP item that
-ports them.
+loss is summed over layers into ``forward_logits``'s aux.
+
+Whisper (``kind="encdec"``) adds an encoder stack of bidirectional dense
+blocks over precomputed frame embeddings (``use_pallas`` sends its attention
+through the flash kernel), and its decoder's blocks add cross-attention over
+the encoder's output; both attentions of a decoder block stay dense, as in
+JAX. PaliGemma (``kind="vlm"``) puts stub image embeddings in front of the
+scaled token embeddings under a prefix-LM mask, which the kernel cannot
+take, so it runs dense.
 """
 
 from __future__ import annotations
@@ -30,19 +36,19 @@ from repro_torch.models import attention as attn
 from repro_torch.models import moe as moe_lib
 from repro_torch.models import ssm
 from repro_torch.models.layers import (apply_mlp, apply_norm, cross_entropy, dense_init,
-                                       embed_init, init_mlp, init_norm)
+                                       embed_init, init_mlp, init_norm, sinusoidal_positions)
 
 Tensor = torch.Tensor
 Params = Any  # nested dict/list of tensors, shaped like the JAX pytree
 
 _KINDS = ("dense", "moe", "mla_dense", "mla_moe", "mamba2", "mlstm", "slstm")
 _SSM_KINDS = ("mamba2", "mlstm", "slstm")
+_MODEL_KINDS = ("decoder", "encdec", "vlm")
 
 
 def _check_supported(cfg: ModelConfig) -> None:
-    if cfg.kind != "decoder":
-        raise NotImplementedError(
-            f"model kind {cfg.kind!r} is not ported yet (ROADMAP Queue 1 item 11)")
+    if cfg.kind not in _MODEL_KINDS:
+        raise ValueError(f"unknown model kind {cfg.kind!r}")
     for kind in cfg.block_pattern:
         if kind not in _KINDS:
             raise ValueError(f"unknown block kind {kind!r}")
@@ -106,13 +112,33 @@ def _init_block(gen: torch.Generator, kind: str, cfg: ModelConfig,
     return p
 
 
+def _init_cross_block(gen: torch.Generator, cfg: ModelConfig, lead: tuple[int, ...]) -> dict:
+    """Whisper's decoder blocks: self-attention, cross-attention, MLP."""
+    d, pd, dev = cfg.d_model, cfg.pdtype, gen.device
+
+    def attention():
+        return attn.init_attention(gen, d, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim,
+                                   cfg.qkv_bias, pd, lead)
+    return {"ln1": init_norm(cfg.norm, d, lead, dev), "attn": attention(),
+            "ln_x": init_norm(cfg.norm, d, lead, dev), "xattn": attention(),
+            "ln2": init_norm(cfg.norm, d, lead, dev),
+            "mlp": init_mlp(gen, d, cfg.d_ff, cfg.mlp_style, pd, lead)}
+
+
 def init_params(gen: torch.Generator, cfg: ModelConfig) -> Params:
-    """Random params on ``gen``'s device, with the JAX init's distributions."""
+    """Random params on ``gen``'s device, with the JAX init's distributions
+    and its tree: for encdec an ``encoder`` stack, and one segment of cross
+    blocks in place of the decoder's."""
     _check_supported(cfg)
     d = cfg.d_model
     params: dict = {"embed": embed_init(gen, (cfg.vocab_size, d), cfg.pdtype)}
-    params["segments"] = [_init_block(gen, kind, cfg, (count,))
-                          for kind, count in segments_of(cfg)]
+    if cfg.kind == "encdec":
+        params["segments"] = [_init_cross_block(gen, cfg, (cfg.n_layers,))]
+        params["encoder"] = {"layers": _init_block(gen, "dense", cfg, (cfg.enc_layers,)),
+                             "final_norm": init_norm(cfg.norm, d, device=gen.device)}
+    else:
+        params["segments"] = [_init_block(gen, kind, cfg, (count,))
+                              for kind, count in segments_of(cfg)]
     params["final_norm"] = init_norm(cfg.norm, d, device=gen.device)
     if not cfg.tie_embeddings:
         params["lm_head"] = dense_init(gen, (d, cfg.vocab_size), dtype=cfg.pdtype)
@@ -187,11 +213,22 @@ def _shared_site(cfg: ModelConfig, layer: int) -> bool:
     return bool(cfg.shared_attn_every) and layer > 0 and layer % cfg.shared_attn_every == 0
 
 
+def _positions(b: int, s: int, device) -> Tensor:
+    return torch.arange(s, dtype=torch.int32, device=device)[None].expand(b, s)
+
+
+def _remat(cfg: ModelConfig) -> bool:
+    return cfg.remat and torch.is_grad_enabled()
+
+
 def forward_logits(params: Params, batch: dict, cfg: ModelConfig) -> tuple[Tensor, Tensor]:
     """Full-sequence forward → (logits [B,S,V], aux_loss).
 
-    ``batch``: {"tokens": [B,S]}. Positions are 0..S−1. The aux loss is the
-    MoE balance term summed over layers, 0 without MoE blocks.
+    ``batch``: {"tokens": [B,S]}, plus "image_embeds" [B, T_img, D] for vlm
+    (in front of the tokens: logits [B, T_img + S, V]) and "frames"
+    [B, S_enc, D] for encdec. Positions are 0..S−1 (from the first image
+    token for vlm). The aux loss is the MoE balance term summed over layers,
+    0 without MoE blocks.
     """
     _check_supported(cfg)
     cdt = cfg.cdtype
@@ -200,8 +237,17 @@ def forward_logits(params: Params, batch: dict, cfg: ModelConfig) -> tuple[Tenso
     x = params["embed"][tokens].to(cdt)
     if cfg.scale_embeddings:
         x = x * torch.tensor(cfg.d_model ** 0.5, dtype=cdt)
-    positions = torch.arange(s, dtype=torch.int32, device=tokens.device)[None].expand(b, s)
-    remat = cfg.remat and torch.is_grad_enabled()
+    mask_kind, prefix_len = "causal", 0
+    if cfg.kind == "vlm":  # the image embeds are not scaled
+        x = torch.cat([batch["image_embeds"].to(cdt), x], dim=1)
+        mask_kind, prefix_len = "prefix", cfg.num_image_tokens
+        s = x.shape[1]
+    positions = _positions(b, s, tokens.device)
+    if cfg.kind == "encdec":
+        enc_out = encoder_forward(params["encoder"], batch["frames"], cfg)
+        x = x + sinusoidal_positions(s, cfg.d_model, device=x.device).to(cdt)[None]
+        return _decoder_cross_forward(params, x, enc_out, positions, cfg)
+    remat = _remat(cfg)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     x0, layer_idx = x, 0
     for seg_params, (kind, count) in zip(params["segments"], segments_of(cfg)):
@@ -209,7 +255,7 @@ def forward_logits(params: Params, batch: dict, cfg: ModelConfig) -> tuple[Tenso
             x = _shared_block_forward(params, x, x0, positions, cfg)
         layer_idx += count
         for layer in _layers(seg_params, count):
-            args = (kind, layer, x, positions, cfg, "causal", 0)
+            args = (kind, layer, x, positions, cfg, mask_kind, prefix_len)
             x, a = (checkpoint(_block_forward, *args, use_reentrant=False) if remat
                     else _block_forward(*args))
             aux = aux + a
@@ -223,13 +269,59 @@ def _unembed(params: Params, x: Tensor, cfg: ModelConfig) -> Tensor:
     return x @ params["lm_head"].to(x.dtype)
 
 
+def encoder_forward(enc: Params, frames: Tensor, cfg: ModelConfig) -> Tensor:
+    """Whisper's encoder over precomputed frame embeddings [B, S, D] (the conv
+    stem is a stub): sinusoidal positions, then ``enc_layers`` bidirectional
+    dense blocks (through the flash kernel with ``cfg.use_pallas``), then
+    the final norm."""
+    cdt = cfg.cdtype
+    b, s, _ = frames.shape
+    x = frames.to(cdt) + sinusoidal_positions(s, cfg.d_model, device=frames.device).to(cdt)[None]
+    positions = _positions(b, s, frames.device)
+    remat = _remat(cfg)
+    for layer in _layers(enc["layers"], cfg.enc_layers):
+        args = ("dense", layer, x, positions, cfg, "bidirectional", 0)
+        x = (checkpoint(_block_forward, *args, use_reentrant=False) if remat
+             else _block_forward(*args))[0]
+    return apply_norm(cfg.norm, enc["final_norm"], x)
+
+
+def _cross_block(p: dict, x: Tensor, enc_out: Tensor, positions: Tensor,
+                 enc_pos: Tensor, cfg: ModelConfig) -> Tensor:
+    """One whisper decoder block. Both attentions stay dense whatever
+    ``cfg.use_pallas`` says: JAX calls the self-attention without the kernel,
+    and the cross-attention's ``kv_positions`` rule it out."""
+    h = apply_norm(cfg.norm, p["ln1"], x)
+    x = x + attn.attention_forward(p["attn"], h, positions, cfg, "causal")
+    h = apply_norm(cfg.norm, p["ln_x"], x)
+    x = x + attn.attention_forward(p["xattn"], h, positions, cfg, "bidirectional", 0,
+                                   xkv=enc_out, kv_positions=enc_pos)
+    h = apply_norm(cfg.norm, p["ln2"], x)
+    return x + apply_mlp(p["mlp"], h, cfg.mlp_style)
+
+
+def _decoder_cross_forward(params: Params, x: Tensor, enc_out: Tensor, positions: Tensor,
+                           cfg: ModelConfig) -> tuple[Tensor, Tensor]:
+    enc_pos = _positions(x.shape[0], enc_out.shape[1], x.device)
+    remat = _remat(cfg)
+    for layer in _layers(params["segments"][0], cfg.n_layers):
+        args = (layer, x, enc_out, positions, enc_pos, cfg)
+        x = (checkpoint(_cross_block, *args, use_reentrant=False) if remat
+             else _cross_block(*args))
+    x = apply_norm(cfg.norm, params["final_norm"], x)
+    return _unembed(params, x, cfg), torch.zeros((), dtype=torch.float32, device=x.device)
+
+
 # ---------------------------------------------------------------------------
 # loss
 # ---------------------------------------------------------------------------
 
 def loss_fn(params: Params, batch: dict, cfg: ModelConfig) -> Tensor:
-    """Next-token cross-entropy plus the weighted MoE balance loss."""
+    """Next-token cross-entropy plus the weighted MoE balance loss. The image
+    positions of a vlm carry no loss."""
     logits, aux = forward_logits(params, batch, cfg)
+    if cfg.kind == "vlm":
+        logits = logits[:, cfg.num_image_tokens:]
     ce = cross_entropy(logits[:, :-1], batch["tokens"][:, 1:])
     return ce + cfg.aux_loss_weight * aux
 
@@ -241,8 +333,10 @@ def loss_fn(params: Params, batch: dict, cfg: ModelConfig) -> Tensor:
 def cache_layout(cfg: ModelConfig) -> list[str]:
     """Static tag sequence for the decode cache list: one entry per layer,
     plus one ``"shared"`` per zamba2 shared-block call site, just before the
-    layer it precedes."""
+    layer it precedes; ``"cross_dense"`` for each of whisper's decoder layers."""
     _check_supported(cfg)
+    if cfg.kind == "encdec":
+        return ["cross_dense"] * cfg.n_layers
     tags: list[str] = []
     for i, kind in enumerate(cfg.block_pattern):
         if _shared_site(cfg, i):
@@ -256,7 +350,10 @@ def init_caches(cfg: ModelConfig, batch: int, max_len: int, device=None) -> list
     (SWA archs keep ``window`` slots; a shared site keeps ``max_len``), a
     latent cache of ``max_len`` slots in the compute dtype for MLA (whatever
     ``kv_cache_dtype`` says, as in JAX), and a recurrent state for an SSM
-    block (fp32, the conv history in the compute dtype)."""
+    block (fp32, the conv history in the compute dtype). A whisper decoder
+    layer keeps a self-attention KV cache of ``max_len`` and the encoder's
+    keys and values, ``cross_k``/``cross_v`` [B, enc_seq_len, H, D], both in
+    the compute dtype (zeros until the caller fills the cross pair)."""
     cdt = cfg.cdtype
     kv_len = min(max_len, cfg.sliding_window) if cfg.sliding_window else max_len
     kv_dt = "int8" if cfg.kv_cache_dtype == "int8" else cdt  # int8: init_kv_cache refuses
@@ -275,12 +372,33 @@ def init_caches(cfg: ModelConfig, batch: int, max_len: int, device=None) -> list
         elif tag == "mlstm":
             caches.append(ssm.init_mlstm_state(batch, cfg.d_model, cfg.n_heads,
                                                cfg.xlstm_expand, dtype=cdt, device=device))
+        elif tag == "cross_dense":
+            cross = (batch, cfg.enc_seq_len, cfg.n_heads, cfg.head_dim)
+            caches.append({
+                "self": attn.init_kv_cache(batch, max_len, cfg.n_kv_heads, cfg.head_dim, cdt,
+                                           device),
+                "cross_k": torch.zeros(cross, dtype=cdt, device=device),
+                "cross_v": torch.zeros(cross, dtype=cdt, device=device)})
         else:
             caches.append(ssm.init_slstm_state(batch, cfg.d_model, cfg.n_heads, device))
     return caches
 
 
+@torch.no_grad()
+def fill_cross_caches(params: Params, enc_out: Tensor, caches: list, cfg: ModelConfig) -> None:
+    """Each whisper decoder layer's cross-attention K/V of the encoder output,
+    written into its ``cross_k``/``cross_v`` (once per request), by the two
+    einsums of ``examples/whisper_serve.py``."""
+    xattn = params["segments"][0]["xattn"]  # stacked over the decoder layers
+    for i in range(cfg.n_layers):
+        for name, w in (("cross_k", xattn["wk"][i]), ("cross_v", xattn["wv"][i])):
+            kv = torch.einsum("bsd,dhk->bshk", enc_out, w.to(enc_out.dtype))
+            caches[i][name].copy_(kv.to(caches[i][name].dtype))
+
+
 def _flatten_layer_params(params: Params, cfg: ModelConfig) -> list[tuple[str, dict]]:
+    if cfg.kind == "encdec":
+        return [("cross_dense", layer) for layer in _layers(params["segments"][0], cfg.n_layers)]
     return [(kind, layer)
             for seg_params, (kind, count) in zip(params["segments"], segments_of(cfg))
             for layer in _layers(seg_params, count)]
@@ -299,6 +417,8 @@ def _decode_block(kind: str, p: dict, x: Tensor, cache: dict, position: int,
     if kind == "slstm":
         y, cache = ssm.slstm_step(p["mix"], h, cache, cfg.n_heads)
         return x + y, cache
+    if kind == "cross_dense":
+        return _decode_cross(p, x, h, cache, position, cfg), cache
     if kind in ("dense", "moe"):
         a, cache = attn.decode_attention(p["attn"], h, cache, position, cfg)
     else:
@@ -307,6 +427,23 @@ def _decode_block(kind: str, p: dict, x: Tensor, cache: dict, position: int,
     h = apply_norm(cfg.norm, p["ln2"], x)
     # the JAX package decodes MoE at a literal capacity factor of 2.0 (cap = 1 at S = 1)
     return x + _ffn(kind, p, h, cfg, 2.0)[0], cache
+
+
+def _decode_cross(p: dict, x: Tensor, h: Tensor, cache: dict, position: int,
+                  cfg: ModelConfig) -> Tensor:
+    """A whisper decoder layer at one position: self-attention over its KV
+    cache (written in place), then cross-attention of q (``wq``, no bias, no
+    RoPE) over the fixed ``cross_k``/``cross_v``, then the MLP."""
+    a, _ = attn.decode_attention(p["attn"], h, cache["self"], position, cfg)
+    x = x + a
+    h = apply_norm(cfg.norm, p["ln_x"], x)
+    b, enc_len = x.shape[0], cache["cross_k"].shape[1]
+    q = torch.einsum("bsd,dhk->bshk", h, p["xattn"]["wq"].to(h.dtype))
+    mask = attn.build_mask(torch.full((b, 1), position, dtype=torch.int32, device=x.device),
+                           _positions(b, enc_len, x.device), "bidirectional")
+    o = attn.dense_attention(q, cache["cross_k"].to(h.dtype), cache["cross_v"].to(h.dtype), mask)
+    x = x + torch.einsum("bshk,hkd->bsd", o, p["xattn"]["wo"].to(h.dtype))
+    return x + apply_mlp(p["mlp"], apply_norm(cfg.norm, p["ln2"], x), cfg.mlp_style)
 
 
 def _decode_shared(params: Params, x: Tensor, x0: Tensor, cache: dict, position: int,
@@ -326,11 +463,15 @@ def decode_step(params: Params, caches: list, tokens: Tensor, position: int,
                 cfg: ModelConfig) -> tuple[Tensor, list]:
     """One decode step: tokens [B,1] at absolute ``position``. KV and latent
     caches are updated in place; an SSM block's state is replaced. The
-    returned list holds every layer's cache as it now stands."""
+    returned list holds every layer's cache as it now stands. Whisper adds
+    the sinusoidal position ``position`` to the embedding; a vlm decodes text
+    only (no image prefix), as the JAX serving launcher does."""
     cdt = cfg.cdtype
     x = params["embed"][tokens].to(cdt)
     if cfg.scale_embeddings:
         x = x * torch.tensor(cfg.d_model ** 0.5, dtype=cdt)
+    if cfg.kind == "encdec":
+        x = x + sinusoidal_positions(1, cfg.d_model, position, device=x.device).to(cdt)[None]
     new_caches: list = []
     x0, it = x, iter(caches)
     for i, (kind, p) in enumerate(_flatten_layer_params(params, cfg)):

@@ -28,6 +28,13 @@ ATTN_CASES += [(1, 512, 512, 48, 8, 128, True, None, dt) for dt in ("bfloat16", 
 # zamba2's shared block (32/32 heads of 64) and glm4's GQA of 16 (32/2 heads of 128)
 ATTN_CASES += [(1, 512, 512, h, kv, d, True, None, dt)
                for h, kv, d in ((32, 32, 64), (32, 2, 128)) for dt in ("bfloat16", "float32")]
+# whisper-tiny's encoder: bidirectional, no window, 6/6 heads of 64 at its 1500 frames
+# (neither a multiple of the 64-key tile nor of the 192-row query block)
+ATTN_CASES += [(2, 1500, 1500, 6, 6, 64, False, None, dt) for dt in ("bfloat16", "float32")]
+# bidirectional, no window, Skv ragged against the 64-key tile: only the Skv mask
+# guards the last tile, and an unmasked tail of zero keys would dominate the output
+ATTN_CASES += [(b, s, s, h, h, 64, False, None, dt) for b, s, h in ((2, 100, 4), (1, 70, 2))
+               for dt in ("bfloat16", "float32")]
 
 
 @pytest.fixture
@@ -50,6 +57,25 @@ def test_flash_attention_kernel_matches_plain(card, b, sq, skv, h, kv, d, causal
     expect = ops.flash_attention_plain(q, k, v, causal=causal, window=window)
     tol = 2e-2 if dtype == torch.bfloat16 else 1e-4  # the card sums in another order
     assert float((out.float() - expect.float()).abs().max()) <= tol
+
+
+@pytest.mark.parametrize("dt,limit", [("bfloat16", 5e-3), ("float32", 1e-4)])
+def test_flash_attention_masks_the_ragged_key_tail(card, dt, limit):
+    """Whisper's encoder shape: 1500 keys, so the last 64-key tile holds 36
+    zeros past Skv. Each would add exp(0 - max) to a row's softmax sum if the
+    tile were unmasked, shrinking every output by ~1.4 %. Relative to the
+    output's RMS the kernel stays within ``limit`` of its plain version, and
+    the plain version over the zero-padded keys (the unmasked answer) does not."""
+    gen = torch.Generator(device=card).manual_seed(2)
+    dtype = getattr(torch, dt)
+    q, k, v = (torch.randn((2, 1500, 6, 64), generator=gen, device=card).to(dtype)
+               for _ in range(3))
+    out = ops.flash_attention(q, k, v, causal=False).float()
+    expect = ops.flash_attention_plain(q, k, v, causal=False).float()
+    kp, vp = (torch.nn.functional.pad(t, (0, 0, 0, 0, 0, 36)) for t in (k, v))
+    unmasked = ops.flash_attention_plain(q, kp, vp, causal=False).float()
+    assert float((unmasked - expect).norm() / expect.norm()) > limit
+    assert float((out - expect).norm() / expect.norm()) <= limit
 
 
 def test_flash_attention_rows_with_no_live_key_are_zero(card):

@@ -1,5 +1,5 @@
-"""The port stands alone: no module of ``repro_torch`` and nothing that
-``chip_smoke.py`` imports brings in JAX or the JAX package, and entry
+"""The port stands alone: no module of ``repro_torch``, no port example and
+nothing that ``chip_smoke.py`` imports brings in JAX or the JAX package, and entry
 points never fall back to the CPU quietly when CUDA is absent."""
 
 import ast
@@ -15,7 +15,8 @@ torch = pytest.importorskip("torch")
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 PORT = ROOT / "src" / "repro_torch"
-PORT_FILES = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+PORT_FILES = (sorted(PORT.rglob("*.py")) + sorted((ROOT / "examples").glob("torch_*.py"))
+              + [ROOT / "chip_smoke.py"])
 
 
 def _modules() -> list[str]:

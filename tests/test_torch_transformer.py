@@ -112,13 +112,18 @@ def test_sliding_window_ring_buffer():
 
 
 def test_unported_block_kinds_raise():
-    """Every decoder block kind is ported; the encdec and vlm model kinds
-    (whisper, paligemma) raise naming their ROADMAP item, and an unknown
-    block kind is refused as JAX refuses it."""
+    """Every block kind and model kind is ported: the encdec and vlm kinds
+    (whisper, paligemma) initialise with their own trees; an unknown block
+    or model kind is refused, and so is the int8 (KIVI) cache, not ported yet."""
     cfg = get_smoke_config(ARCH)
-    for kind in ("encdec", "vlm"):
-        with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 11"):
-            ttf.init_params(torch.Generator().manual_seed(0), cfg.replace(kind=kind))
+    whisper = ttf.init_params(torch.Generator().manual_seed(0), get_smoke_config("whisper-tiny"))
+    assert set(whisper) == {"embed", "segments", "final_norm", "encoder"}
+    assert "xattn" in whisper["segments"][0]
+    vlm = ttf.init_params(torch.Generator().manual_seed(0), cfg.replace(kind="vlm"))
+    assert [k for k, _ in flatten_with_paths(vlm)] == \
+           [k for k, _ in flatten_with_paths(ttf.init_params(torch.Generator(), cfg))]
+    with pytest.raises(ValueError, match="unknown model kind 'conv'"):
+        ttf.init_params(torch.Generator().manual_seed(0), cfg.replace(kind="conv"))
     with pytest.raises(ValueError, match="unknown block kind 'conv'"):
         ttf.init_params(torch.Generator().manual_seed(0),
                         cfg.replace(block_pattern=("dense", "conv")))
