@@ -117,6 +117,26 @@ JAX or of the JAX package. No phase's failure is caught.
      layers, fp32, 1 × (256 + 32), the card against the CPU (≤ 1e-4, argmax
      agreement 1.0); (c) with those params freed, the serving launcher
      (text tokens by replay, as in JAX), its launches counted alone: none.
+ 13. The α–β cost model, the sharding policy and the KIVI cache. (a)
+     bert-large as in phase 5 with ``--comm auto`` (fp32 wire) and ``--comm
+     auto --compress``: every step's bucket log names, for every bucket, the
+     algorithm the port's ``select_algorithm`` gives for its bytes at p = 4
+     (``lumorph4``, ``+int8`` under ``--compress``), and the final losses
+     equal phase 5's ``lumorph4`` and ``lumorph2 --compress`` runs exactly
+     (at p = 4 the model picks LUMORPH-4 for every bucket, and compression
+     always runs LUMORPH-2, as in JAX); the buckets' α–β prices are printed,
+     labelled as model outputs of the paper's link constants. (b)
+     ``make_policy``'s tp, dp and zero3 on the production single and multi
+     meshes for every registered config, each spec checked to divide. (c)
+     h2o-danube-1.8b whole, fp32 params from seed 0, bf16 compute: 4 × 64
+     prompt tokens replayed and 32 greedy decode steps into the bf16 cache,
+     then the same tokens into the int8 cache
+     (``cfg.replace(kv_cache_dtype="int8")``): every written slot within the
+     quantizer's bound (``|q·scale − x| ≤ scale/2`` plus one fp32 ulp of
+     ``amax = 127·scale``, for the fp32 rounding of ``x / scale``), the int8
+     cache's decode logits against the bf16 cache's (relative error ≤ 5e-2,
+     phase 3's bf16 limit, and argmax agreement), TPOT and the caches' bytes
+     (int8: (1 + 4/80)/2 = 0.525 of bf16's without ``pos``).
 
 Phase 2 also holds the RMSNorm kernel against its plain version (fp32
 within 1e-5, bf16 within 2e-2, the limits of tests/test_kernels.py, or one
@@ -136,7 +156,8 @@ Each main path is driven with the launch counters set to 0 just before it
 and read just after: serving (phases 3 and 4), training (phase 5), overlap
 mode (phase 7), deepseek (phase 8), dbrx (phase 9), the dense trio (phase
 10, per model), the SSM models (phase 11, per model) and whisper and
-paligemma (phase 12, per model). Each phase prints its seconds. The last lines are the ``{"kernels": [...]}`` record, the run
+paligemma (phase 12, per model), and the ``--comm auto`` runs and the KIVI
+decodes (phase 13). Each phase prints its seconds. The last lines are the ``{"kernels": [...]}`` record, the run
 record, and ``{"ok": true, "device": {...}}``.
 """
 
@@ -220,6 +241,12 @@ WHISPER_SERVE = ["--batch", "4", "--gen", "24"]
 # card against CPU at 1 × (256 + 32)
 PALIGEMMA_PREFILL, PALIGEMMA_LEAD = (2, 512), (2, 32)
 SERVE = ["--batch", "4", "--prompt-len", "64", "--gen", "32"]
+# phase 13: --comm auto in phase 5's settings, each against the phase 5 run that
+# must end on the same loss; the KIVI decode on danube; its logits limit
+AUTO_RUNS = [("auto", ["--comm", "auto", "--wire-dtype", "float32"], "lumorph4"),
+             ("auto+int8", ["--comm", "auto", "--compress"], "lumorph2+int8")]
+KIVI = dict(batch=4, prompt=64, gen=32)
+KIVI_TOL = PREFILL_TOL["bfloat16"]
 # H100 SXM published dense peaks (NVIDIA data sheet): fp32 on the CUDA cores,
 # bf16 on the tensor cores; HBM3 bandwidth
 PEAK_FLOPS = {torch.float32: 67e12, torch.bfloat16: 989e12}
@@ -1237,6 +1264,146 @@ def phase_paligemma(get_config, tf, steps_lib, flatten_with_paths, ops) -> dict:
     return out
 
 
+def phase_auto(train, grad_comm, cost_model, runs) -> dict:
+    """Phase 13(a): bert-large with ``--comm auto`` in phase 5's settings. Each
+    step's bucket log is read by wrapping ``all_reduce_grads``, as the JAX
+    trainer's test does."""
+    logs = []
+    inner = grad_comm.all_reduce_grads
+
+    def logged(*args, **kwargs):
+        out = inner(*args, **kwargs)
+        logs.append(out[2])
+        return out
+
+    out = {}
+    grad_comm.all_reduce_grads = logged
+    try:
+        for name, flags, ref in AUTO_RUNS:
+            logs.clear()
+            res = train.main(TRAIN + flags)
+            torch.cuda.synchronize()
+            torch.cuda.empty_cache()
+            tag = "+int8" if "--compress" in flags else ""
+            picks = [[(n, cost_model.select_algorithm(n, 4, cost_model.LUMORPH_LINK) + tag)
+                      for n, _ in log] for log in logs]
+            sizes = sorted({n for log in logs for n, _ in log})
+            out[name] = {
+                **res, "buckets": len(logs[-1]), "steps_logged": len(logs),
+                "algos": sorted({a for log in logs for _, a in log}),
+                "log_is_select_algorithm": [[list(e) for e in log] for log in logs] ==
+                                           [[list(e) for e in log] for log in picks],
+                "final_loss_equals": ref, "phase5_final_loss": runs[ref]["final_loss"],
+                "final_loss_equal": res["final_loss"] == runs[ref]["final_loss"],
+                "phase5_step_s": runs[ref]["step_s"],
+                # model outputs of the paper's link constants, not measurements
+                "alpha_beta_model_s": {str(n): {a: cost_model.algorithm_cost(
+                    a, n, 4, cost_model.LUMORPH_LINK) for a in ("ring", "lumorph2", "lumorph4")}
+                    for n in sizes},
+                "alpha_beta_label": "alpha-beta model output of the paper's link constants "
+                                    "(LUMORPH_LINK: 300 GB/s, alpha 0.7 us, MZI 3.7 us), "
+                                    "not a measurement"}
+            print(json.dumps({"auto": name, **out[name]}), flush=True)
+            assert res["steps"] == 6 and len(logs) == 6, (res, len(logs))
+            assert out[name]["log_is_select_algorithm"], out[name]
+            assert out[name]["algos"] == ["lumorph4" + tag], out[name]
+            assert out[name]["final_loss_equal"], out[name]
+    finally:
+        grad_comm.all_reduce_grads = inner
+    return out
+
+
+def phase_policies(get_config, registry, make_production_mesh, checked_policy) -> dict:
+    """Phase 13(b): the production meshes' policy for every registered config."""
+    out = {}
+    for arch in sorted(registry):
+        for name in ("single", "multi"):
+            mesh = make_production_mesh(multi_pod=(name == "multi"))
+            policy = checked_policy(get_config(arch), mesh)
+            out.setdefault(arch, {})[name] = {"tp": policy.tp, "dp": policy.dp,
+                                              "zero3": policy.zero3}
+    print(json.dumps({"policies": out}), flush=True)
+    assert [a for a, m in out.items() if m["single"]["zero3"]] == ["dbrx-132b"], out
+    return out
+
+
+def phase_kivi(get_config, tf, steps_lib, attn) -> dict:
+    """Phase 13(c): danube's decode into the bf16 cache, then the same tokens
+    into the int8 (KIVI) cache, at full width."""
+    dev = torch.device("cuda")
+    cfg = get_config("h2o-danube-1.8b")
+    b, prompt, n_gen = KIVI["batch"], KIVI["prompt"], KIVI["gen"]
+    gen = torch.Generator(device=dev).manual_seed(0)
+    params = tf.init_params(gen, cfg)
+    tokens = torch.randint(0, cfg.vocab_size, (b, prompt), generator=gen, device=dev)
+    written = []  # every (x, q, scale) the int8 cache takes
+    quant = attn._quant_kv
+
+    def recorded(x):
+        q, scale = quant(x)
+        written.append((x, q, scale))
+        return q, scale
+
+    def run(c, feed=None):
+        caches = tf.init_caches(c, b, prompt + n_gen, dev)
+        decode = steps_lib.make_decode_step(c, dev)
+        for t in range(prompt):
+            logits, caches = decode(params, caches, tokens[:, t:t + 1], t)
+        cur = torch.argmax(logits[:, -1:], dim=-1)
+        out, fed = [], []
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for i in range(n_gen):
+            tok = cur if feed is None else feed[:, i:i + 1]
+            logits, caches = decode(params, caches, tok, prompt + i)
+            fed.append(tok)
+            out.append(logits[:, -1])
+            cur = torch.argmax(logits[:, -1:], dim=-1)
+        torch.cuda.synchronize()
+        tpot = (time.perf_counter() - t0) / n_gen
+        nbytes = sum(t.numel() * t.element_size() for t in _leaves(caches))
+        no_pos = sum(t.numel() * t.element_size() for c_ in caches for k, t in c_.items()
+                     if k != "pos")
+        return torch.stack(out, 1).float(), torch.cat(fed, 1), tpot, nbytes, no_pos, caches
+
+    ref, fed, tpot16, bytes16, nopos16, _ = run(cfg)
+    attn._quant_kv = recorded
+    try:
+        got, _, tpot8, bytes8, nopos8, caches8 = run(cfg.replace(kv_cache_dtype="int8"), fed)
+    finally:
+        attn._quant_kv = quant
+    assert all("k_scale" in c for c in caches8) and caches8[0]["k"].dtype == torch.int8
+    # the quantizer's bound, in fp64 of the fp32 values: |q·s − x| ≤ s/2 + ulp(127·s)
+    excess, over_half, values = 0.0, 0, 0
+    for x, q, scale in written:
+        s64 = scale.double()[..., None]
+        err = (q.double() * s64 - x.double()).abs()
+        amax = (scale * 127.0).float()
+        ulp = (torch.nextafter(amax, torch.full_like(amax, math.inf)) - amax).double()[..., None]
+        excess = max(excess, float(((err - s64 / 2) / ulp).max()))
+        over_half += int((err > s64 / 2).sum())
+        values += x.numel()
+    rel = float((got - ref).abs().max() / ref.abs().max())
+    out = {"arch": cfg.name, "batch": b, "prompt": prompt, "gen": n_gen,
+           "compute_dtype": cfg.compute_dtype, "param_dtype": cfg.param_dtype,
+           "kv_slots": prompt + n_gen, "quantized_writes": len(written),
+           "quantized_values": values,
+           "bound_excess_max_ulps_of_amax": excess, "values_past_half_scale": over_half,
+           "logits_rel_err": rel, "tol": KIVI_TOL,
+           "argmax_agree": float((got.argmax(-1) == ref.argmax(-1)).float().mean()),
+           "tpot_s": {"bf16": tpot16, "int8": tpot8},
+           "cache_bytes": {"bf16": bytes16, "int8": bytes8},
+           "cache_bytes_without_pos": {"bf16": nopos16, "int8": nopos8},
+           "int8_over_bf16": nopos8 / nopos16, "expected": (1 + 4 / cfg.head_dim) / 2}
+    print(json.dumps({"kivi": out}), flush=True)
+    assert len(written) == 2 * cfg.n_layers * (prompt + n_gen), len(written)
+    assert excess <= 1.0, out
+    assert torch.isfinite(got).all() and rel <= KIVI_TOL, out
+    assert math.isclose(out["int8_over_bf16"], out["expected"], rel_tol=1e-12), out
+    del params, written, caches8
+    return out
+
+
 def _leaves(tree):
     if isinstance(tree, dict):
         for v in tree.values():
@@ -1261,12 +1428,14 @@ def main() -> None:
         sys.exit("chip_smoke: no CUDA device is available; this script runs on the card only")
     sys.path.insert(0, str(ROOT / "src"))
     from repro_torch.bridge import flatten_with_paths
-    from repro_torch.configs import get_config
-    from repro_torch.core import collectives
+    from repro_torch.configs import REGISTRY, get_config
+    from repro_torch.core import collectives, cost_model
     from repro_torch.kernels import build, ops, ref
     from repro_torch.data import pipeline
     from repro_torch.launch import serve, train
     from repro_torch.launch import steps as steps_lib
+    from repro_torch.launch.mesh import make_production_mesh
+    from repro_torch.optim import grad_comm
     from repro_torch.optim.adamw import AdamWConfig
     from repro_torch.launch.steps import make_prefill
     from repro_torch.models import attention as attn
@@ -1481,6 +1650,24 @@ def main() -> None:
     torch.cuda.empty_cache()
     done("12_whisper_paligemma", t_phase)
 
+    # -- phase 13: --comm auto, the policy on the drivers, the KIVI cache -------
+    t_phase = time.perf_counter()
+    reset_launches()
+    auto = phase_auto(train, grad_comm, cost_model, runs)
+    torch.cuda.synchronize()
+    auto_launches = dict(ops.LAUNCHES)
+    assert auto_launches["quantize_int8"] > 0 and auto_launches["dequantize_int8"] > 0
+    policies = phase_policies(get_config, REGISTRY, make_production_mesh, train.checked_policy)
+    torch.cuda.empty_cache()
+    reset_launches()
+    kivi = phase_kivi(get_config, tf, steps_lib, attn)
+    torch.cuda.synchronize()
+    kivi_launches = dict(ops.LAUNCHES)
+    assert kivi_launches["flash_attention"] == 0, kivi_launches  # KIVI attends densely
+    print(json.dumps({"launches": {"auto": auto_launches, "kivi": kivi_launches}}), flush=True)
+    torch.cuda.empty_cache()
+    done("13_auto_policy_kivi", t_phase)
+
     bf, f32 = kern["timed"]["danube"][torch.bfloat16], kern["timed"]["danube"][torch.float32]
     for dt, t in ((torch.bfloat16, bf), (torch.float32, f32)):  # the entries danube's D runs
         t["entry"] = FLASH_ENTRY[dt]
@@ -1532,6 +1719,7 @@ def main() -> None:
             "source": "src/repro_torch/kernels/csrc/grad_compress.cu",
             "replaces": f"src/repro/kernels/grad_compress.py:{body}",
             "launches": training[name],
+            "launches_by_path": {"training": training[name], "auto": auto_launches[name]},
             "max_abs_err": max(c["max_abs_err"] for c in int8["checks"]),
             "ms": t[BUCKET_N]["ms"], "plain_ms": t[BUCKET_N]["plain_ms"],
             "bound_ms": t[BUCKET_N]["bound_ms"], "bound_by": "bytes", "library_ms": None,
@@ -1550,8 +1738,8 @@ def main() -> None:
     print(json.dumps({"kernels": records}), flush=True)
     print(json.dumps({"prefill": prefill, "train": runs, "trace": trace, "overlap": overlap,
                       "deepseek": deepseek, "dbrx": dbrx, "dense": dense, "ssm": ssm_runs,
-                      "whisper": whisper, "paligemma": paligemma,
-                      "phase_s": phase_s,
+                      "whisper": whisper, "paligemma": paligemma, "auto": auto,
+                      "policies": policies, "kivi": kivi, "phase_s": phase_s,
                       "card": smi, "total_s": time.perf_counter() - t_start}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

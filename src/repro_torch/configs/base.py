@@ -134,6 +134,16 @@ class ModelConfig:
             n += self.n_layers * (2 * d * self.n_heads * hd + 2 * d * self.n_kv_heads * hd)
         return n
 
+    def active_param_count(self) -> int:
+        """Params touched per token (MoE: top-k + shared experts only)."""
+        if self.moe_experts == 0:
+            return self.param_count()
+        d = self.d_model
+        full_expert = 3 * d * self.moe_d_ff
+        inactive = (self.moe_experts - self.moe_top_k) * full_expert
+        n_moe_layers = sum(1 for k in self.block_pattern if k in ("moe", "mla_moe"))
+        return self.param_count() - n_moe_layers * inactive
+
     def _mlp_params(self, d_ff: int | None = None) -> int:
         f = d_ff or self.d_ff
         mats = 3 if self.mlp_style in ("swiglu", "geglu") else 2

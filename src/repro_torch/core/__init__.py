@@ -1,1 +1,1 @@
-"""The Schedule IR and its executor (the port's trimmed copies)."""
+"""The Schedule IR, its virtual-rank executor and the α–β cost model."""

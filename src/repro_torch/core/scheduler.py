@@ -1,19 +1,27 @@
-"""The port's trimmed copy of the Schedule IR (``repro.core.scheduler``).
+"""The port's copy of the Schedule IR (``repro.core.scheduler``).
 
 A :class:`Schedule` is the single description of a collective: rounds of
 directed circuit pairs plus, per round, the :class:`Transfer` chunk tables
 that execution needs. The builders here are copies of the JAX package's
 ``ring_schedule``, ``rhd_schedule`` (LUMORPH-2), ``rqq_schedule``
-(LUMORPH-4) and ``tree_schedule``, so both executors read the same tables.
+(LUMORPH-4) and ``tree_schedule``, so both executors read the same tables
+and both pricers the same shapes.
 
-The chunked lowering of overlap mode (:class:`ChunkedSchedule`, its
-:class:`Wave` s and :func:`chunk_schedule`) is copied as shape only.
+Pricing is copied with them: :meth:`Schedule.cost` and
+:meth:`Schedule.cost_by_tier` price the rounds with the α–β model
+(``core.cost_model.algorithm_cost`` delegates here, so ``--comm auto``
+does), and the chunked lowering of overlap mode (:class:`ChunkedSchedule`,
+its :class:`Wave` s and :func:`chunk_schedule`) prices its serial program
+per wave, per chunk and pipelined against compute. The float operations
+run in the reference's order, so the prices are the JAX package's to the
+bit.
 
-Left out, because the port's executors read only ``participants``,
-``rounds[*].transfers`` and ``n_chunks``: pricing (``Schedule.cost`` and
-the chunked programs' wave, chunk and overlapped costs), ``validate``, the
-fabric/rack/health coupling (ROADMAP Queue 1 item 7) and hierarchical
-composition, with the ``hier:*`` schedules it makes.
+Left out: the fabric, rack, pod and health models, which belong to the
+JAX package's rack simulator and are not JAX-bound. So pricing takes only
+``rack=None`` (a rack or pod raises ``NotImplementedError``), and
+``ChunkedSchedule.validate``, which checks waves against a rack, raises.
+Also left out: hierarchical composition and the ``hier:*`` schedules it
+makes.
 """
 
 from __future__ import annotations
@@ -24,7 +32,10 @@ from typing import Callable, Optional, Sequence
 
 import numpy as np
 
-from repro_torch.core.cost_model import mixed_radix_factorization
+from repro_torch.core.cost_model import LinkModel, mixed_radix_factorization, pipeline_time
+
+_NO_FABRIC = ("the port prices schedules on an ideal fabric only (rack=None): the fabric, "
+              "rack, pod and health models belong to the JAX package's rack simulator")
 
 
 @dataclasses.dataclass(frozen=True, eq=False)
@@ -53,7 +64,8 @@ class Round:
     only after :meth:`Schedule.materialize` ran.
     """
 
-    __slots__ = ("pairs_arr", "bytes_per_circuit", "egress_fanout", "reduce", "_transfers")
+    __slots__ = ("pairs_arr", "bytes_per_circuit", "egress_fanout", "reduce", "_transfers",
+                 "_sig")
 
     def __init__(self, pairs, bytes_per_circuit: float, egress_fanout: int = 1,
                  reduce: Optional[bool] = None,
@@ -65,6 +77,7 @@ class Round:
         #: True = reduce-scatter (accumulate), False = all-gather (overwrite)
         self.reduce = reduce
         self._transfers = transfers
+        self._sig = None
 
     @property
     def transfers(self) -> tuple[Transfer, ...]:
@@ -74,6 +87,14 @@ class Round:
             raise RuntimeError("Transfer tables are lazy: call Schedule.materialize() "
                                "before reading Round.transfers")
         return self._transfers
+
+    @property
+    def circuit_signature(self) -> bytes:
+        """Canonical identity of the round's circuit *set* (sorted unique
+        pairs): two rounds reprogram no MZIs iff their signatures match."""
+        if self._sig is None:
+            self._sig = np.unique(self.pairs_arr, axis=0).tobytes()
+        return self._sig
 
 
 @dataclasses.dataclass(frozen=True, eq=False)
@@ -106,6 +127,51 @@ class Schedule:
             raise RuntimeError(f"{self.algo}: round has no transfer lowering and no "
                                "fill function")
         return self
+
+    # -- pricing -------------------------------------------------------------
+    def _changed_flags(self):
+        """Yield ``(round, changed)`` where ``changed`` means the round's
+        circuit set differs from the previous round's (an MZI window)."""
+        prev_arr: Optional[np.ndarray] = None
+        prev_sig: bytes = b""
+        for r in self.rounds:
+            arr = r.pairs_arr
+            if prev_arr is not None and arr is prev_arr:
+                yield r, False  # same array object → identical circuits
+                continue
+            sig = r.circuit_signature
+            yield r, sig != prev_sig
+            prev_arr, prev_sig = arr, sig
+
+    def reconfigurations(self) -> int:
+        """Rounds whose circuit set differs from the previous round's."""
+        return sum(1 for _, changed in self._changed_flags() if changed)
+
+    def _priced_rounds(self, link: LinkModel, rack=None):
+        """Yield ``(tier, seconds)`` per round under the α–β model: the
+        link's α (plus its reconfiguration window if the circuit set
+        changed) plus the round's serialized egress bytes × β. Every round
+        is tier 0 on the ideal fabric (``rack=None``), the only one the
+        port prices."""
+        if rack is not None:
+            raise NotImplementedError(_NO_FABRIC)
+        for r, changed in self._changed_flags():
+            seconds = link.round_alpha(changed)
+            yield 0, seconds + r.bytes_per_circuit * r.egress_fanout * link.beta
+
+    def cost(self, link: LinkModel, rack=None) -> float:
+        """Total α–β time of the program (see :meth:`_priced_rounds`).
+        Pricing reads only the schedule's shape: no Transfer tables are
+        built."""
+        return sum(s for _, s in self._priced_rounds(link, rack))
+
+    def cost_by_tier(self, link: LinkModel, rack=None) -> dict[int, float]:
+        """:meth:`cost` split by tier (0 = intra-rack rounds); the values
+        sum to :meth:`cost`."""
+        out: dict[int, float] = {}
+        for tier, s in self._priced_rounds(link, rack):
+            out[tier] = out.get(tier, 0.0) + s
+        return out
 
 
 # ---------------------------------------------------------------------------
@@ -375,11 +441,8 @@ def build_schedule(algo: str, chips: Sequence[int], n_bytes: float) -> Schedule:
 
 
 # ---------------------------------------------------------------------------
-# chunked / pipelined lowering (overlap mode), shape only
+# chunked / pipelined lowering (overlap mode)
 # ---------------------------------------------------------------------------
-
-_PRICING = ("pricing a chunked schedule needs LinkModel and the rack/pod/health "
-            "coupling, which come with --comm auto (ROADMAP Queue 1 item 7)")
 
 
 @dataclasses.dataclass(frozen=True, eq=False)
@@ -401,7 +464,10 @@ class ChunkedSchedule:
     boundary (the rounds' ``reduce`` tags) and emitted once per chunk at
     ``n_bytes / C``: ``2·C`` waves (``C`` when a phase is empty). The two
     per-phase wave schedules share the base's Transfer tables: a ``1/C``
-    slice is a whole buffer with the same chunk granularity.
+    slice is a whole buffer with the same chunk granularity. Pricing walks
+    the serial concatenation of the waves as one ordinary schedule, so an
+    MZI window is charged only where a chunk boundary changes the circuit
+    set.
     """
 
     def __init__(self, base: Schedule, n_chunks: int):
@@ -428,10 +494,15 @@ class ChunkedSchedule:
         self.waves: tuple[Wave, ...] = tuple(
             Wave(c, phase, sched) for c in range(n_chunks)
             for phase, sched in (("rs", self._rs), ("ag", self._ag)) if sched is not None)
+        # the serial program: every chunk's waves back to back, priced as one
+        # Schedule (the rounds are shared objects across chunks)
+        self._serial = Schedule(f"{base.algo}|chunks={n_chunks}", base.participants,
+                                tuple(r for w in self.waves for r in w.schedule.rounds),
+                                base.n_bytes, n_chunks=base.n_chunks)
 
     @property
     def algo(self) -> str:
-        return f"{self.base.algo}|chunks={self.n_chunks}"
+        return self._serial.algo
 
     @property
     def participants(self) -> tuple[int, ...]:
@@ -440,20 +511,33 @@ class ChunkedSchedule:
     def waves_of_chunk(self, chunk: int) -> tuple[Wave, ...]:
         return tuple(w for w in self.waves if w.chunk == chunk)
 
-    def wave_costs(self, *args, **kwargs):
-        raise NotImplementedError(_PRICING)
+    def wave_costs(self, link: LinkModel, rack=None) -> list[float]:
+        """Per-wave α–β time, attributed by walking the serial program, so
+        that a wave whose first round reuses the previous wave's circuits
+        pays no MZI window."""
+        priced = iter(self._serial._priced_rounds(link, rack))
+        return [sum(next(priced)[1] for _ in w.schedule.rounds) for w in self.waves]
 
-    def chunk_costs(self, *args, **kwargs):
-        raise NotImplementedError(_PRICING)
+    def chunk_costs(self, link: LinkModel, rack=None) -> list[float]:
+        """Per-chunk wire time (each chunk's rs and ag waves summed)."""
+        per_chunk = [0.0] * self.n_chunks
+        for w, s in zip(self.waves, self.wave_costs(link, rack)):
+            per_chunk[w.chunk] += s
+        return per_chunk
 
-    def cost(self, *args, **kwargs):
-        raise NotImplementedError(_PRICING)
+    def cost(self, link: LinkModel, rack=None) -> float:
+        """Serial (overlap-disabled) α–β time of the chunked program. More
+        chunks add α and MZI rounds, never β bytes."""
+        return self._serial.cost(link, rack)
 
-    def overlapped_cost(self, *args, **kwargs):
-        raise NotImplementedError(_PRICING)
+    def overlapped_cost(self, link: LinkModel, rack=None, compute_s: float = 0.0) -> float:
+        """Pipelined makespan: the chunks' collectives back to back on the
+        fabric, ``compute_s`` of compute split across the chunks and
+        double-buffered (``cost_model.pipeline_time``)."""
+        return pipeline_time(self.chunk_costs(link, rack), compute_s)
 
-    def validate(self, *args, **kwargs):
-        raise NotImplementedError(_PRICING)
+    def validate(self, rack, check_fibers: bool = True) -> None:
+        raise NotImplementedError(_NO_FABRIC)
 
 
 def chunk_schedule(schedule: Schedule, n_chunks: int) -> ChunkedSchedule:

@@ -22,6 +22,7 @@ from repro_torch.device import resolve_device
 from repro_torch.launch import steps as steps_lib
 from repro_torch.models import transformer as tf
 from repro_torch.serve import metrics as serve_metrics
+from repro_torch.sharding.policy import MeshShape, make_policy
 
 
 def _sync(dev: torch.device) -> None:
@@ -61,9 +62,7 @@ def main(argv=None) -> dict:
     cfg = get_smoke_config(args.arch) if args.smoke else get_config(args.arch)
     if cfg.kind == "encdec":
         raise SystemExit("use examples/torch_whisper_serve.py for enc-dec serving")
-    # The JAX launcher validates the arch's serving sharding policy here
-    # (make_policy); that check waits for the sharding port (ROADMAP Queue 1
-    # item 13). The port serves on one device.
+    make_policy(cfg, MeshShape(("data", "model"), (1, 1)))  # the arch has a serving policy
     gen = torch.Generator(device=dev).manual_seed(args.seed)
     params = tf.init_params(gen, cfg)
     max_len = args.prompt_len + args.gen

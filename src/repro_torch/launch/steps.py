@@ -1,7 +1,9 @@
 """Step builders: data-parallel train, prefill and decode.
 
-The twin of ``repro.launch.steps``. Every step runs eagerly on one device:
-there is no sharding yet (ROADMAP Queue 1 item 13).
+The twin of ``repro.launch.steps``. Every step runs eagerly on one device;
+the sharding policy (``sharding.policy``) is checked by the launchers but
+places nothing, because the port's data axis is virtual ranks on that
+device.
 
 The train step runs ``dp`` data-parallel ranks as a leading axis of every
 parameter and optimizer tensor (the virtual-rank executor,
@@ -15,10 +17,12 @@ Two gradient-communication backends, as in the reference:
 
   * ``comm="xla"`` — the library reduction: a plain sum over the rank axis,
     divided by ``dp`` (the ideal-switch baseline);
-  * ``comm="ring" | "lumorph2" | "lumorph4" | "tree"`` — the Schedule-IR
-    collectives, bucket by bucket (``optim.grad_comm.all_reduce_grads``),
-    with int8 payloads and error feedback under ``compress``, and as
-    chunked waves under ``overlap_chunks > 1``.
+  * ``comm="ring" | "lumorph2" | "lumorph4" | "tree" | "auto"`` — the
+    Schedule-IR collectives, bucket by bucket
+    (``optim.grad_comm.all_reduce_grads``; ``auto`` picks each bucket's
+    schedule from the α–β cost model), with int8 payloads and error
+    feedback under ``compress``, and as chunked waves under
+    ``overlap_chunks > 1``.
 
 With ``cfg.use_pallas`` the prefill's attention runs the hand-written
 flash-attention kernel, once per standard-attention layer (``"dense"``,
@@ -44,7 +48,7 @@ from repro_torch.optim.adamw import AdamWConfig, adamw_update, init_opt_state
 from repro_torch.tree import leaves, tree_map, unflatten
 
 Tree = Any
-COMMS = ("xla", "ring", "lumorph2", "lumorph4", "tree")
+COMMS = ("xla", "ring", "lumorph2", "lumorph4", "tree", "auto")
 
 
 # ---------------------------------------------------------------------------
@@ -68,6 +72,13 @@ def init_train_state(cfg: ModelConfig, dp: int, seed: int = 0,
     return params, opt
 
 
+def opt_shapes(cfg: ModelConfig, params_shape: Tree) -> dict:
+    """The optimizer state's tree for a params tree on the meta device (see
+    ``models.transformer.param_shapes``): moments of the params' shapes and
+    an int32 step, allocating nothing. The twin of JAX ``opt_shapes``."""
+    return init_opt_state(params_shape)
+
+
 def make_train_step(cfg: ModelConfig, opt_cfg: Optional[AdamWConfig] = None,
                     comm: str = "xla", dp: int = 1,
                     bucket_bytes: int = grad_comm.DEFAULT_BUCKET_BYTES,
@@ -84,9 +95,6 @@ def make_train_step(cfg: ModelConfig, opt_cfg: Optional[AdamWConfig] = None,
     bucket's collective as that many chunked waves (overlap mode).
     After each call ``step.bucket_log`` holds the last (bytes, algo) log.
     """
-    if comm == "auto":
-        raise NotImplementedError("--comm auto (per-bucket α–β selection) is not ported "
-                                  "yet (ROADMAP Queue 1 item 7)")
     if comm not in COMMS:
         raise ValueError(f"unknown comm {comm!r}; have {COMMS}")
     opt_cfg = opt_cfg or AdamWConfig()

@@ -1,11 +1,19 @@
 """Training launcher: ``python -m repro_torch.launch.train --arch <id> [...]``.
 
-The twin of ``repro.launch.train``, with its flags: builds the model, the
-LUMORPH gradient-communication backend and the deterministic data stream,
-and runs a checkpointed training loop, restarting from the latest
-checkpoint, on ``--data-parallel`` virtual ranks on one device
-(:mod:`repro_torch.launch.mesh`). It runs on ``cuda`` unless given
-``--device cpu``; ``--smoke`` takes the reduced config.
+The twin of ``repro.launch.train``, with every one of its flags: builds
+the model, the sharding policy, the LUMORPH gradient-communication backend
+and the deterministic data stream, and runs a checkpointed training loop,
+restarting from the latest checkpoint, on ``--data-parallel`` virtual
+ranks on one device (:mod:`repro_torch.launch.mesh`). It runs on ``cuda``
+unless given ``--device cpu``; ``--smoke`` takes the reduced config.
+``--comm auto`` picks each gradient bucket's schedule from the α–β cost
+model.
+
+The sharding policy is made on the mesh and checked: every spec of every
+parameter and optimizer leaf must divide. With ``--mesh single|multi`` the
+trainer makes and checks the policy of the production mesh and then
+exits, because running on it needs an executor across devices (ROADMAP
+Queue 1 item 6(b)): the port's data axis is virtual ranks on one device.
 
 Checkpoints hold rank 0's params and optimizer state, and a restore gives
 every rank that copy, as the JAX trainer does: its ``save`` writes
@@ -18,9 +26,6 @@ chunked into 4 overlapped waves per bucket, with checkpoints):
   PYTHONPATH=src python -m repro_torch.launch.train --arch bert-large \\
       --comm lumorph4 --overlap 4 --data-parallel 4 --steps 6 --batch 8 \\
       --seq 128 --ckpt-dir /tmp/ck --ckpt-every 3
-
-Not ported yet, and refused rather than ignored: ``--comm auto`` and
-``--mesh single|multi``.
 """
 
 from __future__ import annotations
@@ -38,16 +43,26 @@ from repro_torch.configs.base import torch_dtype
 from repro_torch.data.pipeline import DataConfig, stream
 from repro_torch.device import resolve_device
 from repro_torch.launch import steps as steps_lib
-from repro_torch.launch.mesh import make_host_mesh
+from repro_torch.launch.mesh import make_host_mesh, make_production_mesh
+from repro_torch.models.transformer import param_shapes
 from repro_torch.optim.adamw import AdamWConfig
+from repro_torch.sharding.policy import make_policy
 from repro_torch.tree import tree_map
 
-_NOT_PORTED = {
-    "comm": "--comm auto (per-bucket α–β algorithm selection) is not ported yet "
-            "(ROADMAP Queue 1 item 7)",
-    "mesh": "--mesh single|multi (production meshes) is not ported yet; the port trains "
-            "on a virtual data-parallel mesh on one device (ROADMAP Queue 1 item 13)",
-}
+NO_EXECUTOR = ("the sharding policy of the {mesh} production mesh {shape} is valid for "
+               "{arch} (tp={tp}, dp={dp}, zero3={zero3}); training on it needs the "
+               "torch.distributed executor across devices (ROADMAP Queue 1 item 6(b)): "
+               "the port's data axis is virtual ranks on one device")
+
+
+def checked_policy(cfg, mesh):
+    """``make_policy(cfg, mesh)``, with every param and optimizer spec
+    checked to divide its leaf (shapes on the meta device)."""
+    policy = make_policy(cfg, mesh)
+    shapes = param_shapes(cfg)
+    policy.check_divides(shapes, policy.param_spec)
+    policy.check_divides(steps_lib.opt_shapes(cfg, shapes), policy.opt_spec)
+    return policy
 
 
 def _rank0(state):
@@ -88,18 +103,21 @@ def main(argv=None) -> dict:
     ap.add_argument("--device", default="cuda", help="cuda (default) or cpu")
     args = ap.parse_args(argv)
 
-    if args.comm == "auto":
-        raise SystemExit(_NOT_PORTED["comm"])
     if args.overlap > 1 and args.comm == "xla":
         raise SystemExit("--overlap needs a LUMORPH comm backend "
                          "(ring/lumorph2/lumorph4/auto), not xla")
-    if args.mesh != "host":
-        raise SystemExit(_NOT_PORTED["mesh"])
 
-    dev = resolve_device(args.device)
     cfg = get_smoke_config(args.arch) if args.smoke else get_config(args.arch)
+    if args.mesh != "host":
+        mesh = make_production_mesh(multi_pod=(args.mesh == "multi"))
+        policy = checked_policy(cfg, mesh)
+        raise SystemExit(NO_EXECUTOR.format(
+            mesh=args.mesh, shape=mesh.shape, arch=cfg.name, tp=policy.tp, dp=policy.dp,
+            zero3=policy.zero3))
+    dev = resolve_device(args.device)
     visible = torch.cuda.device_count() if dev.type == "cuda" else 1
     mesh = make_host_mesh(args.data_parallel or visible, dev)
+    checked_policy(cfg, mesh)
     opt_cfg = AdamWConfig(lr=args.lr, total_steps=args.steps,
                           warmup_steps=max(1, args.steps // 20))
     train_step = steps_lib.make_train_step(

@@ -8,9 +8,10 @@ The twin of ``repro.models.attention`` for the standard attention block:
   * kernel   — ``cfg.use_pallas``: the hand-written CUDA flash-attention
                kernel in ``repro_torch.kernels`` (its plain version on CPU).
 
-Decode keeps a KV cache; sliding-window archs (h2o-danube) use a ring
-buffer of ``window`` slots. Unlike the JAX package, the port updates the
-cache in place (an eager program gains nothing from a copy).
+Decode keeps a KV cache, in the compute dtype or, KIVI-style, in int8
+with one fp32 scale per (token, KV head); sliding-window archs (h2o-danube)
+use a ring buffer of ``window`` slots. Unlike the JAX package, the port
+updates the cache in place (an eager program gains nothing from a copy).
 
 MLA (DeepSeek-V2's multi-head latent attention) takes the dense or chunked
 path only, as in the JAX package: its query/key dim (nope + rope) differs
@@ -25,6 +26,7 @@ from typing import Optional
 import torch
 
 from repro_torch.kernels import ops as kops
+from repro_torch.kernels.ref import RECIP_127
 from repro_torch.models.layers import apply_rope, dense_init
 
 Tensor = torch.Tensor
@@ -194,14 +196,21 @@ def attention_forward(p: dict, x: Tensor, positions: Tensor, cfg,
 
 
 # ---------------------------------------------------------------------------
-# KV cache (decode)
+# KV cache (decode): compute dtype, or int8 (KIVI-style per-token-per-head scales)
 # ---------------------------------------------------------------------------
 
 def init_kv_cache(batch: int, max_len: int, n_kv: int, head_dim: int,
                   dtype=torch.bfloat16, device=None) -> dict:
     if dtype in (torch.int8, "int8"):
-        raise NotImplementedError(
-            "the int8 (KIVI) KV cache is not ported yet (ROADMAP Queue 1 item 12)")
+        return {
+            "k": torch.zeros((batch, max_len, n_kv, head_dim), dtype=torch.int8, device=device),
+            "v": torch.zeros((batch, max_len, n_kv, head_dim), dtype=torch.int8, device=device),
+            # symmetric per-(token, head) scales: the payload streams half
+            # the bytes of a bf16 cache per decode step
+            "k_scale": torch.zeros((batch, max_len, n_kv), dtype=torch.float32, device=device),
+            "v_scale": torch.zeros((batch, max_len, n_kv), dtype=torch.float32, device=device),
+            "pos": torch.full((batch, max_len), -1, dtype=torch.int32, device=device),
+        }
     return {
         "k": torch.zeros((batch, max_len, n_kv, head_dim), dtype=dtype, device=device),
         "v": torch.zeros((batch, max_len, n_kv, head_dim), dtype=dtype, device=device),
@@ -209,22 +218,49 @@ def init_kv_cache(batch: int, max_len: int, n_kv: int, head_dim: int,
     }
 
 
+def _quant_kv(x: Tensor) -> tuple[Tensor, Tensor]:
+    """[B,S,KV,D] → int8 payload + per-(token, head) fp32 scale: the scale is
+    ``max(amax, 1e-12) / 127`` over D, taken as the jitted reference takes
+    it (XLA multiplies by fp32(1/127), ``kernels.ref.RECIP_127``), then
+    ``x / scale`` rounded half to even and clipped to ±127."""
+    xf = x.float()
+    scale = torch.clamp(torch.amax(torch.abs(xf), dim=-1), min=1e-12) * RECIP_127
+    q = torch.clamp(torch.round(xf / scale[..., None]), -127, 127)
+    return q.to(torch.int8), scale
+
+
+def _dequant_kv(q: Tensor, scale: Tensor, dtype: torch.dtype) -> Tensor:
+    return (q.float() * scale[..., None]).to(dtype)
+
+
 def decode_attention(p: dict, x: Tensor, cache: dict, position: int, cfg) -> tuple[Tensor, dict]:
     """One-token decode: write the (ring) cache in place, attend over it.
 
     ``x``: [B, 1, D]; ``position``: the current absolute position; ring
     semantics when ``cfg.sliding_window`` is set (slot = pos % max_len).
+    An int8 cache (one with ``k_scale``) takes the new token's payload and
+    scales at the slot, and the whole cache is dequantized to ``x``'s dtype
+    and attended densely, as in JAX.
     """
     b = x.shape[0]
     max_len = cache["k"].shape[1]
     pos_b = torch.full((b, 1), position, dtype=torch.int32, device=x.device)
     q, k, v = _project_qkv(p, x, x, pos_b, pos_b, cfg)
     slot = position % max_len  # ring buffer; max_len == window for SWA archs
-    cache["k"][:, slot] = k[:, 0].to(cache["k"].dtype)
-    cache["v"][:, slot] = v[:, 0].to(cache["v"].dtype)
+    if "k_scale" in cache:
+        for name, new in (("k", k), ("v", v)):
+            payload, scale = _quant_kv(new)
+            cache[name][:, slot] = payload[:, 0]
+            cache[name + "_scale"][:, slot] = scale[:, 0]
+        kk = _dequant_kv(cache["k"], cache["k_scale"], x.dtype)
+        vv = _dequant_kv(cache["v"], cache["v_scale"], x.dtype)
+    else:
+        cache["k"][:, slot] = k[:, 0].to(cache["k"].dtype)
+        cache["v"][:, slot] = v[:, 0].to(cache["v"].dtype)
+        kk, vv = cache["k"].to(x.dtype), cache["v"].to(x.dtype)
     cache["pos"][:, slot] = position
     mask = build_mask(pos_b, cache["pos"], "causal", cfg.sliding_window)
-    out = dense_attention(q, cache["k"].to(x.dtype), cache["v"].to(x.dtype), mask)
+    out = dense_attention(q, kk, vv, mask)
     return torch.einsum("bshk,hkd->bsd", out, p["wo"].to(x.dtype)), cache
 
 

@@ -148,6 +148,23 @@ def init_params(gen: torch.Generator, cfg: ModelConfig) -> Params:
     return params
 
 
+class _MetaGenerator(torch.Generator):
+    """A generator whose draws land on the meta device: ``init_params``
+    puts its tensors on ``gen.device``, and a meta tensor's init draws
+    nothing."""
+
+    @property
+    def device(self) -> torch.device:
+        return torch.device("meta")
+
+
+def param_shapes(cfg: ModelConfig) -> Params:
+    """The params tree on the meta device: every leaf's shape and dtype,
+    nothing allocated (dbrx's 132 B params cost nothing). The twin of
+    JAX ``param_shapes``, the dry-run's and the sharding policy's input."""
+    return init_params(_MetaGenerator(), cfg)
+
+
 # ---------------------------------------------------------------------------
 # forward (full sequence)
 # ---------------------------------------------------------------------------
@@ -347,7 +364,9 @@ def cache_layout(cfg: ModelConfig) -> list[str]:
 
 def init_caches(cfg: ModelConfig, batch: int, max_len: int, device=None) -> list:
     """One cache per ``cache_layout`` entry: a KV cache for standard attention
-    (SWA archs keep ``window`` slots; a shared site keeps ``max_len``), a
+    (SWA archs keep ``window`` slots; a shared site keeps ``max_len``), in
+    int8 with per-(token, head) scales when ``cfg.kv_cache_dtype`` is
+    ``"int8"`` (KIVI) and in the compute dtype otherwise; a
     latent cache of ``max_len`` slots in the compute dtype for MLA (whatever
     ``kv_cache_dtype`` says, as in JAX), and a recurrent state for an SSM
     block (fp32, the conv history in the compute dtype). A whisper decoder
@@ -356,7 +375,7 @@ def init_caches(cfg: ModelConfig, batch: int, max_len: int, device=None) -> list
     the compute dtype (zeros until the caller fills the cross pair)."""
     cdt = cfg.cdtype
     kv_len = min(max_len, cfg.sliding_window) if cfg.sliding_window else max_len
-    kv_dt = "int8" if cfg.kv_cache_dtype == "int8" else cdt  # int8: init_kv_cache refuses
+    kv_dt = "int8" if cfg.kv_cache_dtype == "int8" else cdt
     caches = []
     for tag in cache_layout(cfg):
         if tag in ("dense", "moe", "shared"):

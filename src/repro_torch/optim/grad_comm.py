@@ -11,8 +11,9 @@ the virtual-rank executor's (:mod:`repro_torch.core.collectives`):
     ignored (``make_buckets`` counts 4 B per element whatever the wire
     dtype, as the reference does);
   * each bucket is ALLREDUCEd by ``ring`` / ``lumorph2`` / ``lumorph4`` /
-    ``tree`` (``auto``, which prices each bucket with the α–β model, is
-    not ported yet: ROADMAP Queue 1 item 7);
+    ``tree`` / ``auto``: ``auto`` prices each bucket with the α–β model
+    (``core.cost_model.select_algorithm``, at the bucket's wire bytes per
+    rank) and runs the cheapest schedule;
   * optional int8 compression quantizes every shipped piece with
     per-256-block scales and dequantizes at the receiver, through the
     hand-written CUDA kernels on the card (``kernels.ops``). Blocks never
@@ -33,6 +34,7 @@ from typing import Any, Optional
 import torch
 
 from repro_torch.core import collectives
+from repro_torch.core.cost_model import LUMORPH_LINK, LinkModel, select_algorithm
 from repro_torch.kernels import ops as kops
 from repro_torch.tree import leaves, unflatten
 
@@ -132,8 +134,9 @@ def compressed_all_reduce(x: Tensor, n_chunks: int = 1) -> Tensor:
 # bucketed gradient all-reduce
 # ---------------------------------------------------------------------------
 
-def all_reduce_grads(grads: Tree, algo: str = "lumorph2",
+def all_reduce_grads(grads: Tree, algo: str = "auto",
                      bucket_bytes: int = DEFAULT_BUCKET_BYTES,
+                     link: LinkModel = LUMORPH_LINK,
                      compress: bool = False,
                      error_feedback: Optional[Tree] = None,
                      wire_dtype: torch.dtype = torch.bfloat16,
@@ -145,14 +148,13 @@ def all_reduce_grads(grads: Tree, algo: str = "lumorph2",
 
     Returns (reduced_grads, new_error_feedback, bucket_log), where the log
     records (bytes per rank, algo) per bucket, as the reference's does.
-    Payloads travel as ``wire_dtype``; with ``compress`` they travel as
-    int8 and the flat vector is fp32. ``overlap_chunks > 1`` lowers every
+    ``algo="auto"`` picks each bucket's schedule with
+    ``select_algorithm(bytes, p, link)``. Payloads travel as ``wire_dtype``;
+    with ``compress`` they travel as int8 and the flat vector is fp32
+    (LUMORPH-2 whatever ``algo`` picks). ``overlap_chunks > 1`` lowers every
     bucket through the chunked wave pipeline (overlap mode; the log's algo
     gains ``+ovl<C>``); ``1`` keeps the monolithic path.
     """
-    if algo == "auto":
-        raise NotImplementedError("--comm auto (per-bucket α–β selection) is not ported "
-                                  "yet (ROADMAP Queue 1 item 7)")
     orig = leaves(grads)
     gl = orig
     p = gl[0].shape[0]
@@ -175,14 +177,17 @@ def all_reduce_grads(grads: Tree, algo: str = "lumorph2",
     parts = []
     for b in buckets:
         piece = flat[:, b.start:b.end]
-        log.append((b.n_elems * flat.element_size(), algo + ("+int8" if compress else "")
+        n_bytes = b.n_elems * flat.element_size()
+        chosen = select_algorithm(n_bytes, p, link) if algo == "auto" else algo
+        log.append((n_bytes, chosen + ("+int8" if compress else "")
                     + (f"+ovl{overlap_chunks}" if overlap_chunks > 1 else "")))
         if compress:
             parts.append(compressed_all_reduce(piece, n_chunks=overlap_chunks))
         elif overlap_chunks > 1:
-            parts.append(collectives.overlapped_all_reduce(piece, algo, n_chunks=overlap_chunks))
+            parts.append(collectives.overlapped_all_reduce(piece, chosen,
+                                                           n_chunks=overlap_chunks))
         else:
-            parts.append(collectives.all_reduce(piece, algo))
+            parts.append(collectives.all_reduce(piece, chosen))
     del flat
     reduced = torch.cat(parts, dim=1).float()
     del parts

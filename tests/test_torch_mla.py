@@ -201,14 +201,16 @@ def test_mla_forward_dense_and_chunked_match_jax(use_chunked):
 
 def test_int8_kv_cache_setting_leaves_mla_caches_in_compute_dtype():
     """MLA layers keep a compute-dtype latent cache whatever ``kv_cache_dtype``
-    says, as JAX's ``init_caches`` does; standard attention layers refuse int8."""
+    says, as JAX's ``init_caches`` does; standard attention layers (dbrx's)
+    take the int8 (KIVI) cache."""
     cfg = get_smoke_config(DEEPSEEK).replace(kv_cache_dtype="int8")
     caches = ttf.init_caches(cfg, 2, 8)
     assert [c["c_kv"].dtype for c in caches] == [torch.bfloat16] * cfg.n_layers
     assert caches[0]["c_kv"].shape == (2, 8, cfg.mla_kv_lora_rank)
     assert caches[0]["k_pe"].shape == (2, 8, cfg.mla_qk_rope_dim)
-    with pytest.raises(NotImplementedError, match="int8"):
-        ttf.init_caches(get_smoke_config(DBRX).replace(kv_cache_dtype="int8"), 2, 8)
+    dbrx = ttf.init_caches(get_smoke_config(DBRX).replace(kv_cache_dtype="int8"), 2, 8)
+    assert {c["k"].dtype for c in dbrx} == {torch.int8}
+    assert {c["k_scale"].dtype for c in dbrx} == {torch.float32}
 
 
 @pytest.mark.parametrize("arch", ARCHS)

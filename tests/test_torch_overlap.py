@@ -208,10 +208,20 @@ def test_schedule_for_execution_keys_on_n_chunks():
 
 
 def test_chunked_pricing_and_bad_phases_raise():
+    """A chunked schedule prices as JAX's does on the ideal fabric; a rack,
+    and ``validate`` against one, raise (no fabric model in the port)."""
+    from repro.core.cost_model import LUMORPH_LINK as jlink
+    from repro_torch.core.cost_model import LUMORPH_LINK as tlink
     ch = tsch.chunk_schedule(tsch.build_schedule("ring", tuple(range(4)), 1e6), 2)
-    for method in (ch.wave_costs, ch.chunk_costs, ch.cost, ch.overlapped_cost, ch.validate):
-        with pytest.raises(NotImplementedError, match="item 7"):
-            method()
+    jch = jsch.chunk_schedule(jsch.build_schedule("ring", tuple(range(4)), 1e6), 2)
+    for name in ("wave_costs", "chunk_costs", "cost", "overlapped_cost"):
+        assert getattr(ch, name)(tlink) == getattr(jch, name)(jlink), name
+    assert len(ch.wave_costs(tlink)) == 4 and len(ch.chunk_costs(tlink)) == 2
+    for method in (ch.wave_costs, ch.chunk_costs, ch.cost, ch.overlapped_cost):
+        with pytest.raises(NotImplementedError, match="rack=None"):
+            method(tlink, object())
+    with pytest.raises(NotImplementedError, match="rack=None"):
+        ch.validate(object())
     with pytest.raises(ValueError, match="≥ 1"):
         tsch.chunk_schedule(ch.base, 0)
     r_rs, r_ag = (tsch.Round(((0, 1),), 1.0, reduce=flag) for flag in (True, False))

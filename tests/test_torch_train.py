@@ -9,7 +9,8 @@ bert-large smoke config:
   * a cross-framework run: the JAX trainer on 4 fake devices and the port on
     4 virtual ranks from the same carried-over state (``bridge``), 4 steps,
     with the per-rank state under ``--compress`` read per device, monolithic
-    and with ``--overlap 4`` (losses and bucket logs);
+    and with ``--overlap 4`` (losses and bucket logs); and ``--comm auto`` on
+    2, 4 and 8 devices and ranks (bucket logs entry for entry, losses);
   * checkpoints: the port's twins of tests/test_checkpoint.py, files byte for
     byte equal to the JAX package's, a JAX trainer's checkpoint (device 0's
     copy of the replicas) restored into the port, and a port checkpoint
@@ -59,6 +60,7 @@ from repro_torch.tree import leaves, tree_map  # noqa: E402
 ARCH = "bert-large"
 SRC = str(Path(__file__).resolve().parents[1] / "src")
 STEPS, BATCH, SEQ, DP = 4, 4, 32, 4
+AUTO_DPS, AUTO_BATCH = (2, 4, 8), 8  # --comm auto: 8 rows split over every width
 BUCKET = 1 << 16  # 16,384 fp32 per bucket: the smoke gradient spans several
 BUCKET_OVL = 1 << 17  # fewer, larger buckets under --overlap 4: its programs compile slower
 
@@ -250,12 +252,15 @@ def test_microbatches_accumulate_the_same_gradient():
 
 
 @pytest.mark.parametrize("flags,item", [
-    (["--comm", "auto"], "item 7"),
-    (["--mesh", "single"], "item 13"),
+    (["--mesh", "single"], r"single production mesh \{'data': 16, 'model': 16\} is valid"),
+    (["--mesh", "multi"], r"multi production mesh \{'pod': 2, 'data': 16, 'model': 16\}"),
 ])
 def test_unported_flags_exit_naming_their_item(flags, item):
-    with pytest.raises(SystemExit, match=item):
+    """``--mesh single|multi`` makes and checks the production mesh's policy,
+    then stops: running on it needs the executor across devices."""
+    with pytest.raises(SystemExit, match=item) as exc:
         _train("--steps", "1", *flags)
+    assert "ROADMAP Queue 1 item 6(b)" in str(exc.value)
 
 
 def test_overlap_needs_a_lumorph_comm():
@@ -277,17 +282,22 @@ def test_overlap_training_tracks_monolithic():
 
 JAX_TRAIN = r"""
 import os, pickle, sys
-os.environ["XLA_FLAGS"] = "--xla_force_host_platform_device_count={dp}"
+os.environ["XLA_FLAGS"] = "--xla_force_host_platform_device_count={max_dp}"
 sys.path.insert(0, {src!r})
 import jax, jax.numpy as jnp
+from repro import compat
 from repro.checkpoint import checkpoint as ckpt_lib
 from repro.configs import get_smoke_config
 from repro.data.pipeline import DataConfig, stream
 from repro.launch import steps
-from repro.launch.mesh import make_host_mesh
 from repro.optim.adamw import AdamWConfig
 from repro.sharding.policy import make_policy
 from repro_torch.bridge import per_rank_from_shards
+
+
+def make_host_mesh(data, model):  # the first data·model of the fake devices
+    return compat.make_mesh((data, model), ("data", "model"),
+                            devices=jax.devices()[:data * model])
 
 logs = []
 _all_reduce_grads = steps.grad_comm.all_reduce_grads
@@ -324,6 +334,21 @@ for name, comm, compress, overlap in (("fp32", "lumorph4", False, 1),
                      final=per_rank_from_shards((params, opt_state), devices))
     if name == "int8":  # the replicas differ per device: which copy does a checkpoint hold?
         ckpt_lib.save({ckpt!r}, {steps}, (params, opt_state))
+for dp in {auto_dps}:  # --comm auto: the α–β model picks each bucket's schedule
+    mesh = make_host_mesh(data=dp, model=1)
+    policy = make_policy(cfg, mesh)
+    devices = list(mesh.devices.flatten())
+    step = steps.make_train_step(cfg, policy, opt, comm="auto", bucket_bytes={bucket},
+                                 wire_dtype=jnp.float32)
+    params, opt_state = steps.init_sharded_state(cfg, policy, jax.random.PRNGKey(0))
+    init = per_rank_from_shards((params, opt_state), devices)
+    losses = []
+    for i, batch in stream(cfg, DataConfig(seed=0, global_batch={auto_batch}, seq_len={seq})):
+        if i >= {steps}:
+            break
+        params, opt_state, loss = step(params, opt_state, batch)
+        losses.append(float(loss))
+    out[f"auto-{{dp}}"] = dict(init=init, losses=losses, log=[[int(b), a] for b, a in logs[-1]])
 with open({path!r}, "wb") as f:
     pickle.dump(out, f)
 """
@@ -335,9 +360,10 @@ def _jax_trainer(tmp_path_factory):
     the tests before the ones that read them."""
     tmp = tmp_path_factory.mktemp("train")
     env = {k: v for k, v in os.environ.items() if k != "XLA_FLAGS"}
-    code = JAX_TRAIN.format(dp=DP, src=SRC, steps=STEPS, bucket=BUCKET, bucket_ovl=BUCKET_OVL,
-                            batch=BATCH, seq=SEQ, path=str(tmp / "jax_runs.pkl"),
-                            ckpt=str(tmp / "ckpt"))
+    code = JAX_TRAIN.format(dp=DP, max_dp=max(AUTO_DPS), src=SRC, steps=STEPS, bucket=BUCKET,
+                            bucket_ovl=BUCKET_OVL, batch=BATCH, seq=SEQ,
+                            auto_dps=AUTO_DPS, auto_batch=AUTO_BATCH,
+                            path=str(tmp / "jax_runs.pkl"), ckpt=str(tmp / "ckpt"))
     proc = subprocess.Popen([sys.executable, "-c", code], stdout=subprocess.PIPE,
                             stderr=subprocess.PIPE, text=True, env=env)
     yield proc, tmp
@@ -357,16 +383,16 @@ def jax_runs(_jax_trainer):
     return runs
 
 
-def _port_run(run, comm, compress, overlap=1):
+def _port_run(run, comm, compress, overlap=1, dp=DP, batch=BATCH):
     cfg = get_smoke_config(ARCH).replace(compute_dtype="float32")
     params, opt_state = bridge.train_state_from_numpy(*run["init"])
-    assert opt_state["step"].shape == (DP,) and opt_state["step"].dtype == torch.int32
+    assert opt_state["step"].shape == (dp,) and opt_state["step"].dtype == torch.int32
     assert ("ef" in opt_state) == compress
     step = tsteps.make_train_step(
-        cfg, tadamw.AdamWConfig(total_steps=STEPS, warmup_steps=1), comm=comm, dp=DP,
+        cfg, tadamw.AdamWConfig(total_steps=STEPS, warmup_steps=1), comm=comm, dp=dp,
         bucket_bytes=BUCKET if overlap == 1 else BUCKET_OVL, compress=compress,
         wire_dtype=torch.float32, overlap_chunks=overlap, device="cpu")
-    data = tpipe.DataConfig(seed=0, global_batch=BATCH, seq_len=SEQ)
+    data = tpipe.DataConfig(seed=0, global_batch=batch, seq_len=SEQ)
     losses = []
     for i, batch in tpipe.stream(cfg, data):
         if i >= STEPS:
@@ -424,6 +450,40 @@ def test_overlap_port_tracks_jax_trainer(jax_runs, name, comm, compress):
     jparams, _ = run["final"]
     for (path, a), t in zip(bridge.flatten_with_paths(jparams), leaves(params)):
         np.testing.assert_allclose(t.numpy(), a, rtol=0, atol=2e-5, err_msg=path)
+
+
+@pytest.mark.parametrize("dp", AUTO_DPS)
+def test_auto_comm_port_tracks_jax_trainer(jax_runs, dp):
+    """``--comm auto`` from the carried-over state: the bucket logs (bytes and
+    the α–β model's pick per bucket) are equal entry for entry, and the
+    losses track the JAX trainer's within 1e-4. At 4 ranks every bucket
+    picks LUMORPH-4, so the port's auto run and its forced ``lumorph4`` run
+    end equal, bit for bit."""
+    run = jax_runs[f"auto-{dp}"]
+    params, opt_state, losses, log = _port_run(run, "auto", False, dp=dp, batch=AUTO_BATCH)
+    assert [list(e) for e in log] == run["log"] and len(log) > 3
+    np.testing.assert_allclose(losses, run["losses"], rtol=1e-4)
+    if dp == 4:
+        assert {a for _, a in log} == {"lumorph4"}
+        forced, forced_opt, forced_losses, _ = _port_run(run, "lumorph4", False, dp=dp,
+                                                         batch=AUTO_BATCH)
+        assert forced_losses == losses
+        for a, b in zip(leaves((params, opt_state)), leaves((forced, forced_opt))):
+            assert torch.equal(a, b)
+
+
+def test_auto_comm_trains_with_compress_and_overlap():
+    """``--comm auto`` with ``--compress`` and ``--overlap``: the compressed
+    path runs LUMORPH-2 whatever the log names, as in JAX, so auto with
+    ``--compress`` ends on ``lumorph2 --compress``'s loss exactly."""
+    common = ["--steps", "3", "--compress"]
+    auto = _train(*common, "--comm", "auto")
+    l2 = _train(*common, "--comm", "lumorph2")
+    assert auto["comm"] == "auto" and auto["final_loss"] == l2["final_loss"]
+    ovl = _train("--steps", "3", "--comm", "auto", "--overlap", "2", "--wire-dtype", "float32")
+    l4 = _train("--steps", "3", "--comm", "lumorph4", "--overlap", "2", "--wire-dtype",
+                "float32")
+    assert ovl["final_loss"] == l4["final_loss"]
 
 
 # ---------------------------------------------------------------------------

@@ -114,7 +114,7 @@ def test_sliding_window_ring_buffer():
 def test_unported_block_kinds_raise():
     """Every block kind and model kind is ported: the encdec and vlm kinds
     (whisper, paligemma) initialise with their own trees; an unknown block
-    or model kind is refused, and so is the int8 (KIVI) cache, not ported yet."""
+    or model kind is refused."""
     cfg = get_smoke_config(ARCH)
     whisper = ttf.init_params(torch.Generator().manual_seed(0), get_smoke_config("whisper-tiny"))
     assert set(whisper) == {"embed", "segments", "final_norm", "encoder"}
@@ -127,5 +127,3 @@ def test_unported_block_kinds_raise():
     with pytest.raises(ValueError, match="unknown block kind 'conv'"):
         ttf.init_params(torch.Generator().manual_seed(0),
                         cfg.replace(block_pattern=("dense", "conv")))
-    with pytest.raises(NotImplementedError, match="int8"):
-        ttf.init_caches(cfg.replace(kv_cache_dtype="int8"), 1, 8)
