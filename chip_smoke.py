@@ -137,6 +137,28 @@ JAX or of the JAX package. No phase's failure is caught.
      cache's decode logits against the bf16 cache's (relative error ≤ 5e-2,
      phase 3's bf16 limit, and argmax agreement), TPOT and the caches' bytes
      (int8: (1 + 4/80)/2 = 0.525 of bf16's without ``pos``).
+ 14. The dry-run, the roofline and the example twins. (a)
+     ``launch.dryrun``'s every (arch × shape) cell on the single and the
+     multi mesh, on the meta device (each cell counted once for both
+     meshes), every cell ``ok``: the cell count, the seconds, each cell's
+     per-device FLOPs and argument bytes, and the cells whose argument bytes
+     exceed this card's memory (printed, not enforced: the policy sizes for
+     the reference's 16 GB parts). (b) ``launch.roofline`` over those
+     records: the tables and the dominant-term counts; no cell's
+     ``roofline_frac`` (uncapped) exceeds 1, which would say its count
+     fell short of the model's FLOPs. (c) The roofline
+     against the card on two programs that run here: danube's bf16 prefill
+     of 2 × 4608 (dense, and through the flash kernel with 24 launches) and
+     one bert-large training step as in phase 5 (4 virtual ranks, 8 × 128,
+     ``lumorph4``). The dry-run's global FLOPs on a 1 × 1 mesh equal
+     ``FlopCounterMode``'s count of the same dense program run on the card;
+     the roofline's bound (its three terms printed) does not exceed the
+     measured time by more than 5 % (CUDA events for the prefills, run
+     dense, kernel, dense, kernel; ``step_s`` for the step). (d) The
+     example twins on the card: ``examples/torch_serve_decode.py`` (smoke
+     configs, as the JAX example), ``torch_quickstart.py`` (its collectives
+     exact, its losses finite) and ``torch_train_bert_lumorph.py`` (finite
+     losses, the restart resuming at the step-20 checkpoint).
 
 Phase 2 also holds the RMSNorm kernel against its plain version (fp32
 within 1e-5, bf16 within 2e-2, the limits of tests/test_kernels.py, or one
@@ -156,8 +178,9 @@ Each main path is driven with the launch counters set to 0 just before it
 and read just after: serving (phases 3 and 4), training (phase 5), overlap
 mode (phase 7), deepseek (phase 8), dbrx (phase 9), the dense trio (phase
 10, per model), the SSM models (phase 11, per model) and whisper and
-paligemma (phase 12, per model), and the ``--comm auto`` runs and the KIVI
-decodes (phase 13). Each phase prints its seconds. The last lines are the ``{"kernels": [...]}`` record, the run
+paligemma (phase 12, per model), the ``--comm auto`` runs and the KIVI
+decodes (phase 13), and the roofline's danube prefills and the example
+twins (phase 14). Each phase prints its seconds. The last lines are the ``{"kernels": [...]}`` record, the run
 record, and ``{"ok": true, "device": {...}}``.
 """
 
@@ -247,6 +270,10 @@ AUTO_RUNS = [("auto", ["--comm", "auto", "--wire-dtype", "float32"], "lumorph4")
              ("auto+int8", ["--comm", "auto", "--compress"], "lumorph2+int8")]
 KIVI = dict(batch=4, prompt=64, gen=32)
 KIVI_TOL = PREFILL_TOL["bfloat16"]
+# phase 14: the roofline against the card; no card beats its bound, 5 % for timing
+ROOFLINE_PREFILL = (2, 4608)  # danube, as phase 3
+ROOFLINE_FRAC_MAX = 1.05
+BERT_LUMORPH_CKPT = ROOT / "build" / "chip_smoke_bert_lumorph"  # gitignored; removed
 # H100 SXM published dense peaks (NVIDIA data sheet): fp32 on the CUDA cores,
 # bf16 on the tensor cores; HBM3 bandwidth
 PEAK_FLOPS = {torch.float32: 67e12, torch.bfloat16: 989e12}
@@ -1404,6 +1431,148 @@ def phase_kivi(get_config, tf, steps_lib, attn) -> dict:
     return out
 
 
+def phase_dryrun(dryrun, roofline) -> dict:
+    """Phase 14(a) and (b): every dry-run cell on both meshes, then the
+    roofline over the records."""
+    cells = dryrun.all_cells()
+    shutil.rmtree(dryrun.OUT_DIR, ignore_errors=True)  # this run's records only
+    mem = torch.cuda.get_device_properties(0).total_memory
+    out = {"cells": len(cells), "card_memory_bytes": mem, "meshes": {}}
+    for mesh in ("single", "multi"):
+        t0 = time.perf_counter()
+        recs = [dryrun.run_cell(arch, shape, mesh) for arch, shape in cells]
+        bad = [(r["arch"], r["shape"], r.get("error")) for r in recs if not r["ok"]]
+        assert not bad, bad
+        for r in recs:
+            print(json.dumps({"dryrun": f"{r['arch']}/{r['shape']}/{mesh}",
+                              "flops_per_device": r["cost"]["flops"],
+                              "argument_bytes": r["memory"]["argument_bytes"],
+                              "s": r["total_s"]}), flush=True)
+        over = [f"{r['arch']}/{r['shape']}" for r in recs
+                if r["memory"]["argument_bytes"] > mem]
+        out["meshes"][mesh] = {"cells": len(recs), "s": time.perf_counter() - t0,
+                               "argument_bytes_over_card": over}
+        print(json.dumps({"dryrun_mesh": mesh, **out["meshes"][mesh]}), flush=True)
+        rows = roofline.main(["--mesh", mesh])
+        assert len(rows) == len(cells), (mesh, len(rows))
+        out["meshes"][mesh]["dominant"] = roofline.dominant_counts(rows)
+        out["meshes"][mesh]["frac_over_1"] = roofline.over_bound(rows)
+        print(json.dumps({"roofline_mesh": mesh, "dominant": out["meshes"][mesh]["dominant"],
+                          "max_roofline_frac": max(r["roofline_frac"] for r in rows)}),
+              flush=True)
+        assert not out["meshes"][mesh]["frac_over_1"], out["meshes"][mesh]  # a count too low
+    return out
+
+
+def _count_global(dryrun, arch: str, shape) -> tuple[dict, dict]:
+    """The dry-run's count of one program on a 1 × 1 mesh: global FLOPs and
+    bytes, and its roofline terms."""
+    from repro_torch.launch import roofline
+    from repro_torch.sharding.policy import MeshShape
+    cell = dryrun.build_cell(arch, shape, MeshShape(("data", "model"), (1, 1)))
+    counts = dryrun.count_step(cell["run"], cell["params"],
+                               dryrun.param_scopes(cell["cfg"], cell["params"]))
+    flops, byts = dryrun.split_per_device(counts, cell["cfg"], cell["policy"], cell["shape"])
+    assert flops == counts["global_flops"], (flops, counts["global_flops"])
+    terms = roofline.terms(flops, byts, cell["collectives"]["total_bytes"],
+                           cell["cfg"].compute_dtype)
+    return {"flops": flops, "bytes_accessed": byts}, terms
+
+
+def phase_roofline_card(dryrun, get_config, tf, steps_lib, pipeline, AdamWConfig, train,
+                        ops) -> dict:
+    """Phase 14(c): the roofline's count and bound against two programs run
+    on the card."""
+    from repro_torch.configs.shapes import ShapeSpec
+    from torch.utils.flop_counter import FlopCounterMode
+    dev = torch.device("cuda")
+    out = {}
+    # danube's bf16 prefill, dense and through the kernel
+    b, s = ROOFLINE_PREFILL
+    count, terms = _count_global(dryrun, "h2o-danube-1.8b",
+                                 ShapeSpec("prefill_2x4608", "prefill", s, b))
+    cfg = get_config("h2o-danube-1.8b")
+    gen = torch.Generator(device=dev).manual_seed(0)
+    params = tf.init_params(gen, cfg)
+    batch = {"tokens": torch.randint(0, cfg.vocab_size, (b, s), generator=gen, device=dev)}
+    dense = steps_lib.make_prefill(cfg, dev)
+    kernel = steps_lib.make_prefill(cfg.replace(use_pallas=True), dev)
+    with FlopCounterMode(display=False) as fc:
+        dense(params, batch)
+    card_flops = float(fc.get_total_flops())
+    times = {"dense": [], "kernel": []}
+    launches = []
+    for name in ("dense", "kernel", "dense", "kernel"):
+        n0 = ops.LAUNCHES["flash_attention"]
+        times[name].append(cuda_ms(lambda: (dense if name == "dense" else kernel)(params, batch),
+                                   1) / 1e3)
+        launches.append(ops.LAUNCHES["flash_attention"] - n0)
+    del params, batch
+    torch.cuda.empty_cache()
+    # cuda_ms makes two calls (a warm-up and the timed one): 24 launches per prefill
+    assert launches == [0, 2 * cfg.n_layers, 0, 2 * cfg.n_layers], launches
+    frac = [terms["bound_s"] / t for t in times["dense"]]
+    out["danube_prefill"] = {
+        "tokens": [b, s], **count, "card_flops": card_flops, **terms,
+        "dense_s": times["dense"], "kernel_s": times["kernel"], "roofline_frac": frac,
+        "kernel_frac_of_dense_bound": [terms["bound_s"] / t for t in times["kernel"]],
+        "flash_launches_per_prefill": launches[1] // 2}
+    print(json.dumps({"roofline_card": "danube_prefill", **out["danube_prefill"]}), flush=True)
+    assert card_flops == count["flops"], (card_flops, count["flops"])
+    assert max(frac) <= ROOFLINE_FRAC_MAX, frac
+    # one bert-large training step, phase 5's settings
+    rows, seq, dp = 8, 128, 4
+    count, terms = _count_global(dryrun, "bert-large", ShapeSpec("train_8x128", "train", seq,
+                                                                  rows))
+    cfg = get_config("bert-large")
+    step = steps_lib.make_train_step(cfg, AdamWConfig(), comm="lumorph4", dp=dp,
+                                     wire_dtype=torch.float32, device=dev)
+    params, opt = steps_lib.init_train_state(cfg, dp, 0, dev)
+    _, batch = next(iter(pipeline.stream(cfg, pipeline.DataConfig(seed=0, global_batch=rows,
+                                                                  seq_len=seq))))
+    with FlopCounterMode(display=False) as fc:
+        step(params, opt, batch)
+    card_flops = float(fc.get_total_flops())
+    del params, opt, step
+    torch.cuda.empty_cache()
+    res = train.main(TRAIN + TRAIN_RUNS[1][1])
+    torch.cuda.empty_cache()
+    frac = terms["bound_s"] / res["step_s"]
+    out["bert_step"] = {"rows": rows, "seq": seq, "ranks": dp, "comm": "lumorph4", **count,
+                        "card_flops": card_flops, **terms, "step_s": res["step_s"],
+                        "roofline_frac": frac, "final_loss": res["final_loss"]}
+    print(json.dumps({"roofline_card": "bert_step", **out["bert_step"]}), flush=True)
+    assert card_flops == count["flops"], (card_flops, count["flops"])
+    assert frac <= ROOFLINE_FRAC_MAX, frac
+    return out
+
+
+def phase_examples() -> dict:
+    """Phase 14(d): the three example twins on the card."""
+    out = {"serve_decode": _load_example("torch_serve_decode").main(["--device", "cuda"])}
+    for arch, res in out["serve_decode"].items():
+        assert res["finite"] and res["generated_shape"] == [4, 16], (arch, res)
+    torch.cuda.empty_cache()
+    quick = _load_example("torch_quickstart").main(["--device", "cuda"])
+    assert all(quick["exact"].values()), quick["exact"]
+    assert quick["train"]["steps"] == 10 and math.isfinite(quick["train"]["final_loss"])
+    out["quickstart"] = quick
+    torch.cuda.empty_cache()
+    shutil.rmtree(BERT_LUMORPH_CKPT, ignore_errors=True)
+    bert = _load_example("torch_train_bert_lumorph").main(
+        ["--device", "cuda", "--ckpt-dir", str(BERT_LUMORPH_CKPT)])
+    shutil.rmtree(BERT_LUMORPH_CKPT, ignore_errors=True)
+    for phase in ("phase1", "phase3"):
+        assert all(math.isfinite(bert[phase][k]) for k in ("first_loss", "final_loss")), bert
+    assert bert["phase1"]["steps"] == 20 and bert["phase3"]["steps"] == 10, bert  # resumed at 20
+    out["train_bert_lumorph"] = bert
+    print(json.dumps({"examples": {"serve_decode": out["serve_decode"],
+                                   "quickstart": {k: v for k, v in quick.items()},
+                                   "train_bert_lumorph": bert}}, default=str), flush=True)
+    torch.cuda.empty_cache()
+    return out
+
+
 def _leaves(tree):
     if isinstance(tree, dict):
         for v in tree.values():
@@ -1432,7 +1601,7 @@ def main() -> None:
     from repro_torch.core import collectives, cost_model
     from repro_torch.kernels import build, ops, ref
     from repro_torch.data import pipeline
-    from repro_torch.launch import serve, train
+    from repro_torch.launch import dryrun, roofline, serve, train
     from repro_torch.launch import steps as steps_lib
     from repro_torch.launch.mesh import make_production_mesh
     from repro_torch.optim import grad_comm
@@ -1668,6 +1837,23 @@ def main() -> None:
     torch.cuda.empty_cache()
     done("13_auto_policy_kivi", t_phase)
 
+    # -- phase 14: the dry-run, the roofline against the card, the example twins --
+    t_phase = time.perf_counter()
+    dry = phase_dryrun(dryrun, roofline)
+    reset_launches()
+    roof = phase_roofline_card(dryrun, get_config, tf, steps_lib, pipeline, AdamWConfig, train,
+                               ops)
+    torch.cuda.synchronize()
+    roofline_launches = dict(ops.LAUNCHES)
+    reset_launches()
+    examples = phase_examples()
+    torch.cuda.synchronize()
+    examples_launches = dict(ops.LAUNCHES)
+    print(json.dumps({"launches": {"roofline": roofline_launches,
+                                   "examples": examples_launches}}), flush=True)
+    assert roofline_launches["flash_attention"] > 0, roofline_launches
+    done("14_dryrun_roofline_examples", t_phase)
+
     bf, f32 = kern["timed"]["danube"][torch.bfloat16], kern["timed"]["danube"][torch.float32]
     for dt, t in ((torch.bfloat16, bf), (torch.float32, f32)):  # the entries danube's D runs
         t["entry"] = FLASH_ENTRY[dt]
@@ -1710,7 +1896,8 @@ def main() -> None:
                              **{a: dense_launches[a]["flash_attention"] for a in DENSE_TRIO},
                              **{a: ssm_launches[a]["flash_attention"] for a in SSM_ARCHS},
                              "whisper-tiny": whisper["launches"]["flash_attention"],
-                             "paligemma-3b": paligemma["launches"]["flash_attention"]},
+                             "paligemma-3b": paligemma["launches"]["flash_attention"],
+                             "roofline_danube": roofline_launches["flash_attention"]},
     }]
     for name, body in (("quantize_int8", 18), ("dequantize_int8", 27)):
         t = int8["timed"][name]
@@ -1739,7 +1926,9 @@ def main() -> None:
     print(json.dumps({"prefill": prefill, "train": runs, "trace": trace, "overlap": overlap,
                       "deepseek": deepseek, "dbrx": dbrx, "dense": dense, "ssm": ssm_runs,
                       "whisper": whisper, "paligemma": paligemma, "auto": auto,
-                      "policies": policies, "kivi": kivi, "phase_s": phase_s,
+                      "policies": policies, "kivi": kivi, "dryrun": dry, "roofline": roof,
+                      "examples": {k: v for k, v in examples.items() if k != "serve_decode"},
+                      "phase_s": phase_s,
                       "card": smi, "total_s": time.perf_counter() - t_start}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

@@ -14,6 +14,7 @@ from __future__ import annotations
 import argparse
 import json
 import time
+from typing import NamedTuple
 
 import torch
 
@@ -44,6 +45,36 @@ def prefill_with_caches(params, batch, cfg, max_len: int, device: torch.device):
     return logits, caches
 
 
+class Generated(NamedTuple):
+    tokens: torch.Tensor  # [B, gen]
+    logits: torch.Tensor  # the last step's logits
+    prefill_s: float
+    decode_s: float
+
+
+def generate(params, prompt: torch.Tensor, cfg, gen: int, dev: torch.device) -> Generated:
+    """Greedy serving of ``prompt`` [B, S]: the prompt replayed through the
+    decode step fills the caches (the prefill, timed), then each argmax
+    token is fed back for ``gen`` − 1 more steps (the decode, timed)."""
+    s = prompt.shape[1]
+    _sync(dev)
+    t0 = time.perf_counter()
+    logits, caches = prefill_with_caches(params, {"tokens": prompt.to(dev)}, cfg, s + gen, dev)
+    _sync(dev)
+    t_prefill = time.perf_counter() - t0
+
+    decode = steps_lib.make_decode_step(cfg, dev)
+    cur = torch.argmax(logits[:, -1:], dim=-1)
+    generated = [cur]
+    t0 = time.perf_counter()
+    for i in range(gen - 1):
+        logits, caches = decode(params, caches, cur, s + i)
+        cur = torch.argmax(logits[:, -1:], dim=-1)
+        generated.append(cur)
+    _sync(dev)
+    return Generated(torch.cat(generated, dim=1), logits, t_prefill, time.perf_counter() - t0)
+
+
 def main(argv=None) -> dict:
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", required=True)
@@ -65,27 +96,10 @@ def main(argv=None) -> dict:
     make_policy(cfg, MeshShape(("data", "model"), (1, 1)))  # the arch has a serving policy
     gen = torch.Generator(device=dev).manual_seed(args.seed)
     params = tf.init_params(gen, cfg)
-    max_len = args.prompt_len + args.gen
     tokens = torch.randint(0, cfg.vocab_size, (args.batch, args.prompt_len),
                            generator=gen, device=dev)
 
-    _sync(dev)
-    t0 = time.perf_counter()
-    logits, caches = prefill_with_caches(params, {"tokens": tokens}, cfg, max_len, dev)
-    _sync(dev)
-    t_prefill = time.perf_counter() - t0
-
-    decode = steps_lib.make_decode_step(cfg, dev)
-    cur = torch.argmax(logits[:, -1:], dim=-1)
-    generated = [cur]
-    t0 = time.perf_counter()
-    for i in range(args.gen - 1):
-        logits, caches = decode(params, caches, cur, args.prompt_len + i)
-        cur = torch.argmax(logits[:, -1:], dim=-1)
-        generated.append(cur)
-    _sync(dev)
-    t_decode = time.perf_counter() - t0
-    out = torch.cat(generated, dim=1)
+    out, logits, t_prefill, t_decode = generate(params, tokens, cfg, args.gen, dev)
     n_steps = max(1, args.gen - 1)
     result = {
         "batch": args.batch,

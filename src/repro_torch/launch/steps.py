@@ -49,6 +49,63 @@ from repro_torch.tree import leaves, tree_map, unflatten
 
 Tree = Any
 COMMS = ("xla", "ring", "lumorph2", "lumorph4", "tree", "auto")
+META = torch.device("meta")
+
+
+# ---------------------------------------------------------------------------
+# shape helpers (meta tensors: shapes and dtypes, nothing allocated)
+# ---------------------------------------------------------------------------
+
+def batch_shapes(cfg: ModelConfig, seq_len: int, global_batch: int) -> dict:
+    """A batch's leaves on the meta device, with JAX ``batch_shapes``'s
+    shapes and dtypes: int32 tokens, plus fp32 ``image_embeds`` (vlm) or
+    ``frames`` (encdec)."""
+    out = {"tokens": torch.empty((global_batch, seq_len), dtype=torch.int32, device=META)}
+    if cfg.kind == "vlm":
+        out["image_embeds"] = torch.empty((global_batch, cfg.num_image_tokens, cfg.d_model),
+                                          dtype=torch.float32, device=META)
+    if cfg.kind == "encdec":
+        out["frames"] = torch.empty((global_batch, cfg.enc_seq_len, cfg.d_model),
+                                    dtype=torch.float32, device=META)
+    return out
+
+
+def input_specs(cfg: ModelConfig, policy, seq_len: int, global_batch: int) -> tuple[dict, dict]:
+    """(the batch's meta leaves, their specs under ``policy``)."""
+    shapes = batch_shapes(cfg, seq_len, global_batch)
+    return shapes, policy.batch_specs(shapes)
+
+
+def entry_axes(entry) -> tuple[str, ...]:
+    """The mesh axes one entry of a spec names: none, one, or a tuple."""
+    if entry is None:
+        return ()
+    return (entry,) if isinstance(entry, str) else tuple(entry)
+
+
+def shard_shape(shape: tuple[int, ...], spec: tuple, mesh) -> tuple[int, ...]:
+    """One device's shard of a leaf of ``shape`` under ``spec`` on ``mesh``
+    (a ``MeshShape``): each dim divided by the sizes of the axes its entry
+    names, rounded up as XLA pads an uneven shard."""
+    out = []
+    for i, n in enumerate(shape):
+        ways = 1
+        for a in entry_axes(spec[i] if i < len(spec) else None):
+            ways *= mesh.shape[a]
+        out.append(-(-n // ways))
+    return tuple(out)
+
+
+def sharded_struct(tree: Tree, spec_tree: Tree, mesh) -> Tree:
+    """The per-device shards of ``tree`` under ``spec_tree``: meta tensors of
+    each leaf's shard shape and dtype, the role of JAX ``sharded_struct``'s
+    sharded ``ShapeDtypeStruct`` s. Their bytes are a device's share."""
+    if isinstance(tree, dict):
+        return {k: sharded_struct(v, spec_tree[k], mesh) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(sharded_struct(v, s, mesh) for v, s in zip(tree, spec_tree))
+    return torch.empty(shard_shape(tuple(tree.shape), spec_tree, mesh), dtype=tree.dtype,
+                       device=META)
 
 
 # ---------------------------------------------------------------------------

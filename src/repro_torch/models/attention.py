@@ -27,6 +27,7 @@ import torch
 
 from repro_torch.kernels import ops as kops
 from repro_torch.kernels.ref import RECIP_127
+from repro_torch.models import loop_fold
 from repro_torch.models.layers import apply_rope, dense_init
 
 Tensor = torch.Tensor
@@ -109,7 +110,8 @@ def chunked_attention(q: Tensor, k: Tensor, v: Tensor, q_pos: Tensor, kv_pos: Te
     acc = torch.zeros((b, kvh, n_rep, sq, dv), dtype=torch.float32, device=q.device)
     m = torch.full((b, kvh, n_rep, sq), NEG_INF, dtype=torch.float32, device=q.device)
     l = torch.zeros((b, kvh, n_rep, sq), dtype=torch.float32, device=q.device)
-    for c0 in range(0, skv, chunk):
+
+    def step(c0, acc, m, l):
         kb = k[:, c0:c0 + chunk].float()
         vb = v[:, c0:c0 + chunk].float()
         s = torch.einsum("bqhrd,bkhd->bhrqk", qf, kb) * scale
@@ -120,7 +122,18 @@ def chunked_attention(q: Tensor, k: Tensor, v: Tensor, q_pos: Tensor, kv_pos: Te
         p = torch.exp(s - m_new[..., None])
         l = l * corr + p.sum(dim=-1)
         acc = acc * corr[..., None] + torch.einsum("bhrqk,bkhd->bhrqd", p, vb)
-        m = m_new
+        return acc, m_new, l
+
+    starts = list(range(0, skv, chunk))
+    full = skv // chunk
+    repeated = loop_fold.FOLD.get()  # a counter's fold of the loop
+    if repeated is not None and full >= 3 and not torch.is_grad_enabled():
+        acc, m, l = step(0, acc, m, l)
+        with repeated(full - 1, [], lambda: []):
+            acc, m, l = step(chunk, acc, m, l)
+        starts = starts[full:]  # the ragged tail, if any
+    for c0 in starts:
+        acc, m, l = step(c0, acc, m, l)
     out = acc / torch.clamp(l[..., None], min=1e-30)
     # [B,KV,R,Sq,Dv] → [B,Sq,H,Dv]
     return out.permute(0, 3, 1, 2, 4).reshape(b, sq, h, dv).to(q.dtype)

@@ -26,6 +26,7 @@ import math
 import torch
 import torch.nn.functional as F
 
+from repro_torch.models import loop_fold
 from repro_torch.models.layers import dense_init, rmsnorm
 
 Tensor = torch.Tensor
@@ -135,9 +136,18 @@ def mamba2_forward(p: dict, x: Tensor, d_state: int, headdim: int = 64,
     # the scan over chunks keeps the state *entering* each chunk, for y_inter
     h = torch.zeros((b, nheads, headdim, d_state), dtype=torch.float32, device=x.device)
     h_in = []
-    for c in range(nc):
+    repeated = loop_fold.FOLD.get()  # a counter's fold of the loop
+    if repeated is not None and nc >= 3 and not torch.is_grad_enabled():
         h_in.append(h)
-        h = h * chunk_decay[:, c, :, None, None] + S_c[:, c]
+        h = h * chunk_decay[:, 0, :, None, None] + S_c[:, 0]
+        h_in.append(h)
+        with repeated(nc - 1, [], lambda: []):  # chunk 1 stands for chunks 1 … nc − 1
+            h = h * chunk_decay[:, 1, :, None, None] + S_c[:, 1]
+        h_in += [h] * (nc - 2)
+    else:
+        for c in range(nc):
+            h_in.append(h)
+            h = h * chunk_decay[:, c, :, None, None] + S_c[:, c]
     h_in = torch.stack(h_in, dim=1)  # [B,nc,H,P,N]
     y_inter = torch.einsum("bcth,bctn,bchpn->bcthp", torch.exp(cum), C, h_in)
     y = (y_intra + y_inter).reshape(b, sp, nheads, headdim)[:, :s]
@@ -359,6 +369,14 @@ def slstm_forward(p: dict, x: Tensor, n_heads: int) -> Tensor:
     xp = x @ p["w_x"].to(dt_in)  # [B,S,4d] (batched input projection)
     cell_p = {**p, "w_h": p["w_h"].float()}  # cast once, not once per step
     st = init_slstm_state(b, d, n_heads, device=x.device)
+    repeated = loop_fold.FOLD.get()  # a counter's fold of the loop
+    if repeated is not None and s >= 3:
+        st = _slstm_cell(cell_p, xp[:, 0], st, n_heads)
+        h0, xt = st["h"], xp[:, 1]
+        with repeated(s - 1, [xt, *cell_p.values(), *st.values()], lambda: [st["h"]]):
+            st = _slstm_cell(cell_p, xt, st, n_heads)
+        h = torch.cat([h0[:, None], st["h"][:, None].expand(b, s - 1, d)], dim=1)
+        return _slstm_out(p, h.to(dt_in), d)
     hs = []
     for t in range(s):
         st = _slstm_cell(cell_p, xp[:, t], st, n_heads)

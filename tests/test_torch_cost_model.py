@@ -119,13 +119,20 @@ def test_schedule_and_chunked_schedule_pricing(algo, p):
 
 
 def test_fabric_pricing_and_validation_are_refused():
-    """The port prices on the ideal fabric only: the rack and pod models are
-    the JAX package's simulator's."""
+    """Pricing and validation take a rack or a pod (the port's copies of the
+    JAX package's models) and refuse anything else; on a rack the price is
+    JAX's."""
+    from repro.core.fabric import LumorphRack as JRack
+    from repro_torch.core.fabric import LumorphRack as TRack
     sched = tsch.build_schedule("ring", range(4), 1e6)
-    with pytest.raises(NotImplementedError, match="rack=None"):
+    with pytest.raises(TypeError, match="LumorphRack or a Pod"):
         sched.cost(tcm.LUMORPH_LINK, rack=object())
-    with pytest.raises(NotImplementedError, match="rack=None"):
+    with pytest.raises(TypeError, match="LumorphRack or a Pod"):
         tsch.chunk_schedule(sched, 2).validate(object())
+    jsched = jsch.build_schedule("ring", range(4), 1e6)
+    assert sched.cost(tcm.LUMORPH_LINK, rack=TRack(n_servers=1)) == \
+        jsched.cost(jcm.LUMORPH_LINK, rack=JRack(n_servers=1))
+    tsch.chunk_schedule(sched, 2).validate(TRack(n_servers=1))
 
 
 def test_auto_picks_lumorph4_for_bert_large_buckets_at_four_ranks():
