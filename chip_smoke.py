@@ -159,6 +159,22 @@ JAX or of the JAX package. No phase's failure is caught.
      configs, as the JAX example), ``torch_quickstart.py`` (its collectives
      exact, its losses finite) and ``torch_train_bert_lumorph.py`` (finite
      losses, the restart resuming at the step-20 checkpoint).
+ 15. The cross-process path: one world of 4 rank processes on this card
+     (``python3 chip_smoke.py --dist-rank DIR`` each, under torchrun's
+     environment), once for the phase and under a timeout; any rank's
+     failure fails it. Its backend is gloo, so every payload is staged
+     card → host → gloo → host → card: NCCL puts no two ranks on one GPU.
+     (a) bert-large as phase 5 (``TRAIN``) through ``launch.train.main``
+     with ``lumorph4 --wire-dtype float32``, ``lumorph2 --compress`` and
+     ``xla``: each final loss within 1e-6 relative of phase 5's run with
+     the same flags (bit-equality printed), the int8 kernels launched in
+     every rank's process under ``--compress``; ``step_s``, the gradient
+     communication's seconds per step and peak memory per rank, labelled
+     host-staged. (b) the overlapped all-reduce at 25 MB fp32 per rank,
+     lumorph2, C ∈ {1, 4}, with the RMSNorm kernel as each chunk's
+     consumer: bit-equal to the virtual ranks' ``overlapped_all_reduce`` of
+     the same inputs on the card, within 1e-5 of RMSNorm(psum), the kernel
+     launched in every rank.
 
 Phase 2 also holds the RMSNorm kernel against its plain version (fp32
 within 1e-5, bf16 within 2e-2, the limits of tests/test_kernels.py, or one
@@ -179,20 +195,25 @@ and read just after: serving (phases 3 and 4), training (phase 5), overlap
 mode (phase 7), deepseek (phase 8), dbrx (phase 9), the dense trio (phase
 10, per model), the SSM models (phase 11, per model) and whisper and
 paligemma (phase 12, per model), the ``--comm auto`` runs and the KIVI
-decodes (phase 13), and the roofline's danube prefills and the example
-twins (phase 14). Each phase prints its seconds. The last lines are the ``{"kernels": [...]}`` record, the run
+decodes (phase 13), the roofline's danube prefills and the example
+twins (phase 14), and each run of phase 15 in each rank's process. Each
+phase prints its seconds. The last lines are the ``{"kernels": [...]}`` record, the run
 record, and ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
 
+import contextlib
 import functools
 import importlib.util
 import json
 import math
+import os
 import pathlib
 import re
 import shutil
+import socket
+import statistics
 import subprocess
 import sys
 import time
@@ -298,6 +319,16 @@ TRAIN_RUNS = [("xla", ["--comm", "xla", "--wire-dtype", "float32"]),
                                  "--overlap", "4", "--ckpt-every", "3"]),
               ("lumorph2+int8+ovl4", ["--comm", "lumorph2", "--compress", "--overlap", "4"])]
 CKPT_DIR = ROOT / "build" / "chip_smoke_ckpt"  # gitignored; removed after phase 5
+# phase 15: the cross-process path, 4 ranks in their own processes on this card over
+# gloo; its runs held to phase 5's runs of the same flags
+DIST_WORLD, DIST_TIMEOUT_S, DIST_LOSS_RTOL = 4, 480, 1e-6
+DIST_TRAIN_RUNS = [("lumorph4", ["--comm", "lumorph4", "--wire-dtype", "float32"]),
+                   ("lumorph2+int8", ["--comm", "lumorph2", "--compress"]),
+                   ("xla", ["--comm", "xla", "--wire-dtype", "float32"])]
+DIST_OVL_CHUNKS = (1, 4)
+DIST_DIR = ROOT / "build" / "chip_smoke_dist"  # gitignored; the ranks' results
+HOST_STAGED = ("gloo, host-staged: each payload goes card -> host -> gloo -> host -> card, "
+               "because NCCL puts no two ranks on one GPU; not the paper's link, not NVLink")
 # overlap mode (phase 7): the JAX package's overlap benchmark (OVERLAP_SCRIPT and
 # CLAIM_BYTES of benchmarks/bench_collective_exec.py) on 8 virtual ranks
 OVL_P, OVL_D, OVL_CHUNKS = 8, 128, (2, 4, 8)
@@ -703,6 +734,156 @@ def phase_train(train) -> dict:
     assert runs["int8_ovl4_vs_int8_rel"] <= 1e-3, runs
     assert runs["restart_final_loss_equal"], runs
     return runs
+
+
+def phase_dist(runs) -> dict:
+    """Phase 15: one 4-rank gloo world on this card, each rank its own process
+    (``python3 chip_smoke.py --dist-rank DIR`` under torchrun's environment),
+    under a timeout; any rank's failure fails the phase. (a) bert-large as
+    phase 5 with each of ``DIST_TRAIN_RUNS``; (b) the overlapped all-reduce
+    with the RMSNorm kernel as the consumer, against the virtual ranks."""
+    print(json.dumps({"cross_process_wire": HOST_STAGED}), flush=True)
+    shutil.rmtree(DIST_DIR, ignore_errors=True)
+    DIST_DIR.mkdir(parents=True)
+    with socket.socket() as sock:  # a free port on this machine for the rendezvous
+        sock.bind(("localhost", 0))
+        port = sock.getsockname()[1]
+    env = {**os.environ, "MASTER_ADDR": "localhost", "MASTER_PORT": str(port),
+           "WORLD_SIZE": str(DIST_WORLD), "LOCAL_WORLD_SIZE": str(DIST_WORLD),
+           "OMP_NUM_THREADS": "1"}
+    procs = [subprocess.Popen([sys.executable, str(ROOT / "chip_smoke.py"), "--dist-rank",
+                               str(DIST_DIR)], env={**env, "RANK": str(r), "LOCAL_RANK": str(r)})
+             for r in range(DIST_WORLD)]
+    deadline = time.monotonic() + DIST_TIMEOUT_S
+    try:  # until all exit, one fails (its peers would wait on it) or time runs out
+        while time.monotonic() < deadline:
+            codes = [p.poll() for p in procs]
+            if all(c == 0 for c in codes) or any(c not in (None, 0) for c in codes):
+                break
+            time.sleep(0.5)
+    finally:
+        for p in procs:  # every rank stops here
+            if p.poll() is None:
+                p.kill()
+            p.wait()
+    codes = [p.returncode for p in procs]
+    assert codes == [0] * DIST_WORLD, f"phase 15's ranks exited with {codes}"
+    ranks = [json.loads((DIST_DIR / f"rank{r}.json").read_text()) for r in range(DIST_WORLD)]
+    shutil.rmtree(DIST_DIR)
+    out = {"wire": HOST_STAGED, "train": {}, "overlap": {}}
+    for name, _ in DIST_TRAIN_RUNS:
+        per = [rk["train"][name] for rk in ranks]
+        ref = runs[name]["final_loss"]
+        res = {**{k: per[0][k] for k in ("final_loss", "first_loss", "steps", "world",
+                                           "dist_backend")},
+               "phase5_final_loss": ref, "rel_to_phase5": abs(per[0]["final_loss"] - ref) /
+               abs(ref), "bit_equal_to_phase5": per[0]["final_loss"] == ref,
+               "step_s_gloo_host_staged": [x["step_s"] for x in per],
+               "grad_comm_s_gloo_host_staged": [x["grad_comm_s"] for x in per],
+               "peak_gb_per_rank": [x["peak_gb"] for x in per],
+               "launches_per_rank": [x["launches"] for x in per],
+               "phase5_step_s_virtual": runs[name]["step_s"]}
+        out["train"][name] = res
+        print(json.dumps({"cross_process_train": name, **res}), flush=True)
+        assert all(x["final_loss"] == per[0]["final_loss"] for x in per), name
+        assert res["steps"] == 6 and res["world"] == DIST_WORLD, res
+        assert res["dist_backend"] == "gloo", res
+        assert res["rel_to_phase5"] <= DIST_LOSS_RTOL, res
+        if "--compress" in dict(DIST_TRAIN_RUNS)[name]:
+            for x in per:  # the int8 kernels ran in every rank's process
+                assert x["launches"]["quantize_int8"] > 0, x
+                assert x["launches"]["dequantize_int8"] > 0, x
+    for C in DIST_OVL_CHUNKS:
+        per = [rk["overlap"][str(C)] for rk in ranks]
+        res = {"chunks": C, "bytes_per_rank": 4 * BUCKET_N,
+               "bit_equal_to_virtual": [x["bit_equal_to_virtual"] for x in per],
+               "rel_err": max(x["rel_err"] for x in per),
+               "rmsnorm_launches_per_rank": [x["rmsnorm_launches"] for x in per],
+               "ms_gloo_host_staged": [x["ms"] for x in per]}
+        out["overlap"][str(C)] = res
+        print(json.dumps({"cross_process_overlap": res}), flush=True)
+        assert all(res["bit_equal_to_virtual"]), res
+        assert res["rel_err"] <= 1e-5, res
+        assert all(n > 0 for n in res["rmsnorm_launches_per_rank"]), res
+    return out
+
+
+def dist_rank(out_dir: str) -> None:
+    """One rank of phase 15's world: its runs, written to ``out_dir/rank<r>.json``."""
+    sys.path.insert(0, str(ROOT / "src"))
+    import torch.distributed as dist
+    from repro_torch.core import collectives, collectives_dist
+    from repro_torch.kernels import ops, ref
+    from repro_torch.launch import steps as steps_lib
+    from repro_torch.launch import train
+    from repro_torch.launch.mesh import init_process_mesh
+
+    torch.backends.cuda.matmul.allow_tf32 = False  # as phase 5's runs
+    torch.backends.cudnn.allow_tf32 = False
+    mesh = init_process_mesh("cuda", "gloo")
+    out = {"rank": mesh.rank, "train": {}, "overlap": {}}
+    comm_s: list[float] = []
+    span = steps_lib.record_function
+
+    @contextlib.contextmanager
+    def timed_span(label):
+        """The step's spans as they are; ``train/grad_comm``, the step's
+        gradient communication, also timed once per step, alike for every comm."""
+        with span(label):
+            if label != "train/grad_comm":
+                yield
+                return
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            yield
+            torch.cuda.synchronize()
+            comm_s.append(time.perf_counter() - t0)
+
+    steps_lib.record_function = timed_span
+    try:
+        for name, flags in DIST_TRAIN_RUNS:  # (a)
+            comm_s.clear()
+            for k in ops.LAUNCHES:
+                ops.LAUNCHES[k] = 0
+            torch.cuda.reset_peak_memory_stats()
+            res = train.main(TRAIN + flags + ["--dist-backend", "gloo"])
+            torch.cuda.synchronize()
+            out["train"][name] = {**res, "launches": dict(ops.LAUNCHES),
+                                  "grad_comm_s": sum(comm_s) / res["steps"],
+                                  "peak_gb": torch.cuda.max_memory_allocated() / 1e9}
+            torch.cuda.empty_cache()
+    finally:
+        steps_lib.record_function = span
+    # (b): every rank makes the same x [4, n] and reduces its own row
+    x = torch.randn(DIST_WORLD, BUCKET_N, generator=torch.Generator(
+        device=mesh.device).manual_seed(4), device=mesh.device)
+    w = torch.zeros(OVL_D, device=mesh.device)
+
+    def compute(y):
+        return ops.fused_rmsnorm(y.reshape(-1, OVL_D), w).reshape(y.shape)
+    expect = ref.reference_rmsnorm(x.sum(0).reshape(-1, OVL_D), w).reshape(-1)
+    for C in DIST_OVL_CHUNKS:
+        fn = collectives_dist.make_overlapped_all_reduce("lumorph2", C, compute, group=mesh.group)
+        ops.LAUNCHES["rmsnorm"] = 0
+        y = fn(x[mesh.rank])
+        torch.cuda.synchronize()
+        launches = ops.LAUNCHES["rmsnorm"]
+        virtual = collectives.overlapped_all_reduce(x, "lumorph2", C, compute)[mesh.rank]
+        reps = []
+        for _ in range(3):
+            dist.barrier()
+            t0 = time.perf_counter()
+            fn(x[mesh.rank])
+            torch.cuda.synchronize()
+            reps.append((time.perf_counter() - t0) * 1e3)
+        out["overlap"][str(C)] = {
+            "bit_equal_to_virtual": bool(torch.equal(y, virtual)), "rmsnorm_launches": launches,
+            "rel_err": float((y - expect).abs().max() / expect.abs().max()),
+            "ms": statistics.median(reps)}
+        del y, virtual
+    dist.barrier()
+    dist.destroy_process_group()
+    pathlib.Path(out_dir, f"rank{mesh.rank}.json").write_text(json.dumps(out))
 
 
 def phase_trace(get_config, steps_lib, pipeline, AdamWConfig) -> dict:
@@ -1854,6 +2035,12 @@ def main() -> None:
     assert roofline_launches["flash_attention"] > 0, roofline_launches
     done("14_dryrun_roofline_examples", t_phase)
 
+    # -- phase 15: the cross-process path, 4 ranks over gloo on this card -------
+    t_phase = time.perf_counter()
+    torch.cuda.empty_cache()  # the ranks hold ~10 GB each
+    dist_runs = phase_dist(runs)
+    done("15_cross_process", t_phase)
+
     bf, f32 = kern["timed"]["danube"][torch.bfloat16], kern["timed"]["danube"][torch.float32]
     for dt, t in ((torch.bfloat16, bf), (torch.float32, f32)):  # the entries danube's D runs
         t["entry"] = FLASH_ENTRY[dt]
@@ -1906,7 +2093,10 @@ def main() -> None:
             "source": "src/repro_torch/kernels/csrc/grad_compress.cu",
             "replaces": f"src/repro/kernels/grad_compress.py:{body}",
             "launches": training[name],
-            "launches_by_path": {"training": training[name], "auto": auto_launches[name]},
+            "launches_by_path": {"training": training[name], "auto": auto_launches[name],
+                                 "cross_process_per_rank": [
+                                     x[name] for x in dist_runs["train"]["lumorph2+int8"][
+                                         "launches_per_rank"]]},
             "max_abs_err": max(c["max_abs_err"] for c in int8["checks"]),
             "ms": t[BUCKET_N]["ms"], "plain_ms": t[BUCKET_N]["plain_ms"],
             "bound_ms": t[BUCKET_N]["bound_ms"], "bound_by": "bytes", "library_ms": None,
@@ -1921,6 +2111,8 @@ def main() -> None:
         "max_abs_err": t["max_abs_err"], "ms": t["ms"], "plain_ms": t["plain_ms"],
         "bound_ms": t["bound_ms"], "bound_by": "bytes", "library_ms": t["library_ms"],
         "shape": t["shape"], "dtype": t["dtype"], "danube_rows": rms["timed"]["danube_rows"],
+        "launches_by_path": {"overlap": overlapping["rmsnorm"], "cross_process_per_rank": {
+            C: r["rmsnorm_launches_per_rank"] for C, r in dist_runs["overlap"].items()}},
     })
     print(json.dumps({"kernels": records}), flush=True)
     print(json.dumps({"prefill": prefill, "train": runs, "trace": trace, "overlap": overlap,
@@ -1928,6 +2120,7 @@ def main() -> None:
                       "whisper": whisper, "paligemma": paligemma, "auto": auto,
                       "policies": policies, "kivi": kivi, "dryrun": dry, "roofline": roof,
                       "examples": {k: v for k, v in examples.items() if k != "serve_decode"},
+                      "cross_process": dist_runs,
                       "phase_s": phase_s,
                       "card": smi, "total_s": time.perf_counter() - t_start}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
@@ -1936,4 +2129,7 @@ def main() -> None:
 
 
 if __name__ == "__main__":
-    main()
+    if sys.argv[1:2] == ["--dist-rank"]:
+        dist_rank(sys.argv[2])
+    else:
+        main()

@@ -212,6 +212,21 @@ def overlapped_all_reduce(x: Tensor, algo: str = "lumorph2", n_chunks: int = 1,
     :class:`ChunkedSchedule` with ``p`` participants).
     """
     p = x.shape[0]
+    chunked = _chunked_schedule(algo, p, n_chunks, schedule)
+    C = chunked.n_chunks
+    flat, n = _flatten_pad(x, C)
+    size = flat.shape[1] // C
+    slices = [flat[:, c * size:(c + 1) * size] for c in range(C)]
+    programs = [_wave_program(w.schedule, p, encode, decode) for w in chunked.waves]
+    out = _pipeline(chunked, slices, programs, compute)
+    out = torch.cat(out, dim=1) if C > 1 else out[0]
+    return out[:, :n].reshape(x.shape)
+
+
+def _chunked_schedule(algo: str, p: int, n_chunks: int,
+                      schedule: "Optional[Schedule | ChunkedSchedule]") -> ChunkedSchedule:
+    """The chunked program of an overlapped call over ``p`` ranks: ``algo``'s
+    under :func:`all_reduce`'s dispatch rule, or ``schedule`` chunked."""
     if schedule is None:
         a = "ring" if algo == "lumorph2" and p & (p - 1) else algo  # all_reduce's rule
         chunked = schedule_for_execution(a, p, n_chunks)
@@ -220,18 +235,22 @@ def overlapped_all_reduce(x: Tensor, algo: str = "lumorph2", n_chunks: int = 1,
     else:
         chunked = (schedule if isinstance(schedule, ChunkedSchedule)
                    else chunk_schedule(schedule, n_chunks))
-    C = chunked.n_chunks
     if len(chunked.participants) != p:
-        raise ValueError(f"schedule has {len(chunked.participants)} participants but x "
-                         f"has {p} ranks on its leading axis")
+        raise ValueError(f"schedule has {len(chunked.participants)} participants but the "
+                         f"collective runs over {p} ranks")
+    return chunked
 
-    flat, n = _flatten_pad(x, C)
-    size = flat.shape[1] // C
-    slices = [flat[:, c * size:(c + 1) * size] for c in range(C)]
+
+def _pipeline(chunked: ChunkedSchedule, slices: list[Tensor],
+              programs: list[Callable[[Tensor], Tensor]],
+              compute: Optional[Callable[[Tensor], Tensor]]) -> list[Tensor]:
+    """Each chunk's waves (``programs[i]`` runs ``chunked.waves[i]``), with
+    chunk ``c−1``'s ``compute`` issued behind chunk ``c``'s waves, in the
+    JAX package's order. Returns the chunks' outputs."""
+    C = chunked.n_chunks
     per_chunk: list[list[Callable[[Tensor], Tensor]]] = [[] for _ in range(C)]
-    for w in chunked.waves:
-        per_chunk[w.chunk].append(_wave_program(w.schedule, p, encode, decode))
-
+    for w, f in zip(chunked.waves, programs):
+        per_chunk[w.chunk].append(f)
     reduced: list[Optional[Tensor]] = [None] * C
     outs: list[Optional[Tensor]] = [None] * C
 
@@ -246,8 +265,7 @@ def overlapped_all_reduce(x: Tensor, algo: str = "lumorph2", n_chunks: int = 1,
         if c > 0:
             finish(c - 1)  # chunk c−1's compute is issued behind chunk c's waves
     finish(C - 1)
-    out = torch.cat(outs, dim=1) if C > 1 else outs[0]
-    return out[:, :n].reshape(x.shape)
+    return outs
 
 
 def make_overlapped_all_reduce(p: int, algo: str = "lumorph2", n_chunks: int = 1,

@@ -1,4 +1,5 @@
-"""Meshes: the virtual data-parallel mesh and the production mesh shapes.
+"""Meshes: the virtual and the process data-parallel meshes, and the
+production mesh shapes.
 
 ``VirtualMesh`` is the twin of ``repro.launch.mesh.make_host_mesh(data,
 model)`` for the port's virtual-rank executor: ``data`` ranks held as the
@@ -6,19 +7,32 @@ leading axis of every parameter, optimizer and gradient tensor on one
 device, with a model axis of 1. Its ``shape`` is what the sharding policy
 reads.
 
+``ProcessMesh`` is the same mesh over processes: ``make_host_mesh(data=
+world, model=1)`` with every rank its own process holding its own
+buffers, as each JAX device does under ``shard_map``, for the
+cross-process executor (:mod:`repro_torch.core.collectives_dist`). Its
+backend is the caller's choice and is never switched: ``nccl`` moves
+device tensors as they are and puts no two ranks on one GPU; ``gloo``
+stages every CUDA payload through host memory, so on one card its times
+are those of a host-staged wire, not of a link.
+
 The production meshes are shapes only (``sharding.policy.MeshShape``):
 single pod, 256 chips as (data=16, model=16); multi-pod, 2 × 256 as (pod=2,
 data=16, model=16), the gradient all-reduce running over ("pod", "data").
-The policy is made and checked on them; running on them needs an executor
-across devices, which the port does not have yet.
+The policy is made and checked on them; running on them needs the model
+axis across devices, which the port does not have yet.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import os
+from typing import Optional
 
 import torch
+import torch.distributed as dist
 
+from repro_torch.device import resolve_device
 from repro_torch.sharding.policy import MeshShape
 
 
@@ -39,6 +53,74 @@ class VirtualMesh:
 
 def make_host_mesh(data: int, device: torch.device) -> VirtualMesh:
     return VirtualMesh(data=data, device=torch.device(device))
+
+
+NCCL_ONE_RANK_PER_GPU = ("{ranks} ranks on this host but {cards} visible CUDA card(s): NCCL "
+                         "puts no two ranks on one GPU; pass the gloo backend to stage "
+                         "payloads through host memory")
+
+
+@dataclasses.dataclass(frozen=True)
+class ProcessMesh:
+    rank: int
+    world: int
+    group: dist.ProcessGroup
+    backend: str  # "nccl" or "gloo"
+    device: torch.device  # this rank's
+    axis: str = "data"
+
+    @property
+    def data(self) -> int:
+        return self.world
+
+    @property
+    def shape(self) -> dict[str, int]:
+        return {self.axis: self.world, "model": 1}
+
+
+def launched_by_torchrun() -> bool:
+    """A process group exists, or torchrun's environment names this rank."""
+    return dist.is_initialized() or ("RANK" in os.environ and "WORLD_SIZE" in os.environ)
+
+
+def init_process_mesh(device="cuda", backend: Optional[str] = None,
+                      init_method: Optional[str] = None, rank: Optional[int] = None,
+                      world_size: Optional[int] = None) -> ProcessMesh:
+    """The process mesh of this rank, reusing a process group that exists.
+
+    Otherwise the group is made from ``init_method`` (a ``file://`` path, as
+    the tests pass) or torchrun's environment (``RANK``, ``WORLD_SIZE``,
+    ``LOCAL_RANK``, ``MASTER_ADDR``/``MASTER_PORT``). The backend defaults to
+    ``nccl`` on ``cuda`` and ``gloo`` on ``cpu``. This rank's card is
+    ``cuda:{LOCAL_RANK % device_count}``, made current before the group, as
+    NCCL's P2P calls need. ``nccl`` with more ranks on the host than visible
+    cards raises before any group is made.
+    """
+    if dist.is_initialized():
+        have = dist.get_backend()
+        if backend is not None and backend != have:
+            raise ValueError(f"a {have} process group exists; asked for {backend}")
+        backend = have
+        rank, world_size = dist.get_rank(), dist.get_world_size()
+    else:
+        backend = backend or ("nccl" if torch.device(device).type == "cuda" else "gloo")
+        rank = int(os.environ["RANK"]) if rank is None else rank
+        world_size = int(os.environ["WORLD_SIZE"]) if world_size is None else world_size
+    if backend == "nccl":
+        cards = torch.cuda.device_count()
+        on_host = int(os.environ.get("LOCAL_WORLD_SIZE", world_size))
+        if on_host > cards:
+            raise ValueError(NCCL_ONE_RANK_PER_GPU.format(ranks=on_host, cards=cards))
+    dev = resolve_device(device)
+    if dev.type == "cuda":
+        local = int(os.environ.get("LOCAL_RANK", rank))
+        dev = torch.device("cuda", local % torch.cuda.device_count())
+        torch.cuda.set_device(dev)
+    if not dist.is_initialized():
+        dist.init_process_group(backend, init_method=init_method or "env://", rank=rank,
+                                world_size=world_size)
+    return ProcessMesh(rank=rank, world=world_size, group=dist.group.WORLD, backend=backend,
+                       device=dev)
 
 
 def make_production_mesh(*, multi_pod: bool = False) -> MeshShape:

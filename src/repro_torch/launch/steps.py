@@ -7,7 +7,9 @@ device.
 
 The train step runs ``dp`` data-parallel ranks as a leading axis of every
 parameter and optimizer tensor (the virtual-rank executor,
-:mod:`repro_torch.core.collectives`). Params and optimizer state are kept
+:mod:`repro_torch.core.collectives`), or, given a process ``group``, one
+rank per process with no rank axis (the cross-process executor,
+:mod:`repro_torch.core.collectives_dist`). Params and optimizer state are kept
 per rank because the reference's replicas are per device too: under
 ``--compress`` every all-gather hop delivers a quantized copy of its
 owner's chunk, so the ranks end each step slightly apart, and the JAX
@@ -16,7 +18,8 @@ step keeps each device's copy (``out_specs P()``, ``check_vma=False``).
 Two gradient-communication backends, as in the reference:
 
   * ``comm="xla"`` — the library reduction: a plain sum over the rank axis,
-    divided by ``dp`` (the ideal-switch baseline);
+    or ``dist.all_reduce`` across processes, divided by ``dp`` (the
+    ideal-switch baseline);
   * ``comm="ring" | "lumorph2" | "lumorph4" | "tree" | "auto"`` — the
     Schedule-IR collectives, bucket by bucket
     (``optim.grad_comm.all_reduce_grads``; ``auto`` picks each bucket's
@@ -38,9 +41,11 @@ from __future__ import annotations
 from typing import Any, Callable, Optional
 
 import torch
+import torch.distributed as dist
 from torch.profiler import record_function
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.core import collectives_dist
 from repro_torch.device import resolve_device
 from repro_torch.models import transformer as tf
 from repro_torch.optim import grad_comm
@@ -114,19 +119,38 @@ def sharded_struct(tree: Tree, spec_tree: Tree, mesh) -> Tree:
 
 def init_train_state(cfg: ModelConfig, dp: int, seed: int = 0,
                      device: Optional[torch.device] = None,
-                     init_ef: bool = False) -> tuple[Tree, dict]:
+                     init_ef: bool = False,
+                     group: Optional[dist.ProcessGroup] = None) -> tuple[Tree, dict]:
     """Random params from ``seed``, replicated over ``dp`` ranks (leading
     axis), with zero AdamW moments, an int32 step per rank and, with
-    ``init_ef``, zero fp32 error-feedback buffers."""
+    ``init_ef``, zero fp32 error-feedback buffers.
+
+    Given a process ``group`` of ``dp`` ranks, every rank builds its own
+    copy from the same seed with no rank axis, as the JAX state is
+    replicated, and the copies are checked equal once, by a checksum."""
     dev = resolve_device(device)
     one = tf.init_params(torch.Generator(device=dev).manual_seed(seed), cfg)
-    params = tree_map(lambda t: t.expand(dp, *t.shape).clone(), one)
+    if group is not None:
+        _check_replicas(one, group)
+        params, lead = one, ()
+    else:
+        params, lead = tree_map(lambda t: t.expand(dp, *t.shape).clone(), one), (dp,)
     del one
-    opt = init_opt_state(params, lead=(dp,))
+    opt = init_opt_state(params, lead=lead)
     if init_ef:
         opt["ef"] = tree_map(lambda t: torch.zeros(t.shape, dtype=torch.float32,
                                                    device=t.device), params)
     return params, opt
+
+
+def _check_replicas(params: Tree, group: dist.ProcessGroup) -> None:
+    """Raise unless every rank of ``group`` holds rank 0's ``params``: each
+    leaf's fp64 sum and sum of squares, rank 0's broadcast to all."""
+    own = torch.stack([s for t in leaves(params)
+                       for s in (t.double().sum(), t.double().square().sum())])
+    if not torch.equal(collectives_dist.Wire(group).broadcast(own), own):
+        raise RuntimeError(f"rank {dist.get_rank(group)}'s params from the seed differ from "
+                           "rank 0's: the replicas would train apart")
 
 
 def opt_shapes(cfg: ModelConfig, params_shape: Tree) -> dict:
@@ -141,19 +165,26 @@ def make_train_step(cfg: ModelConfig, opt_cfg: Optional[AdamWConfig] = None,
                     bucket_bytes: int = grad_comm.DEFAULT_BUCKET_BYTES,
                     compress: bool = False, wire_dtype: torch.dtype = torch.bfloat16,
                     microbatches: int = 1, overlap_chunks: int = 1,
-                    device: Optional[torch.device] = None) -> Callable:
+                    device: Optional[torch.device] = None,
+                    group: Optional[dist.ProcessGroup] = None) -> Callable:
     """``step(params, opt_state, batch) -> (params, opt_state, loss)``.
 
     Rank ``r`` takes the contiguous rows ``[r·B/dp, (r+1)·B/dp)`` of the
     global batch, as JAX's ``P("data")`` batch spec gives device ``r``.
-    ``loss`` is the mean of the ranks' losses. ``microbatches > 1``
-    accumulates fp32 gradients over that many slices of each rank's rows.
+    ``loss`` is the mean of the ranks' losses. With a process ``group`` of
+    ``dp`` ranks, params and optimizer state are this rank's, with no rank
+    axis, and every rank of the group calls the step with the global batch;
+    the loss is meaned over the group (``jax.lax.pmean``'s twin).
+    ``microbatches > 1`` accumulates fp32 gradients over that many slices of
+    each rank's rows.
     ``overlap_chunks > 1`` (LUMORPH comms; ignored by ``xla``) runs every
     bucket's collective as that many chunked waves (overlap mode).
     After each call ``step.bucket_log`` holds the last (bytes, algo) log.
     """
     if comm not in COMMS:
         raise ValueError(f"unknown comm {comm!r}; have {COMMS}")
+    if group is not None and dist.get_world_size(group) != dp:
+        raise ValueError(f"the step has {dp} ranks, the group {dist.get_world_size(group)}")
     opt_cfg = opt_cfg or AdamWConfig()
     dev = resolve_device(device)
 
@@ -183,40 +214,57 @@ def make_train_step(cfg: ModelConfig, opt_cfg: Optional[AdamWConfig] = None,
         if b % dp:
             raise ValueError(f"global batch {b} does not split over {dp} ranks")
         rows = b // dp
-        plist = leaves(params)
-        if plist[0].shape[0] != dp:
-            raise ValueError(f"params carry {plist[0].shape[0]} ranks, the step {dp}")
-        losses, grads = [], None
         with record_function("train/forward_backward"):
-            for r in range(dp):
-                p_r = unflatten(params, [t[r].detach().requires_grad_() for t in plist])
-                loss_r, g_r = grad_fn(p_r, {k: v[r * rows:(r + 1) * rows]
-                                            for k, v in batch.items()})
-                if grads is None:
-                    grads = [torch.empty((dp, *g.shape), dtype=g.dtype, device=g.device)
-                             for g in g_r]
-                for acc, g in zip(grads, g_r):
-                    acc[r] = g
-                losses.append(loss_r)
-                del p_r, g_r
-            loss = torch.stack(losses).sum() / dp  # pmean over the data axis
+            if group is not None:
+                loss, grads = local_grads(params, batch, rows)
+            else:
+                loss, grads = virtual_grads(params, batch, rows)
         grads = unflatten(params, grads)
         new_ef = None
         with record_function("train/grad_comm"):
-            if comm == "xla":
+            if comm == "xla" and group is not None:
+                grads = tree_map(lambda g: collectives_dist.all_reduce(g, "psum", group) / dp,
+                                 grads)
+            elif comm == "xla":
                 grads = tree_map(lambda g: (g.sum(dim=0, keepdim=True) / dp).expand_as(g),
                                  grads)
             else:
                 grads, new_ef, step.bucket_log = grad_comm.all_reduce_grads(
                     grads, algo=comm, bucket_bytes=bucket_bytes, compress=compress,
                     error_feedback=opt_state.get("ef"), wire_dtype=wire_dtype,
-                    overlap_chunks=overlap_chunks)
+                    overlap_chunks=overlap_chunks, group=group)
         core = {k: v for k, v in opt_state.items() if k != "ef"}
         with record_function("train/adamw"):
             params, core = adamw_update(params, grads, core, opt_cfg)
         if new_ef is not None:
             core["ef"] = new_ef
         return params, core, loss
+
+    def virtual_grads(params, batch, rows):
+        plist = leaves(params)
+        if plist[0].shape[0] != dp:
+            raise ValueError(f"params carry {plist[0].shape[0]} ranks, the step {dp}")
+        losses, grads = [], None
+        for r in range(dp):
+            p_r = unflatten(params, [t[r].detach().requires_grad_() for t in plist])
+            loss_r, g_r = grad_fn(p_r, {k: v[r * rows:(r + 1) * rows]
+                                        for k, v in batch.items()})
+            if grads is None:
+                grads = [torch.empty((dp, *g.shape), dtype=g.dtype, device=g.device)
+                         for g in g_r]
+            for acc, g in zip(grads, g_r):
+                acc[r] = g
+            losses.append(loss_r)
+            del p_r, g_r
+        return torch.stack(losses).sum() / dp, grads  # pmean over the data axis
+
+    def local_grads(params, batch, rows):
+        r = dist.get_rank(group)
+        p_r = tree_map(lambda t: t.detach().requires_grad_(), params)
+        loss_r, grads = grad_fn(p_r, {k: v[r * rows:(r + 1) * rows] for k, v in batch.items()})
+        # pmean over the group: every rank's loss, summed in rank order as above
+        losses = collectives_dist.Wire(group).all_gather(loss_r)
+        return torch.stack(losses).sum() / dp, grads
 
     step.bucket_log = []
     return step

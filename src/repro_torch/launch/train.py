@@ -3,17 +3,26 @@
 The twin of ``repro.launch.train``, with every one of its flags: builds
 the model, the sharding policy, the LUMORPH gradient-communication backend
 and the deterministic data stream, and runs a checkpointed training loop,
-restarting from the latest checkpoint, on ``--data-parallel`` virtual
-ranks on one device (:mod:`repro_torch.launch.mesh`). It runs on ``cuda``
-unless given ``--device cpu``; ``--smoke`` takes the reduced config.
-``--comm auto`` picks each gradient bucket's schedule from the α–β cost
-model.
+restarting from the latest checkpoint. It runs on ``cuda`` unless given
+``--device cpu``; ``--smoke`` takes the reduced config. ``--comm auto``
+picks each gradient bucket's schedule from the α–β cost model.
+
+Two data-parallel meshes (:mod:`repro_torch.launch.mesh`):
+  * launched by ``torchrun`` (or with a process group already made), every
+    rank is its own process and the gradient collectives cross processes
+    (:mod:`repro_torch.core.collectives_dist`). ``--data-parallel 0`` is the
+    world size, and any other width exits: the port has no model axis
+    across devices yet (ROADMAP Queue 1 item 6(c)). ``--dist-backend`` is
+    ``nccl`` on ``cuda`` and ``gloo`` on ``cpu`` unless given; on one card
+    only ``gloo`` runs several ranks, its payloads staged through host
+    memory. Rank 0 prints the result and writes the checkpoints;
+  * otherwise ``--data-parallel`` virtual ranks on one device.
 
 The sharding policy is made on the mesh and checked: every spec of every
 parameter and optimizer leaf must divide. With ``--mesh single|multi`` the
 trainer makes and checks the policy of the production mesh and then
-exits, because running on it needs an executor across devices (ROADMAP
-Queue 1 item 6(b)): the port's data axis is virtual ranks on one device.
+exits: running on it needs 256 or 512 ranks and the model axis across
+devices (ROADMAP Queue 1 item 6(c)).
 
 Checkpoints hold rank 0's params and optimizer state, and a restore gives
 every rank that copy, as the JAX trainer does: its ``save`` writes
@@ -26,16 +35,21 @@ chunked into 4 overlapped waves per bucket, with checkpoints):
   PYTHONPATH=src python -m repro_torch.launch.train --arch bert-large \\
       --comm lumorph4 --overlap 4 --data-parallel 4 --steps 6 --batch 8 \\
       --seq 128 --ckpt-dir /tmp/ck --ckpt-every 3
+The same with every rank its own process, four of them on the CPU:
+  PYTHONPATH=src torchrun --nproc-per-node 4 -m repro_torch.launch.train \\
+      --arch bert-large --smoke --device cpu --data-parallel 0 --comm lumorph4
 """
 
 from __future__ import annotations
 
 import argparse
 import json
+import math
 import statistics
 import time
 
 import torch
+import torch.distributed as dist
 
 from repro_torch.checkpoint import checkpoint as ckpt_lib
 from repro_torch.configs import get_config, get_smoke_config
@@ -43,16 +57,20 @@ from repro_torch.configs.base import torch_dtype
 from repro_torch.data.pipeline import DataConfig, stream
 from repro_torch.device import resolve_device
 from repro_torch.launch import steps as steps_lib
-from repro_torch.launch.mesh import make_host_mesh, make_production_mesh
+from repro_torch.launch.mesh import (ProcessMesh, init_process_mesh, launched_by_torchrun,
+                                     make_host_mesh, make_production_mesh)
 from repro_torch.models.transformer import param_shapes
 from repro_torch.optim.adamw import AdamWConfig
 from repro_torch.sharding.policy import make_policy
 from repro_torch.tree import tree_map
 
-NO_EXECUTOR = ("the sharding policy of the {mesh} production mesh {shape} is valid for "
-               "{arch} (tp={tp}, dp={dp}, zero3={zero3}); training on it needs the "
-               "torch.distributed executor across devices (ROADMAP Queue 1 item 6(b)): "
-               "the port's data axis is virtual ranks on one device")
+NO_MODEL_AXIS = ("the sharding policy of the {mesh} production mesh {shape} is valid for "
+                 "{arch} (tp={tp}, dp={dp}, zero3={zero3}); training on it needs "
+                 "{ranks} ranks and the model axis across devices (ROADMAP Queue 1 item "
+                 "6(c)): the port's process mesh is data-parallel only")
+DP_NOT_WORLD = ("--data-parallel {dp} in a world of {world} ranks: the other {rest} ranks "
+                "would form a model axis across devices, which the port does not have yet "
+                "(ROADMAP Queue 1 item 6(c)); pass --data-parallel 0 or {world}")
 
 
 def checked_policy(cfg, mesh):
@@ -97,7 +115,11 @@ def main(argv=None) -> dict:
     ap.add_argument("--ckpt-every", type=int, default=50)
     ap.add_argument("--mesh", default="host", choices=["host", "single", "multi"])
     ap.add_argument("--data-parallel", type=int, default=0,
-                    help="virtual dp ranks (0 = one per visible device)")
+                    help="dp ranks: under torchrun 0 or the world size; else virtual "
+                         "ranks (0 = one per visible device)")
+    ap.add_argument("--dist-backend", default=None, choices=["nccl", "gloo"],
+                    help="process-group backend under torchrun (default: nccl on cuda, "
+                         "gloo on cpu; gloo stages CUDA payloads through host memory)")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--log-every", type=int, default=10)
     ap.add_argument("--device", default="cuda", help="cuda (default) or cpu")
@@ -111,12 +133,29 @@ def main(argv=None) -> dict:
     if args.mesh != "host":
         mesh = make_production_mesh(multi_pod=(args.mesh == "multi"))
         policy = checked_policy(cfg, mesh)
-        raise SystemExit(NO_EXECUTOR.format(
+        raise SystemExit(NO_MODEL_AXIS.format(
             mesh=args.mesh, shape=mesh.shape, arch=cfg.name, tp=policy.tp, dp=policy.dp,
-            zero3=policy.zero3))
+            zero3=policy.zero3, ranks=math.prod(mesh.axis_sizes)))
+    if launched_by_torchrun():
+        made_group = not dist.is_initialized()
+        mesh = init_process_mesh(args.device, args.dist_backend)
+        try:
+            if args.data_parallel not in (0, mesh.world):
+                raise SystemExit(DP_NOT_WORLD.format(dp=args.data_parallel, world=mesh.world,
+                                                     rest=mesh.world - args.data_parallel))
+            return _train(args, cfg, mesh)
+        finally:
+            if made_group:
+                dist.destroy_process_group()
     dev = resolve_device(args.device)
     visible = torch.cuda.device_count() if dev.type == "cuda" else 1
-    mesh = make_host_mesh(args.data_parallel or visible, dev)
+    return _train(args, cfg, make_host_mesh(args.data_parallel or visible, dev))
+
+
+def _train(args, cfg, mesh) -> dict:
+    """The training loop on a virtual or a process mesh."""
+    group = mesh.group if isinstance(mesh, ProcessMesh) else None
+    lead = group is None or mesh.rank == 0  # prints, and writes the checkpoints
     checked_policy(cfg, mesh)
     opt_cfg = AdamWConfig(lr=args.lr, total_steps=args.steps,
                           warmup_steps=max(1, args.steps // 20))
@@ -124,18 +163,25 @@ def main(argv=None) -> dict:
         cfg, opt_cfg, comm=args.comm, dp=mesh.data,
         bucket_bytes=args.bucket_mb * 1024 * 1024, compress=args.compress,
         wire_dtype=torch_dtype(args.wire_dtype), overlap_chunks=args.overlap,
-        device=mesh.device)
+        device=mesh.device, group=group)
     params, opt_state = steps_lib.init_train_state(
         cfg, mesh.data, args.seed, mesh.device,
-        init_ef=args.compress and args.comm != "xla")
+        init_ef=args.compress and args.comm != "xla", group=group)
 
     start_step = 0
     if args.ckpt_dir and ckpt_lib.latest_step(args.ckpt_dir) is not None:
-        rank0, start_step = ckpt_lib.restore(args.ckpt_dir, _rank0((params, opt_state)))
-        params, opt_state = tree_map(lambda t: t.expand(mesh.data, *t.shape).clone(), rank0)
-        del rank0
-        print(f"[train] restored checkpoint at step {start_step}", flush=True)
+        if group is not None:  # every rank restores the same step
+            (params, opt_state), start_step = ckpt_lib.restore(args.ckpt_dir,
+                                                               (params, opt_state))
+        else:
+            rank0, start_step = ckpt_lib.restore(args.ckpt_dir, _rank0((params, opt_state)))
+            params, opt_state = tree_map(lambda t: t.expand(mesh.data, *t.shape).clone(),
+                                         rank0)
+            del rank0
+        if lead:
+            print(f"[train] restored checkpoint at step {start_step}", flush=True)
 
+    dev = mesh.device
     data = DataConfig(seed=args.seed, global_batch=args.batch, seq_len=args.seq)
     losses, step_s = [], []
     t_start = time.perf_counter()
@@ -147,20 +193,27 @@ def main(argv=None) -> dict:
         params, opt_state, loss = train_step(params, opt_state, batch)
         losses.append(float(loss))  # waits for the step's last kernel
         step_s.append(time.perf_counter() - t0)
-        if step % args.log_every == 0 or step == args.steps - 1:
+        if lead and (step % args.log_every == 0 or step == args.steps - 1):
             print(f"[train] step={step:5d} loss={losses[-1]:.4f} "
                   f"({(time.perf_counter() - t_start) / (step - start_step + 1):.2f}s/step)",
                   flush=True)
         if args.ckpt_dir and (step + 1) % args.ckpt_every == 0:
-            ckpt_lib.save(args.ckpt_dir, step + 1, _rank0((params, opt_state)))
+            if group is None:
+                ckpt_lib.save(args.ckpt_dir, step + 1, _rank0((params, opt_state)))
+            else:
+                if lead:
+                    ckpt_lib.save(args.ckpt_dir, step + 1, (params, opt_state))
+                dist.barrier(group=group)  # no rank reads a checkpoint half written
     result = {"final_loss": losses[-1] if losses else None,
               "first_loss": losses[0] if losses else None,
               "steps": len(losses), "comm": args.comm,
               "overlap": args.overlap, "device": str(dev),
               "step_s": statistics.median(step_s) if step_s else None}
-    print(json.dumps(result))
+    if group is not None:
+        result.update(world=mesh.world, dist_backend=mesh.backend)
+    if lead:
+        print(json.dumps(result))
     return result
-
 
 if __name__ == "__main__":
     main()

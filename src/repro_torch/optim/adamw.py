@@ -13,6 +13,7 @@ bias corrections are taken per rank and broadcast over each leaf.
 from __future__ import annotations
 
 import dataclasses
+import itertools
 import math
 from typing import Any
 
@@ -61,9 +62,17 @@ def init_opt_state(params: Tree, lead: tuple[int, ...] = ()) -> dict:
 
 def global_norm(tree: Tree, lead: int = 0) -> Tensor:
     """√Σ g², summed over every leaf in JAX's flatten order, one value per
-    index of the ``lead`` leading (rank) axes."""
-    return torch.sqrt(sum(torch.sum(torch.square(g.float()), dim=tuple(range(lead, g.dim())))
-                          for g in leaves(tree)))
+    index of the ``lead`` leading (rank) axes.
+
+    Each rank's sums run over its own slice of each leaf, one slice at a
+    time: on the card a reduction's order follows its tensor's shape, and
+    so a virtual rank rounds as a process holding only that rank's leaves
+    does."""
+    ls = leaves(tree)
+    shape = ls[0].shape[:lead]
+    norms = [torch.sqrt(sum(torch.sum(torch.square(g[idx].float())) for g in ls))
+             for idx in itertools.product(*map(range, shape))]
+    return torch.stack(norms).reshape(shape)
 
 
 def _per_leaf(s: Tensor, like: Tensor) -> Tensor:

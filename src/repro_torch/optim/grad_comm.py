@@ -23,6 +23,12 @@ the virtual-rank executor's (:mod:`repro_torch.core.collectives`):
 As in the reference, compression always runs the LUMORPH-2 schedule in
 fp32 whatever ``algo`` says (the bucket log still names ``algo``), and the
 mean over ranks is taken after the fp32 cast.
+
+Given a process ``group``, the same functions run across processes: the
+leaves are this rank's own (no rank axis) and every bucket's collective
+is the cross-process executor's (:mod:`repro_torch.core.collectives_dist`).
+The bucketing, the error feedback and the bucket log are the same code,
+the local leaves taken as a rank axis of width 1.
 """
 
 from __future__ import annotations
@@ -32,8 +38,9 @@ import functools
 from typing import Any, Optional
 
 import torch
+import torch.distributed as dist
 
-from repro_torch.core import collectives
+from repro_torch.core import collectives, collectives_dist
 from repro_torch.core.cost_model import LUMORPH_LINK, LinkModel, select_algorithm
 from repro_torch.kernels import ops as kops
 from repro_torch.tree import leaves, unflatten
@@ -103,6 +110,15 @@ def _int8_decode(payload: tuple[Tensor, Tensor], like: Tensor) -> Tensor:
     return dequantize_int8(q, sc, like[0].numel()).reshape(like.shape)
 
 
+def _int8_encode_local(piece: Tensor) -> tuple[Tensor, Tensor]:
+    """:func:`_int8_encode` of one process's piece: one row of one rank."""
+    return _int8_encode(piece[None])
+
+
+def _int8_decode_local(payload: tuple[Tensor, Tensor], like: Tensor) -> Tensor:
+    return _int8_decode(payload, like[None])[0]
+
+
 @functools.lru_cache(maxsize=64)
 def _compressed_program(p: int):
     return collectives.compile_schedule(
@@ -110,24 +126,40 @@ def _compressed_program(p: int):
         encode=_int8_encode, decode=_int8_decode)
 
 
-def compressed_all_reduce(x: Tensor, n_chunks: int = 1) -> Tensor:
+@functools.lru_cache(maxsize=64)
+def _compressed_program_dist(group: dist.ProcessGroup):
+    return collectives_dist.compile_schedule(
+        collectives.schedule_for_execution("lumorph2", dist.get_world_size(group)), group,
+        encode=_int8_encode_local, decode=_int8_decode_local)
+
+
+def compressed_all_reduce(x: Tensor, n_chunks: int = 1,
+                          group: Optional[dist.ProcessGroup] = None) -> Tensor:
     """LUMORPH-2 recursive halving/doubling with int8 payloads, over the
-    rank axis of ``x[p, ...]``: the same Schedule IR as the uncompressed
+    rank axis of ``x[p, ...]``, or with a process ``group`` over its ranks,
+    ``x`` this rank's own: the same Schedule IR as the uncompressed
     collective, with the int8 encode/decode pair around every hop. Wire
     bytes ≈ n (int8) + n/64 (scales) against 4n in fp32. ``n_chunks > 1``
-    runs the chunked, pipelined lowering
-    (:func:`~repro_torch.core.collectives.overlapped_all_reduce`), every
+    runs the chunked, pipelined lowering (``overlapped_all_reduce``), every
     wave's hops quantizing their own slice."""
-    p = x.shape[0]
+    p = x.shape[0] if group is None else dist.get_world_size(group)
     if p == 1:
         return x
     if p & (p - 1):
         raise ValueError("compressed allreduce requires a power-of-two rank count")
-    if n_chunks > 1:
-        return collectives.overlapped_all_reduce(
-            x.float(), "lumorph2", n_chunks=n_chunks, encode=_int8_encode,
-            decode=_int8_decode).to(x.dtype)
-    return _compressed_program(p)(x.float()).to(x.dtype)
+    x32 = x.float()
+    if group is None and n_chunks > 1:
+        out = collectives.overlapped_all_reduce(x32, "lumorph2", n_chunks=n_chunks,
+                                                encode=_int8_encode, decode=_int8_decode)
+    elif group is None:
+        out = _compressed_program(p)(x32)
+    elif n_chunks > 1:
+        out = collectives_dist.overlapped_all_reduce(
+            x32, "lumorph2", n_chunks=n_chunks, encode=_int8_encode_local,
+            decode=_int8_decode_local, group=group)
+    else:
+        out = _compressed_program_dist(group)(x32)
+    return out.to(x.dtype)
 
 
 # ---------------------------------------------------------------------------
@@ -141,10 +173,12 @@ def all_reduce_grads(grads: Tree, algo: str = "auto",
                      error_feedback: Optional[Tree] = None,
                      wire_dtype: torch.dtype = torch.bfloat16,
                      overlap_chunks: int = 1,
+                     group: Optional[dist.ProcessGroup] = None,
                      ) -> tuple[Tree, Optional[Tree], list[tuple[int, str]]]:
     """Mean-ALLREDUCE ``grads`` (leaves ``[p, ...]``) over the rank axis
     with LUMORPH collectives, bucket by bucket: the sum over ranks, divided
-    by ``p`` after the fp32 cast.
+    by ``p`` after the fp32 cast. With a process ``group`` the leaves are
+    this rank's own and ``p`` is the group's size.
 
     Returns (reduced_grads, new_error_feedback, bucket_log), where the log
     records (bytes per rank, algo) per bucket, as the reference's does.
@@ -156,20 +190,25 @@ def all_reduce_grads(grads: Tree, algo: str = "auto",
     gains ``+ovl<C>``); ``1`` keeps the monolithic path.
     """
     orig = leaves(grads)
-    gl = orig
-    p = gl[0].shape[0]
+    if group is None:
+        gl, p = orig, orig[0].shape[0]
+    else:  # this rank's leaves, as a rank axis of width 1
+        gl, p = [g[None] for g in orig], dist.get_world_size(group)
+    lead = gl[0].shape[0]
     ef_new: Optional[list[Tensor]] = None
     if compress and error_feedback is not None:
         # EF-SGD: compensate with last step's residual, store the *local*
         # quantization residual (per rank, per leaf) for the next step
-        gl = [g.float() + e for g, e in zip(gl, leaves(error_feedback))]
+        ef = leaves(error_feedback)
+        gl = [g.float() + e.reshape(g.shape) for g, e in zip(gl, ef)]
         ef_new = []
-        for c in gl:
-            rows = c.reshape(p, -1)
+        for c, e in zip(gl, ef):
+            rows = c.reshape(lead, -1)
             q, sc = quantize_int8(rows)
-            ef_new.append(c - dequantize_int8(q, sc, rows.shape[1]).reshape(c.shape))
+            ef_new.append((c - dequantize_int8(q, sc, rows.shape[1]).reshape(c.shape))
+                          .reshape(e.shape))
     comm_dtype = torch.float32 if compress else wire_dtype
-    flat = torch.cat([g.to(comm_dtype).reshape(p, -1) for g in gl], dim=1)
+    flat = torch.cat([g.to(comm_dtype).reshape(lead, -1) for g in gl], dim=1)
     del gl  # the compensated copies; at full width each copy is GBs
     buckets = make_buckets(flat.shape[1], bucket_bytes)
 
@@ -181,7 +220,9 @@ def all_reduce_grads(grads: Tree, algo: str = "auto",
         chosen = select_algorithm(n_bytes, p, link) if algo == "auto" else algo
         log.append((n_bytes, chosen + ("+int8" if compress else "")
                     + (f"+ovl{overlap_chunks}" if overlap_chunks > 1 else "")))
-        if compress:
+        if group is not None:
+            parts.append(_reduce_local(piece[0], chosen, compress, overlap_chunks, group)[None])
+        elif compress:
             parts.append(compressed_all_reduce(piece, n_chunks=overlap_chunks))
         elif overlap_chunks > 1:
             parts.append(collectives.overlapped_all_reduce(piece, chosen,
@@ -194,8 +235,19 @@ def all_reduce_grads(grads: Tree, algo: str = "auto",
     reduced.div_(p)  # in place: the same IEEE division as ``reduced / p``
     out, off = [], 0
     for g in orig:
-        n = g[0].numel()
+        n = g.numel() // lead
         out.append(reduced[:, off:off + n].reshape(g.shape).to(g.dtype))
         off += n
     new_ef = unflatten(error_feedback, ef_new) if ef_new is not None else None
     return unflatten(grads, out), new_ef, log
+
+
+def _reduce_local(piece: Tensor, algo: str, compress: bool, overlap_chunks: int,
+                  group: dist.ProcessGroup) -> Tensor:
+    """One bucket of this rank's flat gradient, reduced over ``group``."""
+    if compress:
+        return compressed_all_reduce(piece, n_chunks=overlap_chunks, group=group)
+    if overlap_chunks > 1:
+        return collectives_dist.overlapped_all_reduce(piece, algo, n_chunks=overlap_chunks,
+                                                      group=group)
+    return collectives_dist.all_reduce(piece, algo, group)

@@ -2,6 +2,11 @@
 wrapper's dispatch. Marked ``cuda``; without a card every test skips.
 On the card: ``PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py``."""
 
+import os
+import pathlib
+import subprocess
+import sys
+
 import pytest
 
 torch = pytest.importorskip("torch")
@@ -288,6 +293,59 @@ def test_ssm_and_dense_smoke_models_on_card_equal_cpu(card, arch):
             l_card, c_card = tf.decode_step(moved, c_card, toks[:, t:t + 1].to(card), t, cfg)
             rel = float((l_card.cpu() - l_cpu).abs().max() / l_cpu.abs().max())
             assert rel <= 1e-4, t
+
+
+# one rank of a world on the card: the cross-process executor against the
+# virtual-rank executor on the same inputs, every rank's row bit for bit
+EXECUTOR_RANK = r"""
+import sys
+import torch
+import torch.distributed as dist
+sys.path.insert(0, {src!r})
+from repro_torch.core import collectives as V, collectives_dist as D
+from repro_torch.kernels import ops
+from repro_torch.launch.mesh import init_process_mesh
+from repro_torch.optim import grad_comm
+rank, world = int(sys.argv[1]), {world}
+mesh = init_process_mesh("cuda", {backend!r}, init_method="file://" + {rdzv!r}, rank=rank,
+                         world_size=world)
+x = torch.randn(world, 100_003, generator=torch.Generator(device=mesh.device).manual_seed(0),
+                device=mesh.device)
+for algo in ("ring", "lumorph2", "lumorph4", "tree"):
+    assert torch.equal(D.all_reduce(x[rank], algo), V.all_reduce(x, algo)[rank]), algo
+got = D.all_reduce(x[rank], "psum")
+assert float((got - x.sum(0)).abs().max() / x.sum(0).abs().max()) <= 1e-6
+assert torch.equal(grad_comm.compressed_all_reduce(x[rank], group=mesh.group),
+                   grad_comm.compressed_all_reduce(x)[rank])
+w = torch.zeros(128, device=mesh.device)
+compute = lambda y: ops.fused_rmsnorm(y.reshape(-1, 128), w).reshape(y.shape)
+n0 = ops.LAUNCHES["rmsnorm"]
+got = D.overlapped_all_reduce(x[rank, :512 * 195], "lumorph2", 4, compute)
+assert ops.LAUNCHES["rmsnorm"] == n0 + 4
+assert torch.equal(got, V.overlapped_all_reduce(x[:, :512 * 195], "lumorph2", 4, compute)[rank])
+dist.destroy_process_group()
+"""
+
+
+@pytest.mark.parametrize("backend,world", [("nccl", 2), ("gloo", 4)])
+def test_cross_process_executor_on_cards_equals_virtual_ranks(card, tmp_path, backend, world):
+    """nccl needs a card per rank, so it runs only where two or more are
+    visible; gloo stages every payload through host memory and runs four
+    ranks on one card. Each world runs under a timeout: a hang fails."""
+    if backend == "nccl" and torch.cuda.device_count() < world:
+        pytest.skip(f"nccl needs {world} cards, {torch.cuda.device_count()} visible")
+    code = EXECUTOR_RANK.format(src=str(pathlib.Path(__file__).resolve().parents[1] / "src"),
+                                world=world, backend=backend, rdzv=str(tmp_path / "rdzv"))
+    procs = [subprocess.Popen([sys.executable, "-c", code, str(r)], stderr=subprocess.PIPE,
+                              text=True, env={**os.environ, "OMP_NUM_THREADS": "1"})
+             for r in range(world)]
+    try:
+        errs = [p.communicate(timeout=300)[1] for p in procs]
+    finally:
+        for p in procs:
+            p.kill()
+    for r, (p, err) in enumerate(zip(procs, errs)):
+        assert p.returncode == 0, f"rank {r}: {err[-3000:]}"
 
 
 def _to(tree, dev):

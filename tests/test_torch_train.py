@@ -260,7 +260,7 @@ def test_unported_flags_exit_naming_their_item(flags, item):
     then stops: running on it needs the executor across devices."""
     with pytest.raises(SystemExit, match=item) as exc:
         _train("--steps", "1", *flags)
-    assert "ROADMAP Queue 1 item 6(b)" in str(exc.value)
+    assert "ROADMAP Queue 1 item 6(c)" in str(exc.value)
 
 
 def test_overlap_needs_a_lumorph_comm():
