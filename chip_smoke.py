@@ -175,6 +175,25 @@ JAX or of the JAX package. No phase's failure is caught.
      consumer: bit-equal to the virtual ranks' ``overlapped_all_reduce`` of
      the same inputs on the card, within 1e-5 of RMSNorm(psum), the kernel
      launched in every rank.
+ 16. The model axis across processes: a second world of 4 rank processes on
+     this card over gloo (``python3 chip_smoke.py --tp-rank DIR``), laid out
+     as data 2 × model 2 (``launch.mesh.split_model_axis``), every param,
+     optimizer and batch leaf a DTensor placed by the sharding policy. (a)
+     bert-large at full width (8 × 128, ``TP_STEPS`` steps) through
+     ``launch.train.main --data-parallel 2`` with ``xla`` and ``lumorph4``
+     (fp32 wire) and ``lumorph2 --compress``: each final loss within 1e-4
+     relative (1e-3 under ``--compress``) of the same flags run here first
+     on 2 virtual ranks with a model axis of 1 (the TP partial sums add in
+     another order), the int8 kernels launched in every rank under
+     ``--compress``; per rank ``step_s``, the gradient communication's
+     seconds and the peak memory, labelled host-staged. (b)
+     h2o-danube-1.8b at full width, fp32 params from seed 0 (phase 3's
+     draws), placed by the policy (16 query and 4 KV heads per rank):
+     prefills of 2 × 4608 tokens in fp32 and bf16 through ``make_prefill``
+     with the flash kernel, exactly 24 launches per prefill in every rank on
+     its local ``[1, 4608, 16, 80]``; the logits gathered on rank 0 against
+     phase 3's kernel-path logits within ``PREFILL_TOL``, the argmax
+     agreement printed, and each rank's prefill seconds beside phase 3's.
 
 Phase 2 also holds the RMSNorm kernel against its plain version (fp32
 within 1e-5, bf16 within 2e-2, the limits of tests/test_kernels.py, or one
@@ -196,7 +215,7 @@ mode (phase 7), deepseek (phase 8), dbrx (phase 9), the dense trio (phase
 10, per model), the SSM models (phase 11, per model) and whisper and
 paligemma (phase 12, per model), the ``--comm auto`` runs and the KIVI
 decodes (phase 13), the roofline's danube prefills and the example
-twins (phase 14), and each run of phase 15 in each rank's process. Each
+twins (phase 14), and each run of phases 15 and 16 in each rank's process. Each
 phase prints its seconds. The last lines are the ``{"kernels": [...]}`` record, the run
 record, and ``{"ok": true, "device": {...}}``.
 """
@@ -329,6 +348,20 @@ DIST_OVL_CHUNKS = (1, 4)
 DIST_DIR = ROOT / "build" / "chip_smoke_dist"  # gitignored; the ranks' results
 HOST_STAGED = ("gloo, host-staged: each payload goes card -> host -> gloo -> host -> card, "
                "because NCCL puts no two ranks on one GPU; not the paper's link, not NVLink")
+# phase 16: the model axis, 4 ranks on this card over gloo as data 2 x model 2; its
+# training runs held to the same flags on 2 virtual ranks (model 1), its prefills to
+# phase 3's kernel-path logits
+TP_DATA, TP_STEPS, TP_TIMEOUT_S = 2, 4, 420
+TP_TRAIN = ["--arch", "bert-large", "--data-parallel", str(TP_DATA), "--batch", "8",
+            "--seq", "128", "--steps", str(TP_STEPS), "--log-every", "100"]
+TP_TRAIN_RUNS = [("xla", ["--comm", "xla", "--wire-dtype", "float32"], 1e-4),
+                 ("lumorph4", ["--comm", "lumorph4", "--wire-dtype", "float32"], 1e-4),
+                 ("lumorph2+int8", ["--comm", "lumorph2", "--compress"], 1e-3)]
+TP_PREFILL = (2, 4608)  # danube, as phase 3
+TP_LAYERS = 24  # flash launches per prefill in each rank: one per layer
+TP_LOCAL_Q, TP_LOCAL_KV = [1, 4608, 16, 80], [1, 4608, 4, 80]  # each rank's heads
+TP_DIR = ROOT / "build" / "chip_smoke_tp"  # gitignored; the ranks' results and logits
+PHASE3_LOGITS: dict = {}  # phase 3's kernel-path logits, on the host, for phase 16
 # overlap mode (phase 7): the JAX package's overlap benchmark (OVERLAP_SCRIPT and
 # CLAIM_BYTES of benchmarks/bench_collective_exec.py) on 8 virtual ranks
 OVL_P, OVL_D, OVL_CHUNKS = 8, 128, (2, 4, 8)
@@ -743,32 +776,7 @@ def phase_dist(runs) -> dict:
     phase 5 with each of ``DIST_TRAIN_RUNS``; (b) the overlapped all-reduce
     with the RMSNorm kernel as the consumer, against the virtual ranks."""
     print(json.dumps({"cross_process_wire": HOST_STAGED}), flush=True)
-    shutil.rmtree(DIST_DIR, ignore_errors=True)
-    DIST_DIR.mkdir(parents=True)
-    with socket.socket() as sock:  # a free port on this machine for the rendezvous
-        sock.bind(("localhost", 0))
-        port = sock.getsockname()[1]
-    env = {**os.environ, "MASTER_ADDR": "localhost", "MASTER_PORT": str(port),
-           "WORLD_SIZE": str(DIST_WORLD), "LOCAL_WORLD_SIZE": str(DIST_WORLD),
-           "OMP_NUM_THREADS": "1"}
-    procs = [subprocess.Popen([sys.executable, str(ROOT / "chip_smoke.py"), "--dist-rank",
-                               str(DIST_DIR)], env={**env, "RANK": str(r), "LOCAL_RANK": str(r)})
-             for r in range(DIST_WORLD)]
-    deadline = time.monotonic() + DIST_TIMEOUT_S
-    try:  # until all exit, one fails (its peers would wait on it) or time runs out
-        while time.monotonic() < deadline:
-            codes = [p.poll() for p in procs]
-            if all(c == 0 for c in codes) or any(c not in (None, 0) for c in codes):
-                break
-            time.sleep(0.5)
-    finally:
-        for p in procs:  # every rank stops here
-            if p.poll() is None:
-                p.kill()
-            p.wait()
-    codes = [p.returncode for p in procs]
-    assert codes == [0] * DIST_WORLD, f"phase 15's ranks exited with {codes}"
-    ranks = [json.loads((DIST_DIR / f"rank{r}.json").read_text()) for r in range(DIST_WORLD)]
+    ranks = run_ranks("--dist-rank", DIST_DIR, DIST_TIMEOUT_S)
     shutil.rmtree(DIST_DIR)
     out = {"wire": HOST_STAGED, "train": {}, "overlap": {}}
     for name, _ in DIST_TRAIN_RUNS:
@@ -808,27 +816,48 @@ def phase_dist(runs) -> dict:
     return out
 
 
-def dist_rank(out_dir: str) -> None:
-    """One rank of phase 15's world: its runs, written to ``out_dir/rank<r>.json``."""
-    sys.path.insert(0, str(ROOT / "src"))
-    import torch.distributed as dist
-    from repro_torch.core import collectives, collectives_dist
-    from repro_torch.kernels import ops, ref
-    from repro_torch.launch import steps as steps_lib
-    from repro_torch.launch import train
-    from repro_torch.launch.mesh import init_process_mesh
+def run_ranks(flag: str, out_dir: pathlib.Path, timeout_s: float) -> list[dict]:
+    """``python3 chip_smoke.py <flag> <out_dir>`` as the ``DIST_WORLD`` ranks
+    of one world on this card (torchrun's environment, a free local port),
+    under a timeout: until all exit, one fails (its peers would wait on it)
+    or time runs out; then every rank still running is killed, and any
+    failure fails the phase. Returns each rank's ``rank<r>.json``."""
+    shutil.rmtree(out_dir, ignore_errors=True)
+    out_dir.mkdir(parents=True)
+    with socket.socket() as sock:  # a free port on this machine for the rendezvous
+        sock.bind(("localhost", 0))
+        port = sock.getsockname()[1]
+    env = {**os.environ, "MASTER_ADDR": "localhost", "MASTER_PORT": str(port),
+           "WORLD_SIZE": str(DIST_WORLD), "LOCAL_WORLD_SIZE": str(DIST_WORLD),
+           "OMP_NUM_THREADS": "1"}
+    procs = [subprocess.Popen([sys.executable, str(ROOT / "chip_smoke.py"), flag,
+                               str(out_dir)], env={**env, "RANK": str(r), "LOCAL_RANK": str(r)})
+             for r in range(DIST_WORLD)]
+    deadline = time.monotonic() + timeout_s
+    try:
+        while time.monotonic() < deadline:
+            codes = [p.poll() for p in procs]
+            if all(c == 0 for c in codes) or any(c not in (None, 0) for c in codes):
+                break
+            time.sleep(0.5)
+    finally:
+        for p in procs:  # every rank stops here
+            if p.poll() is None:
+                p.kill()
+            p.wait()
+    codes = [p.returncode for p in procs]
+    assert codes == [0] * DIST_WORLD, f"the {flag} ranks exited with {codes}"
+    return [json.loads((out_dir / f"rank{r}.json").read_text()) for r in range(DIST_WORLD)]
 
-    torch.backends.cuda.matmul.allow_tf32 = False  # as phase 5's runs
-    torch.backends.cudnn.allow_tf32 = False
-    mesh = init_process_mesh("cuda", "gloo")
-    out = {"rank": mesh.rank, "train": {}, "overlap": {}}
-    comm_s: list[float] = []
+
+@contextlib.contextmanager
+def timed_grad_comm(steps_lib, comm_s: list):
+    """The train step's spans as they are; ``train/grad_comm``, the step's
+    gradient communication, also timed once per step, alike for every comm."""
     span = steps_lib.record_function
 
     @contextlib.contextmanager
     def timed_span(label):
-        """The step's spans as they are; ``train/grad_comm``, the step's
-        gradient communication, also timed once per step, alike for every comm."""
         with span(label):
             if label != "train/grad_comm":
                 yield
@@ -841,19 +870,46 @@ def dist_rank(out_dir: str) -> None:
 
     steps_lib.record_function = timed_span
     try:
-        for name, flags in DIST_TRAIN_RUNS:  # (a)
+        yield
+    finally:
+        steps_lib.record_function = span
+
+
+def rank_train(train, ops, runs, extra: list) -> dict:
+    """Each of ``runs`` (name, flags, ...) through ``train.main`` in this rank's
+    process: its result, the kernel launches, the gradient communication's
+    seconds per step and the peak memory."""
+    from repro_torch.launch import steps as steps_lib
+    out, comm_s = {}, []
+    with timed_grad_comm(steps_lib, comm_s):
+        for name, flags, *_ in runs:
             comm_s.clear()
             for k in ops.LAUNCHES:
                 ops.LAUNCHES[k] = 0
             torch.cuda.reset_peak_memory_stats()
-            res = train.main(TRAIN + flags + ["--dist-backend", "gloo"])
+            res = train.main(extra + flags + ["--dist-backend", "gloo"])
             torch.cuda.synchronize()
-            out["train"][name] = {**res, "launches": dict(ops.LAUNCHES),
-                                  "grad_comm_s": sum(comm_s) / res["steps"],
-                                  "peak_gb": torch.cuda.max_memory_allocated() / 1e9}
+            out[name] = {**res, "launches": dict(ops.LAUNCHES),
+                         "grad_comm_s": sum(comm_s) / res["steps"],
+                         "peak_gb": torch.cuda.max_memory_allocated() / 1e9}
             torch.cuda.empty_cache()
-    finally:
-        steps_lib.record_function = span
+    return out
+
+
+def dist_rank(out_dir: str) -> None:
+    """One rank of phase 15's world: its runs, written to ``out_dir/rank<r>.json``."""
+    sys.path.insert(0, str(ROOT / "src"))
+    import torch.distributed as dist
+    from repro_torch.core import collectives, collectives_dist
+    from repro_torch.kernels import ops, ref
+    from repro_torch.launch import train
+    from repro_torch.launch.mesh import init_process_mesh
+
+    torch.backends.cuda.matmul.allow_tf32 = False  # as phase 5's runs
+    torch.backends.cudnn.allow_tf32 = False
+    mesh = init_process_mesh("cuda", "gloo")
+    out = {"rank": mesh.rank, "train": rank_train(train, ops, DIST_TRAIN_RUNS, TRAIN),
+           "overlap": {}}  # (a)
     # (b): every rank makes the same x [4, n] and reduces its own row
     x = torch.randn(DIST_WORLD, BUCKET_N, generator=torch.Generator(
         device=mesh.device).manual_seed(4), device=mesh.device)
@@ -881,6 +937,127 @@ def dist_rank(out_dir: str) -> None:
             "rel_err": float((y - expect).abs().max() / expect.abs().max()),
             "ms": statistics.median(reps)}
         del y, virtual
+    dist.barrier()
+    dist.destroy_process_group()
+    pathlib.Path(out_dir, f"rank{mesh.rank}.json").write_text(json.dumps(out))
+
+
+def phase_tp(train) -> dict:
+    """Phase 16: the model axis. (a)'s references, the same flags on 2 virtual
+    ranks with a model axis of 1, run here first; then one 4-rank gloo world
+    as data 2 × model 2 (``python3 chip_smoke.py --tp-rank DIR``), under a
+    timeout, any rank's failure failing the phase: (a) bert-large trained by
+    ``launch.train.main`` with each of ``TP_TRAIN_RUNS``; (b) danube's TP
+    prefills, rank 0's gathered logits held against phase 3's."""
+    refs = {}
+    for name, flags, _ in TP_TRAIN_RUNS:
+        refs[name] = train.main(TP_TRAIN + flags)
+        torch.cuda.empty_cache()
+    ranks = run_ranks("--tp-rank", TP_DIR, TP_TIMEOUT_S)
+    out = {"wire": HOST_STAGED, "mesh": {"data": TP_DATA, "model": DIST_WORLD // TP_DATA},
+           "train": {}, "prefill": {}}
+    for name, flags, tol in TP_TRAIN_RUNS:  # (a)
+        per = [rk["train"][name] for rk in ranks]
+        ref = refs[name]["final_loss"]
+        res = {**{k: per[0][k] for k in ("final_loss", "first_loss", "steps", "world",
+                                           "dist_backend", "data", "model")},
+               "model1_final_loss": ref, "rel_to_model1": abs(per[0]["final_loss"] - ref) /
+               abs(ref), "tol": tol, "model1_step_s_virtual": refs[name]["step_s"],
+               "step_s_gloo_host_staged": [x["step_s"] for x in per],
+               "grad_comm_s_gloo_host_staged": [x["grad_comm_s"] for x in per],
+               "peak_gb_per_rank_gloo_host_staged": [x["peak_gb"] for x in per],
+               "launches_per_rank": [x["launches"] for x in per]}
+        out["train"][name] = res
+        print(json.dumps({"tp_train": name, **res}), flush=True)
+        assert all(x["final_loss"] == per[0]["final_loss"] for x in per), name
+        assert math.isfinite(per[0]["final_loss"]), name
+        assert res["steps"] == TP_STEPS and res["world"] == DIST_WORLD, res
+        assert (res["data"], res["model"]) == (TP_DATA, DIST_WORLD // TP_DATA), res
+        assert res["dist_backend"] == "gloo", res
+        assert res["rel_to_model1"] <= tol, res
+        if "--compress" in flags:
+            for x in per:  # the int8 kernels ran in every rank's process
+                assert x["launches"]["quantize_int8"] > 0, x
+                assert x["launches"]["dequantize_int8"] > 0, x
+    dev = torch.device("cuda")
+    for dtype in ("float32", "bfloat16"):  # (b)
+        per = [rk["prefill"][dtype] for rk in ranks]
+        got = torch.load(TP_DIR / f"logits_{dtype}.pt").to(dev)
+        expect = PHASE3_LOGITS[dtype].to(dev)
+        assert got.shape == expect.shape and got.dtype == expect.dtype, (got.shape, expect.shape)
+        assert torch.isfinite(got).all()
+        res = {"rel_max_err_to_phase3_kernel": _rel(got, expect), "tol": PREFILL_TOL[dtype],
+               "argmax_agree_to_phase3_kernel": _agree(got, expect),
+               "launches_per_rank": [x["launches"] for x in per],
+               "local_shapes_per_rank": [x["shapes"] for x in per],
+               "prefill_s_per_rank_gloo_host_staged": [x["s"] for x in per],
+               "peak_gb_per_rank": [rk["prefill_peak_gb"] for rk in ranks],
+               "phase3_kernel_prefill_s": None}
+        out["prefill"][dtype] = res
+        print(json.dumps({"tp_prefill": dtype, **res}), flush=True)
+        assert res["rel_max_err_to_phase3_kernel"] <= PREFILL_TOL[dtype], res
+        for x in per:  # one launch per layer, on the rank's own heads
+            assert x["launches"] == TP_LAYERS, x
+            assert x["shapes"] == [[TP_LOCAL_Q, TP_LOCAL_KV]], x
+        del got, expect
+        torch.cuda.empty_cache()
+    shutil.rmtree(TP_DIR)
+    return out
+
+
+def tp_rank(out_dir: str) -> None:
+    """One rank of phase 16's world: its runs, written to ``out_dir/rank<r>.json``
+    (and rank 0's gathered prefill logits beside them)."""
+    sys.path.insert(0, str(ROOT / "src"))
+    import torch.distributed as dist
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.launch import train
+    from repro_torch.launch.mesh import init_process_mesh, split_model_axis
+    from repro_torch.launch.steps import make_prefill
+    from repro_torch.models import transformer as tf
+    from repro_torch.sharding.policy import distribute_tree, gather_tree, make_policy
+
+    torch.backends.cuda.matmul.allow_tf32 = False  # as the references' runs
+    torch.backends.cudnn.allow_tf32 = False
+    world = init_process_mesh("cuda", "gloo")  # kept for the phase: each run reuses it
+    out = {"train": rank_train(train, ops, TP_TRAIN_RUNS, TP_TRAIN), "prefill": {}}  # (a)
+    mesh = split_model_axis(world, TP_DATA)
+    dev = mesh.device
+    torch.cuda.reset_peak_memory_stats()
+    cfg = get_config("h2o-danube-1.8b")
+    gen = torch.Generator(device=dev).manual_seed(0)  # phase 3's draws
+    params = tf.init_params(gen, cfg)
+    tokens = torch.randint(0, cfg.vocab_size, TP_PREFILL, generator=gen, device=dev)
+    placed = distribute_tree(params, make_policy(cfg, mesh).param_specs(tf.param_shapes(cfg)),
+                             mesh.device_mesh)
+    del params  # the rank keeps its shards alone
+    torch.cuda.empty_cache()
+    shapes = []
+    counted = ops.flash_attention
+
+    def seen(q, k, v, **kw):
+        shapes.append([list(q.shape), list(k.shape)])
+        return counted(q, k, v, **kw)
+    ops.flash_attention = seen
+    for dtype in ("float32", "bfloat16"):  # (b)
+        c = cfg.replace(compute_dtype=dtype, use_pallas=True)
+        prefill = make_prefill(c, dev, make_policy(c, mesh), mesh)
+        ops.LAUNCHES["flash_attention"] = 0
+        shapes.clear()
+        dist.barrier()
+        logits, s = _timed(prefill, placed, {"tokens": tokens})
+        launches = ops.LAUNCHES["flash_attention"]
+        full = gather_tree(logits)  # collective
+        if mesh.rank == 0:
+            torch.save(full.cpu(), pathlib.Path(out_dir, f"logits_{dtype}.pt"))
+        distinct = list(dict.fromkeys(json.dumps(sh) for sh in shapes))
+        out["prefill"][dtype] = {"s": s, "launches": launches,
+                                 "shapes": [json.loads(sh) for sh in distinct]}
+        del logits, full
+        torch.cuda.empty_cache()
+    ops.flash_attention = counted
+    out["prefill_peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
     dist.barrier()
     dist.destroy_process_group()
     pathlib.Path(out_dir, f"rank{mesh.rank}.json").write_text(json.dumps(out))
@@ -972,6 +1149,7 @@ def phase_prefill(get_config, tf, make_prefill, ops) -> dict:
                       "launches_per_prefill": launches}
         print(json.dumps({"prefill": dtype, **out[dtype]}), flush=True)
         assert rel <= PREFILL_TOL[dtype], (dtype, rel)
+        PHASE3_LOGITS[dtype] = kern.cpu()  # phase 16 holds its TP prefill to these
         del plain, kern, kf, pf
         torch.cuda.empty_cache()
     torch.cuda.synchronize()
@@ -2041,6 +2219,17 @@ def main() -> None:
     dist_runs = phase_dist(runs)
     done("15_cross_process", t_phase)
 
+    # -- phase 16: the model axis, data 2 x model 2 over gloo on this card -------
+    t_phase = time.perf_counter()
+    torch.cuda.empty_cache()
+    tp = phase_tp(train)
+    for dtype, res in tp["prefill"].items():
+        res["phase3_kernel_prefill_s"] = prefill[dtype]["kernel_prefill_s"]
+        print(json.dumps({"tp_prefill_s": dtype, "per_rank_gloo_host_staged":
+                          res["prefill_s_per_rank_gloo_host_staged"],
+                          "phase3_one_process": res["phase3_kernel_prefill_s"]}), flush=True)
+    done("16_model_axis", t_phase)
+
     bf, f32 = kern["timed"]["danube"][torch.bfloat16], kern["timed"]["danube"][torch.float32]
     for dt, t in ((torch.bfloat16, bf), (torch.float32, f32)):  # the entries danube's D runs
         t["entry"] = FLASH_ENTRY[dt]
@@ -2084,7 +2273,9 @@ def main() -> None:
                              **{a: ssm_launches[a]["flash_attention"] for a in SSM_ARCHS},
                              "whisper-tiny": whisper["launches"]["flash_attention"],
                              "paligemma-3b": paligemma["launches"]["flash_attention"],
-                             "roofline_danube": roofline_launches["flash_attention"]},
+                             "roofline_danube": roofline_launches["flash_attention"],
+                             "tp_prefill_per_rank": {
+                                 dt: r["launches_per_rank"] for dt, r in tp["prefill"].items()}},
     }]
     for name, body in (("quantize_int8", 18), ("dequantize_int8", 27)):
         t = int8["timed"][name]
@@ -2096,6 +2287,9 @@ def main() -> None:
             "launches_by_path": {"training": training[name], "auto": auto_launches[name],
                                  "cross_process_per_rank": [
                                      x[name] for x in dist_runs["train"]["lumorph2+int8"][
+                                         "launches_per_rank"]],
+                                 "model_axis_per_rank": [
+                                     x[name] for x in tp["train"]["lumorph2+int8"][
                                          "launches_per_rank"]]},
             "max_abs_err": max(c["max_abs_err"] for c in int8["checks"]),
             "ms": t[BUCKET_N]["ms"], "plain_ms": t[BUCKET_N]["plain_ms"],
@@ -2120,7 +2314,7 @@ def main() -> None:
                       "whisper": whisper, "paligemma": paligemma, "auto": auto,
                       "policies": policies, "kivi": kivi, "dryrun": dry, "roofline": roof,
                       "examples": {k: v for k, v in examples.items() if k != "serve_decode"},
-                      "cross_process": dist_runs,
+                      "cross_process": dist_runs, "model_axis": tp,
                       "phase_s": phase_s,
                       "card": smi, "total_s": time.perf_counter() - t_start}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
@@ -2131,5 +2325,7 @@ def main() -> None:
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--dist-rank"]:
         dist_rank(sys.argv[2])
+    elif sys.argv[1:2] == ["--tp-rank"]:
+        tp_rank(sys.argv[2])
     else:
         main()

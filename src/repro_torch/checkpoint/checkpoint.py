@@ -11,7 +11,12 @@ other's checkpoints; for the same values the files are the same bytes.
     ``.tmp`` one, is never the latest;
   * **retention**: after a write, only the ``keep`` newest steps stay;
   * **restore** takes the structure, dtypes and devices of ``like`` and
-    rejects a leaf that is missing or of another shape.
+    rejects a leaf that is missing or of another shape;
+  * **placed state**: a DTensor leaf (a rank's shard under a model axis) is
+    saved as its full tensor, which every rank of its mesh gathers (a
+    collective) before the one rank that writes does; it is restored by
+    placing the full tensor as ``like``'s leaf is placed, every rank keeping
+    its own shard.
 
 bf16 leaves are stored as numpy writes an ``ml_dtypes.bfloat16`` array
 (header descr ``'<V2'``, the raw bits, dtype ``"bfloat16"`` in the
@@ -28,7 +33,10 @@ from typing import Any, Optional
 import numpy as np
 import torch
 
+from torch.distributed.tensor import DTensor
+
 from repro_torch.bridge import flatten_with_paths
+from repro_torch.sharding.policy import gather_tree, place_like
 from repro_torch.tree import unflatten
 
 Tree = Any
@@ -60,8 +68,14 @@ def _read_leaf(path: Path, dtype: str) -> torch.Tensor:
     return torch.from_numpy(arr)
 
 
-def save(ckpt_dir: str | Path, step: int, state: Tree, keep: int = 3) -> Path:
-    """Atomically write ``state`` (a dict/list/tuple tree of tensors) for ``step``."""
+def save(ckpt_dir: str | Path, step: int, state: Tree, keep: int = 3,
+         write: bool = True) -> Optional[Path]:
+    """Atomically write ``state`` (a dict/list/tuple tree of tensors) for
+    ``step``. DTensor leaves are gathered first, by every rank that calls;
+    only a caller with ``write`` writes."""
+    state = gather_tree(state)
+    if not write:
+        return None
     ckpt_dir = Path(ckpt_dir)
     ckpt_dir.mkdir(parents=True, exist_ok=True)
     tmp = ckpt_dir / f"step_{step:010d}.tmp"
@@ -114,7 +128,8 @@ def restore(ckpt_dir: str | Path, like: Tree,
         if tuple(t.shape) != tuple(leaf.shape):
             raise ValueError(f"{key}: checkpoint shape {tuple(t.shape)} != target "
                              f"{tuple(leaf.shape)}")
-        out.append(t.to(device=leaf.device, dtype=leaf.dtype))
+        t = t.to(device=leaf.device, dtype=leaf.dtype)
+        out.append(place_like(t, leaf) if isinstance(leaf, DTensor) else t)
     return unflatten(like, out), step
 
 

@@ -11,10 +11,11 @@ which ``launch.roofline`` reads:
   * ``memory.argument_bytes`` / ``output_bytes`` — per device: the shard
     bytes of params, optimizer state, batch, caches and outputs under their
     specs (``steps.sharded_struct``). ``temp_bytes`` is ``null``: there is no
-    compiler here and no per-device program (the production meshes need the
-    model axis across devices, ROADMAP Queue 1 item 6(c), which does not
-    exist yet), so there is no number to report, and the record says so
-    under ``temp_bytes_note``.
+    compiler here and no per-device program (each cell is counted once, on
+    the meta device, as one global program; the port's tensor-parallel
+    program runs eagerly across processes and keeps no compiled buffer
+    plan), so there is no number to report, and the record says so under
+    ``temp_bytes_note``.
   * ``cost.flops`` — per device: every executed op counted by
     ``torch.utils.flop_counter`` (matmuls, convolutions, attention; XLA also
     counts elementwise work, so its counts run higher). Each op's count is
@@ -94,8 +95,8 @@ OUT_DIR = Path(__file__).resolve().parents[3] / "experiments" / "dryrun_torch"
 COLLECTIVES = ("all-reduce", "all-gather", "reduce-scatter", "all-to-all",
                "collective-permute")
 COMMS = ("xla", "ring", "lumorph2", "lumorph4", "auto")
-TEMP_BYTES_NOTE = ("no compiler and no per-device program: the port has no model axis "
-                   "across devices yet (ROADMAP Queue 1 item 6(c))")
+TEMP_BYTES_NOTE = ("no compiler and no per-device program: each cell is counted once on "
+                   "the meta device as one global eager program")
 
 #: perf-pass sharding/runtime variants, the JAX dry-run's
 VARIANTS = {

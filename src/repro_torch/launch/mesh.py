@@ -1,5 +1,5 @@
-"""Meshes: the virtual and the process data-parallel meshes, and the
-production mesh shapes.
+"""Meshes: the virtual and the process meshes, and the production mesh
+shapes.
 
 ``VirtualMesh`` is the twin of ``repro.launch.mesh.make_host_mesh(data,
 model)`` for the port's virtual-rank executor: ``data`` ranks held as the
@@ -7,22 +7,28 @@ leading axis of every parameter, optimizer and gradient tensor on one
 device, with a model axis of 1. Its ``shape`` is what the sharding policy
 reads.
 
-``ProcessMesh`` is the same mesh over processes: ``make_host_mesh(data=
-world, model=1)`` with every rank its own process holding its own
-buffers, as each JAX device does under ``shard_map``, for the
-cross-process executor (:mod:`repro_torch.core.collectives_dist`). Its
-backend is the caller's choice and is never switched: ``nccl`` moves
-device tensors as they are and puts no two ranks on one GPU; ``gloo``
-stages every CUDA payload through host memory, so on one card its times
-are those of a host-staged wire, not of a link.
+``ProcessMesh`` is the same mesh over processes, every rank its own
+process holding its own buffers, as each JAX device does. With a model
+axis of 1 it is ``make_host_mesh(data=world, model=1)``, and the
+cross-process executor (:mod:`repro_torch.core.collectives_dist`) runs on
+the world group. :func:`split_model_axis` lays it out as ``data × model``
+(``model = world / data``), row-major as ``make_mesh`` lays out the JAX
+devices: global rank ``r = d·model + m``, so a model group is a run of
+consecutive ranks. It then holds a ``DeviceMesh`` with the dims
+``("data", "model")``, on which the policy's specs place every leaf as a
+DTensor (its model groups carry DTensor's tensor-parallel collectives), and
+this rank's data group (the ranks with its model coordinate), over which
+the gradients are reduced. The backend is the caller's choice and is never
+switched: ``nccl`` moves device tensors as they are and puts no two ranks
+on one GPU; ``gloo`` stages every CUDA payload through host memory, so on
+one card its times are those of a host-staged wire, not of a link.
 
 The production meshes are shapes only (``sharding.policy.MeshShape``):
 single pod, 256 chips as (data=16, model=16); multi-pod, 2 × 256 as (pod=2,
 data=16, model=16), the gradient all-reduce running over ("pod", "data").
-The policy is made and checked on them; running on them needs the model
-axis across devices, which the port does not have yet.
+The policy is made and checked on them; running on them needs 256 or 512
+ranks.
 """
-
 from __future__ import annotations
 
 import dataclasses
@@ -31,6 +37,7 @@ from typing import Optional
 
 import torch
 import torch.distributed as dist
+from torch.distributed.device_mesh import DeviceMesh, init_device_mesh
 
 from repro_torch.device import resolve_device
 from repro_torch.sharding.policy import MeshShape
@@ -64,18 +71,21 @@ NCCL_ONE_RANK_PER_GPU = ("{ranks} ranks on this host but {cards} visible CUDA ca
 class ProcessMesh:
     rank: int
     world: int
-    group: dist.ProcessGroup
+    group: dist.ProcessGroup  # this rank's data group: the gradient reductions'
     backend: str  # "nccl" or "gloo"
     device: torch.device  # this rank's
     axis: str = "data"
+    model: int = 1
+    #: ``("data", "model")`` over the world, where ``model > 1``
+    device_mesh: Optional[DeviceMesh] = None
 
     @property
     def data(self) -> int:
-        return self.world
+        return self.world // self.model
 
     @property
     def shape(self) -> dict[str, int]:
-        return {self.axis: self.world, "model": 1}
+        return {self.axis: self.data, "model": self.model}
 
 
 def launched_by_torchrun() -> bool:
@@ -121,6 +131,22 @@ def init_process_mesh(device="cuda", backend: Optional[str] = None,
                                 world_size=world_size)
     return ProcessMesh(rank=rank, world=world_size, group=dist.group.WORLD, backend=backend,
                        device=dev)
+
+
+def split_model_axis(mesh: ProcessMesh, data: int) -> ProcessMesh:
+    """``mesh`` as ``data × (world / data)``: the ``DeviceMesh``, whose
+    ``"model"`` group DTensor's collectives run on, and this rank's data
+    group as ``group``. Collective: every rank of the world calls it. A
+    width that does not divide the world raises ``ValueError``."""
+    if data < 1 or mesh.world % data:
+        raise ValueError(f"--data-parallel {data} does not divide a world of {mesh.world} ranks")
+    model = mesh.world // data
+    if model == 1:
+        return mesh
+    if mesh.device.type == "cuda":
+        torch.cuda.init()  # else the DeviceMesh picks a card by LOCAL_RANK itself
+    dm = init_device_mesh(mesh.device.type, (data, model), mesh_dim_names=("data", "model"))
+    return dataclasses.replace(mesh, group=dm.get_group("data"), model=model, device_mesh=dm)
 
 
 def make_production_mesh(*, multi_pod: bool = False) -> MeshShape:

@@ -1,9 +1,18 @@
-"""Step builders: data-parallel train, prefill and decode.
+"""Step builders: train, prefill and decode.
 
-The twin of ``repro.launch.steps``. Every step runs eagerly on one device;
-the sharding policy (``sharding.policy``) is checked by the launchers but
-places nothing, because the port's data axis is virtual ranks on that
-device.
+The twin of ``repro.launch.steps``. Every step runs eagerly. On virtual
+ranks and on a process mesh with a model axis of 1 the sharding policy
+(``sharding.policy``) is checked by the launchers but places nothing. On a
+process mesh with a model axis (``launch.mesh.split_model_axis``) every
+parameter, optimizer and batch leaf is a DTensor placed by the policy's
+spec: TP over ``model``, ZeRO-1 moments over ``data`` under ``comm="xla"``.
+The step then runs as the JAX LUMORPH step's ``shard_map`` does, manual over
+the data axis and automatic over the model axis: each data rank runs the
+forward and backward on its own rows with the params as DTensors on its
+model group (DTensor's sharding propagation inserts the tensor-parallel
+collectives, :func:`repro_torch.models.attention.head_local` keeps the
+attention on each rank's own heads), and the gradients are reduced over
+its data group.
 
 The train step runs ``dp`` data-parallel ranks as a leading axis of every
 parameter and optimizer tensor (the virtual-rank executor,
@@ -42,6 +51,8 @@ from typing import Any, Callable, Optional
 
 import torch
 import torch.distributed as dist
+from torch.distributed.tensor import DTensor
+from torch.distributed.tensor.experimental import implicit_replication
 from torch.profiler import record_function
 
 from repro_torch.configs.base import ModelConfig
@@ -50,6 +61,7 @@ from repro_torch.device import resolve_device
 from repro_torch.models import transformer as tf
 from repro_torch.optim import grad_comm
 from repro_torch.optim.adamw import AdamWConfig, adamw_update, init_opt_state
+from repro_torch.sharding.policy import distribute_tree, redistribute
 from repro_torch.tree import leaves, tree_map, unflatten
 
 Tree = Any
@@ -120,16 +132,26 @@ def sharded_struct(tree: Tree, spec_tree: Tree, mesh) -> Tree:
 def init_train_state(cfg: ModelConfig, dp: int, seed: int = 0,
                      device: Optional[torch.device] = None,
                      init_ef: bool = False,
-                     group: Optional[dist.ProcessGroup] = None) -> tuple[Tree, dict]:
+                     group: Optional[dist.ProcessGroup] = None,
+                     policy=None, mesh=None, comm: str = "xla") -> tuple[Tree, dict]:
     """Random params from ``seed``, replicated over ``dp`` ranks (leading
     axis), with zero AdamW moments, an int32 step per rank and, with
     ``init_ef``, zero fp32 error-feedback buffers.
 
     Given a process ``group`` of ``dp`` ranks, every rank builds its own
     copy from the same seed with no rank axis, as the JAX state is
-    replicated, and the copies are checked equal once, by a checksum."""
+    replicated, and the copies are checked equal once, by a checksum.
+
+    On a process ``mesh`` with a model axis, every rank builds the full
+    params from the seed, as above, and keeps only its shard under
+    ``policy``'s param specs, which gives JAX ``init_sharded_state``'s
+    numbers. The moments follow the opt specs (ZeRO-1) under ``comm="xla"``
+    and the param specs on the LUMORPH comms, whose JAX step replicates them
+    over data; the error-feedback buffers follow the param specs."""
     dev = resolve_device(device)
     one = tf.init_params(torch.Generator(device=dev).manual_seed(seed), cfg)
+    if _model_axis(mesh):
+        return _placed_state(cfg, one, policy, mesh, init_ef, comm)
     if group is not None:
         _check_replicas(one, group)
         params, lead = one, ()
@@ -140,6 +162,34 @@ def init_train_state(cfg: ModelConfig, dp: int, seed: int = 0,
     if init_ef:
         opt["ef"] = tree_map(lambda t: torch.zeros(t.shape, dtype=torch.float32,
                                                    device=t.device), params)
+    return params, opt
+
+
+def _model_axis(mesh) -> bool:
+    return getattr(mesh, "model", 1) > 1
+
+
+def _placed_state(cfg: ModelConfig, full: Tree, policy, mesh, init_ef: bool,
+                  comm: str) -> tuple[Tree, dict]:
+    _check_replicas(full, mesh.device_mesh.get_group("model"))
+    _check_replicas(full, mesh.group)
+    dm = mesh.device_mesh
+    shapes = tf.param_shapes(cfg)
+    p_specs = policy.param_specs(shapes)
+    params = distribute_tree(full, p_specs, dm)
+    del full
+    o_specs = policy.opt_specs(opt_shapes(cfg, shapes))
+    m_specs = o_specs["m"] if comm == "xla" else p_specs
+
+    def zeros(specs):
+        return distribute_tree(tree_map(lambda t: torch.zeros(t.shape, dtype=torch.float32,
+                                                              device=mesh.device), shapes),
+                               specs, dm)
+    opt = {"m": zeros(m_specs), "v": zeros(m_specs),
+           "step": distribute_tree(torch.zeros((), dtype=torch.int32, device=mesh.device),
+                                   o_specs["step"], dm)}
+    if init_ef:
+        opt["ef"] = zeros(p_specs)
     return params, opt
 
 
@@ -166,7 +216,8 @@ def make_train_step(cfg: ModelConfig, opt_cfg: Optional[AdamWConfig] = None,
                     compress: bool = False, wire_dtype: torch.dtype = torch.bfloat16,
                     microbatches: int = 1, overlap_chunks: int = 1,
                     device: Optional[torch.device] = None,
-                    group: Optional[dist.ProcessGroup] = None) -> Callable:
+                    group: Optional[dist.ProcessGroup] = None,
+                    policy=None, mesh=None) -> Callable:
     """``step(params, opt_state, batch) -> (params, opt_state, loss)``.
 
     Rank ``r`` takes the contiguous rows ``[r·B/dp, (r+1)·B/dp)`` of the
@@ -180,6 +231,14 @@ def make_train_step(cfg: ModelConfig, opt_cfg: Optional[AdamWConfig] = None,
     ``overlap_chunks > 1`` (LUMORPH comms; ignored by ``xla``) runs every
     bucket's collective as that many chunked waves (overlap mode).
     After each call ``step.bucket_log`` holds the last (bytes, algo) log.
+
+    On a process ``mesh`` with a model axis (``group`` is then its data
+    group, of ``dp`` ranks), the state is :func:`init_train_state`'s placed
+    one and ``policy`` gives the batch specs: the batch is ``Shard(0)`` on
+    data and replicated on model. ``comm="xla"`` reduces the gradients over
+    the data group with ``dist.all_reduce``, as GSPMD's psum; the LUMORPH
+    comms bucket the global gradient and reduce each rank's model shard of
+    every bucket over its data group.
     """
     if comm not in COMMS:
         raise ValueError(f"unknown comm {comm!r}; have {COMMS}")
@@ -187,6 +246,11 @@ def make_train_step(cfg: ModelConfig, opt_cfg: Optional[AdamWConfig] = None,
         raise ValueError(f"the step has {dp} ranks, the group {dist.get_world_size(group)}")
     opt_cfg = opt_cfg or AdamWConfig()
     dev = resolve_device(device)
+
+    model_axis = _model_axis(mesh)
+    if model_axis and policy.zero3:
+        raise NotImplementedError(f"{cfg.name}'s policy shards params over the data axes "
+                                  "(ZeRO-3): the port's step does not run it (ROADMAP)")
 
     def grad_fn(params, batch) -> tuple[torch.Tensor, list[torch.Tensor]]:
         plist = leaves(params)
@@ -197,7 +261,7 @@ def make_train_step(cfg: ModelConfig, opt_cfg: Optional[AdamWConfig] = None,
         if b % microbatches:
             raise ValueError(f"{b} rows per rank do not split into {microbatches} microbatches")
         loss_acc = torch.zeros((), dtype=torch.float32, device=dev)
-        g_acc = [torch.zeros(p.shape, dtype=torch.float32, device=dev) for p in plist]
+        g_acc = [torch.zeros_like(p, dtype=torch.float32) for p in plist]
         for i in range(microbatches):
             mb = {k: v.reshape(microbatches, b // microbatches, *v.shape[1:])[i]
                   for k, v in batch.items()}
@@ -214,6 +278,8 @@ def make_train_step(cfg: ModelConfig, opt_cfg: Optional[AdamWConfig] = None,
         if b % dp:
             raise ValueError(f"global batch {b} does not split over {dp} ranks")
         rows = b // dp
+        if model_axis:
+            return placed_step(params, opt_state, batch)
         with record_function("train/forward_backward"):
             if group is not None:
                 loss, grads = local_grads(params, batch, rows)
@@ -266,8 +332,59 @@ def make_train_step(cfg: ModelConfig, opt_cfg: Optional[AdamWConfig] = None,
         losses = collectives_dist.Wire(group).all_gather(loss_r)
         return torch.stack(losses).sum() / dp, grads
 
+    def placed_step(params, opt_state, batch):
+        dm = mesh.device_mesh
+        batch = distribute_tree(batch, policy.batch_specs(batch), dm)
+        plist = leaves(params)
+        with record_function("train/forward_backward"):
+            # manual over data: this data rank's rows, and every leaf on the model group
+            p_m = unflatten(params, [on_model(p).detach().requires_grad_() for p in plist])
+            with implicit_replication():  # the positions, masks and constants the model makes
+                loss_r, grads = grad_fn(p_m, {k: on_model(v) for k, v in batch.items()})
+            grads = [redistribute(g, [p.placements[1]]).to_local() for g, p in zip(grads, plist)]
+            losses = collectives_dist.Wire(group).all_gather(loss_r.to_local())
+            loss = torch.stack(losses).sum() / dp
+        new_ef = None
+        with record_function("train/grad_comm"):
+            if comm == "xla":
+                grads = [collectives_dist.all_reduce(g, "psum", group) / dp for g in grads]
+            else:
+                ef = opt_state.get("ef")
+                red, new_ef, step.bucket_log = grad_comm.all_reduce_grads(
+                    unflatten(params, grads), algo=comm, bucket_bytes=bucket_bytes,
+                    compress=compress, wire_dtype=wire_dtype, overlap_chunks=overlap_chunks,
+                    error_feedback=None if ef is None else tree_map(lambda e: e.to_local(), ef),
+                    group=group, shards=[_shard_of(p) for p in plist])
+                grads = leaves(red)
+        grads = unflatten(params, [DTensor.from_local(g, dm, p.placements, run_check=False)
+                                   for g, p in zip(grads, plist)])
+        core = {k: v for k, v in opt_state.items() if k != "ef"}
+        with record_function("train/adamw"):
+            params, core = adamw_update(params, grads, core, opt_cfg)
+        if new_ef is not None:
+            core["ef"] = tree_map(lambda e, like: DTensor.from_local(
+                e, dm, like.placements, run_check=False), new_ef, opt_state["ef"])
+        return params, core, loss
+
     step.bucket_log = []
     return step
+
+
+def on_model(t: DTensor) -> DTensor:
+    """A leaf of the ``(data, model)`` mesh as a DTensor on this rank's model
+    group, its local tensor unchanged: this data rank's own copy (a param
+    replicated over data) or rows (a batch sharded over data)."""
+    dm = t.device_mesh
+    return DTensor.from_local(t.to_local(), dm["model"], [t.placements[1]], run_check=False)
+
+
+def _shard_of(t: DTensor) -> grad_comm.Shard:
+    """Where ``t``'s local tensor lies in the global leaf."""
+    off = [0] * t.dim()
+    for i, pl in enumerate(t.placements):
+        if pl.is_shard():
+            off[pl.dim] += t.device_mesh.get_local_rank(i) * t.to_local().shape[pl.dim]
+    return grad_comm.Shard(tuple(t.shape), tuple(off))
 
 
 # ---------------------------------------------------------------------------
@@ -275,15 +392,47 @@ def make_train_step(cfg: ModelConfig, opt_cfg: Optional[AdamWConfig] = None,
 # ---------------------------------------------------------------------------
 
 
-def make_prefill(cfg: ModelConfig, device: Optional[torch.device] = None) -> Callable:
-    """``prefill(params, batch) -> logits [B,S,V]`` on ``device`` (default cuda)."""
+def make_prefill(cfg: ModelConfig, device: Optional[torch.device] = None,
+                 policy=None, mesh=None) -> Callable:
+    """``prefill(params, batch) -> logits [B,S,V]`` on ``device`` (default cuda).
+
+    On a process ``mesh`` with a model axis, tensor-parallel: the params are
+    placed by ``policy``'s param specs (full tensors on the way in, every
+    rank keeping its shard; placed ones as they are), the batch is
+    ``Shard(0)`` on data, and each data rank runs its rows on its model
+    group, every rank's attention on its own heads (with ``cfg.use_pallas``,
+    the flash kernel on the local ``[B, S, H/tp, D]``). The logits come back
+    as a DTensor on the mesh (vocab-sharded where ``lm_head`` is);
+    ``full_tensor()``, collective, gathers them."""
     dev = resolve_device(device)
+    if _model_axis(mesh):
+        return _placed_prefill(cfg, policy, mesh)
 
     @torch.inference_mode()
     def prefill(params, batch):
         batch = {k: v.to(dev) for k, v in batch.items()}
         logits, _ = tf.forward_logits(params, batch, cfg)
         return logits
+
+    return prefill
+
+
+def _placed_prefill(cfg: ModelConfig, policy, mesh) -> Callable:
+    dm = mesh.device_mesh
+    p_specs = policy.param_specs(tf.param_shapes(cfg))
+
+    @torch.no_grad()  # not inference mode: DTensor views of placed params need versions
+    def prefill(params, batch):
+        if not isinstance(leaves(params)[0], DTensor):
+            params = distribute_tree(params, p_specs, dm)
+        batch = {k: v.to(mesh.device) for k, v in batch.items()}
+        batch = distribute_tree(batch, policy.batch_specs(batch), dm)
+        with implicit_replication():
+            logits, _ = tf.forward_logits(tree_map(on_model, params),
+                                          {k: on_model(v) for k, v in batch.items()}, cfg)
+        data = batch["tokens"].placements[0]
+        return DTensor.from_local(logits.to_local(), dm, [data, logits.placements[0]],
+                                  run_check=False)
 
     return prefill
 

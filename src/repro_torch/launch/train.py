@@ -7,37 +7,43 @@ restarting from the latest checkpoint. It runs on ``cuda`` unless given
 ``--device cpu``; ``--smoke`` takes the reduced config. ``--comm auto``
 picks each gradient bucket's schedule from the α–β cost model.
 
-Two data-parallel meshes (:mod:`repro_torch.launch.mesh`):
+Two meshes (:mod:`repro_torch.launch.mesh`):
   * launched by ``torchrun`` (or with a process group already made), every
     rank is its own process and the gradient collectives cross processes
-    (:mod:`repro_torch.core.collectives_dist`). ``--data-parallel 0`` is the
-    world size, and any other width exits: the port has no model axis
-    across devices yet (ROADMAP Queue 1 item 6(c)). ``--dist-backend`` is
-    ``nccl`` on ``cuda`` and ``gloo`` on ``cpu`` unless given; on one card
-    only ``gloo`` runs several ranks, its payloads staged through host
-    memory. Rank 0 prints the result and writes the checkpoints;
+    (:mod:`repro_torch.core.collectives_dist`). ``--data-parallel D`` for a
+    D that divides the world lays the ranks out as data D × model
+    world / D, as the JAX trainer lays out its devices; 0 is the world
+    (model 1), and a D that does not divide exits. Under a model axis every
+    leaf is a DTensor placed by the sharding policy (TP over model, ZeRO-1
+    moments over data under ``--comm xla``), and the gradients are reduced
+    over each rank's data group. ``--dist-backend`` is ``nccl`` on ``cuda``
+    and ``gloo`` on ``cpu`` unless given; on one card only ``gloo`` runs
+    several ranks, its payloads staged through host memory. Rank 0 prints
+    the result and writes the checkpoints;
   * otherwise ``--data-parallel`` virtual ranks on one device.
 
 The sharding policy is made on the mesh and checked: every spec of every
 parameter and optimizer leaf must divide. With ``--mesh single|multi`` the
 trainer makes and checks the policy of the production mesh and then
-exits: running on it needs 256 or 512 ranks and the model axis across
-devices (ROADMAP Queue 1 item 6(c)).
+exits: running on it needs 256 or 512 ranks.
 
 Checkpoints hold rank 0's params and optimizer state, and a restore gives
 every rank that copy, as the JAX trainer does: its ``save`` writes
 ``jax.device_get`` of the replicated state, which is device 0's copy, and
 its restored state is replicated. Under ``--compress`` the ranks differ,
-so a restart makes them equal again.
+so a restart makes them equal again. Under a model axis the checkpoint
+holds full tensors, gathered by every rank and written by rank 0, and a
+restore places them again by the specs.
 
 Example (the paper's regime: BERT, data-parallel, LUMORPH-4 collectives,
 chunked into 4 overlapped waves per bucket, with checkpoints):
   PYTHONPATH=src python -m repro_torch.launch.train --arch bert-large \\
       --comm lumorph4 --overlap 4 --data-parallel 4 --steps 6 --batch 8 \\
       --seq 128 --ckpt-dir /tmp/ck --ckpt-every 3
-The same with every rank its own process, four of them on the CPU:
+The same with every rank its own process, four of them on the CPU, laid
+out as data 2 × model 2:
   PYTHONPATH=src torchrun --nproc-per-node 4 -m repro_torch.launch.train \\
-      --arch bert-large --smoke --device cpu --data-parallel 0 --comm lumorph4
+      --arch bert-large --smoke --device cpu --data-parallel 2 --comm lumorph4
 """
 
 from __future__ import annotations
@@ -58,19 +64,17 @@ from repro_torch.data.pipeline import DataConfig, stream
 from repro_torch.device import resolve_device
 from repro_torch.launch import steps as steps_lib
 from repro_torch.launch.mesh import (ProcessMesh, init_process_mesh, launched_by_torchrun,
-                                     make_host_mesh, make_production_mesh)
+                                     make_host_mesh, make_production_mesh, split_model_axis)
 from repro_torch.models.transformer import param_shapes
 from repro_torch.optim.adamw import AdamWConfig
 from repro_torch.sharding.policy import make_policy
 from repro_torch.tree import tree_map
 
-NO_MODEL_AXIS = ("the sharding policy of the {mesh} production mesh {shape} is valid for "
-                 "{arch} (tp={tp}, dp={dp}, zero3={zero3}); training on it needs "
-                 "{ranks} ranks and the model axis across devices (ROADMAP Queue 1 item "
-                 "6(c)): the port's process mesh is data-parallel only")
-DP_NOT_WORLD = ("--data-parallel {dp} in a world of {world} ranks: the other {rest} ranks "
-                "would form a model axis across devices, which the port does not have yet "
-                "(ROADMAP Queue 1 item 6(c)); pass --data-parallel 0 or {world}")
+MESH_NEEDS_RANKS = ("the sharding policy of the {mesh} production mesh {shape} is valid for "
+                    "{arch} (tp={tp}, dp={dp}, zero3={zero3}); training on it needs {ranks} "
+                    "ranks, one per card")
+DP_NOT_DIVIDES = ("--data-parallel {dp} does not divide a world of {world} ranks: the model "
+                  "axis is world / data ranks wide; pass a divisor of {world} (0: the world)")
 
 
 def checked_policy(cfg, mesh):
@@ -115,8 +119,9 @@ def main(argv=None) -> dict:
     ap.add_argument("--ckpt-every", type=int, default=50)
     ap.add_argument("--mesh", default="host", choices=["host", "single", "multi"])
     ap.add_argument("--data-parallel", type=int, default=0,
-                    help="dp ranks: under torchrun 0 or the world size; else virtual "
-                         "ranks (0 = one per visible device)")
+                    help="dp ranks: under torchrun a divisor of the world, the rest "
+                         "forming the model axis (0 = the world); else virtual ranks "
+                         "(0 = one per visible device)")
     ap.add_argument("--dist-backend", default=None, choices=["nccl", "gloo"],
                     help="process-group backend under torchrun (default: nccl on cuda, "
                          "gloo on cpu; gloo stages CUDA payloads through host memory)")
@@ -133,17 +138,17 @@ def main(argv=None) -> dict:
     if args.mesh != "host":
         mesh = make_production_mesh(multi_pod=(args.mesh == "multi"))
         policy = checked_policy(cfg, mesh)
-        raise SystemExit(NO_MODEL_AXIS.format(
+        raise SystemExit(MESH_NEEDS_RANKS.format(
             mesh=args.mesh, shape=mesh.shape, arch=cfg.name, tp=policy.tp, dp=policy.dp,
             zero3=policy.zero3, ranks=math.prod(mesh.axis_sizes)))
     if launched_by_torchrun():
         made_group = not dist.is_initialized()
         mesh = init_process_mesh(args.device, args.dist_backend)
         try:
-            if args.data_parallel not in (0, mesh.world):
-                raise SystemExit(DP_NOT_WORLD.format(dp=args.data_parallel, world=mesh.world,
-                                                     rest=mesh.world - args.data_parallel))
-            return _train(args, cfg, mesh)
+            if args.data_parallel < 0 or (args.data_parallel and
+                                          mesh.world % args.data_parallel):
+                raise SystemExit(DP_NOT_DIVIDES.format(dp=args.data_parallel, world=mesh.world))
+            return _train(args, cfg, split_model_axis(mesh, args.data_parallel or mesh.world))
         finally:
             if made_group:
                 dist.destroy_process_group()
@@ -156,17 +161,19 @@ def _train(args, cfg, mesh) -> dict:
     """The training loop on a virtual or a process mesh."""
     group = mesh.group if isinstance(mesh, ProcessMesh) else None
     lead = group is None or mesh.rank == 0  # prints, and writes the checkpoints
-    checked_policy(cfg, mesh)
+    policy = checked_policy(cfg, mesh)
+    placed = getattr(mesh, "model", 1) > 1
     opt_cfg = AdamWConfig(lr=args.lr, total_steps=args.steps,
                           warmup_steps=max(1, args.steps // 20))
     train_step = steps_lib.make_train_step(
         cfg, opt_cfg, comm=args.comm, dp=mesh.data,
         bucket_bytes=args.bucket_mb * 1024 * 1024, compress=args.compress,
         wire_dtype=torch_dtype(args.wire_dtype), overlap_chunks=args.overlap,
-        device=mesh.device, group=group)
+        device=mesh.device, group=group, policy=policy, mesh=mesh)
     params, opt_state = steps_lib.init_train_state(
         cfg, mesh.data, args.seed, mesh.device,
-        init_ef=args.compress and args.comm != "xla", group=group)
+        init_ef=args.compress and args.comm != "xla", group=group, policy=policy, mesh=mesh,
+        comm=args.comm)
 
     start_step = 0
     if args.ckpt_dir and ckpt_lib.latest_step(args.ckpt_dir) is not None:
@@ -200,10 +207,9 @@ def _train(args, cfg, mesh) -> dict:
         if args.ckpt_dir and (step + 1) % args.ckpt_every == 0:
             if group is None:
                 ckpt_lib.save(args.ckpt_dir, step + 1, _rank0((params, opt_state)))
-            else:
-                if lead:
-                    ckpt_lib.save(args.ckpt_dir, step + 1, (params, opt_state))
-                dist.barrier(group=group)  # no rank reads a checkpoint half written
+            else:  # under a model axis every rank gathers, and rank 0 writes
+                ckpt_lib.save(args.ckpt_dir, step + 1, (params, opt_state), write=lead)
+                dist.barrier()  # no rank reads a checkpoint half written
     result = {"final_loss": losses[-1] if losses else None,
               "first_loss": losses[0] if losses else None,
               "steps": len(losses), "comm": args.comm,
@@ -211,6 +217,8 @@ def _train(args, cfg, mesh) -> dict:
               "step_s": statistics.median(step_s) if step_s else None}
     if group is not None:
         result.update(world=mesh.world, dist_backend=mesh.backend)
+        if placed:
+            result.update(data=mesh.data, model=mesh.model)
     if lead:
         print(json.dumps(result))
     return result

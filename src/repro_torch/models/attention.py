@@ -16,6 +16,10 @@ updates the cache in place (an eager program gains nothing from a copy).
 MLA (DeepSeek-V2's multi-head latent attention) takes the dense or chunked
 path only, as in the JAX package: its query/key dim (nope + rope) differs
 from its value dim, and the kernel takes one head dim.
+
+Under tensor parallelism (DTensor params, the heads sharded over the model
+axis) the standard block's attention core runs on each rank's own heads
+(:func:`head_local`).
 """
 
 from __future__ import annotations
@@ -24,11 +28,13 @@ import math
 from typing import Optional
 
 import torch
+from torch.distributed.tensor import DTensor, Partial
+from torch.distributed.tensor.experimental import local_map
 
 from repro_torch.kernels import ops as kops
 from repro_torch.kernels.ref import RECIP_127
 from repro_torch.models import loop_fold
-from repro_torch.models.layers import apply_rope, dense_init
+from repro_torch.models.layers import apply_rope, dense_init, reduced, whole_grad
 
 Tensor = torch.Tensor
 
@@ -192,20 +198,64 @@ def attention_forward(p: dict, x: Tensor, positions: Tensor, cfg,
         raise NotImplementedError(
             "the flash-attention kernel takes causal/bidirectional masks on indices "
             "from 0 only; a prefix mask or explicit kv_positions needs the dense path")
-    xkv = x if xkv is None else xkv
+    x = whole_grad(x)
+    xkv = x if xkv is None else whole_grad(xkv)
     kv_positions = positions if kv_positions is None else kv_positions
     q, k, v = _project_qkv(p, x, xkv, positions, kv_positions, cfg)
     window = cfg.sliding_window if mask_kind == "causal" else None
-    if use_pallas:
-        out = kops.flash_attention(q.contiguous(), k.contiguous(), v.contiguous(),
-                                   causal=(mask_kind == "causal"), window=window)
-    elif x.shape[1] * xkv.shape[1] > cfg.dense_attn_limit:
-        out = chunked_attention(q, k, v, positions, kv_positions, mask_kind,
-                                window, prefix_len, chunk=cfg.attn_chunk)
-    else:
+
+    def core(q, k, v):
+        if use_pallas:
+            return kops.flash_attention(q.contiguous(), k.contiguous(), v.contiguous(),
+                                        causal=(mask_kind == "causal"), window=window)
+        if x.shape[1] * xkv.shape[1] > cfg.dense_attn_limit:
+            return chunked_attention(q, k, v, positions, kv_positions, mask_kind,
+                                     window, prefix_len, chunk=cfg.attn_chunk)
         mask = build_mask(positions, kv_positions, mask_kind, window, prefix_len)
-        out = dense_attention(q, k, v, mask)
-    return torch.einsum("bshk,hkd->bsd", out, p["wo"].to(x.dtype))
+        return dense_attention(q, k, v, mask)
+
+    out = head_local(core, q, k, v) if isinstance(q, DTensor) else core(q, k, v)
+    return reduced(torch.einsum("bshk,hkd->bsd", out, p["wo"].to(x.dtype)))
+
+
+def head_local(core, q: Tensor, k: Tensor, v: Tensor) -> Tensor:
+    """``core(q, k, v)`` on each rank's own query heads, for DTensor ``q``,
+    ``k``, ``v`` [B, S, H|KV, D] under tensor parallelism.
+
+    The core (the kernel, chunked or dense) runs inside ``local_map`` on the
+    local tensors, with the masks, positions and rope tables it makes for
+    itself; its output is placed as ``q`` is. Where the heads are sharded
+    and the KV heads are not (``n_kv_heads % tp != 0``: the policy
+    replicates ``wk``/``wv``), each rank hands the core the KV heads that its
+    own query heads read, ``h // (H/KV)``, sliced from the full set, so that
+    the core's local map ``h // (H_local/KV_local)`` reads the same keys; the
+    gradient of the full set is then a partial sum over the ranks."""
+    if any(pl.is_partial() for t in (q, k, v) for pl in t.placements):
+        raise ValueError("attention takes whole q/k/v: reduce the layer's input first")
+    h, kv = q.shape[2], k.shape[2]
+    sliced = [i for i, (pq, pk) in enumerate(zip(q.placements, k.placements))
+              if pq.is_shard(2) and not pk.is_shard(2)]
+    if not sliced:
+        fn, kv_grad = core, k.placements
+    else:
+        [i] = sliced
+        n = q.device_mesh.size(i)
+        local_h = h // n
+        first = q.device_mesh.get_local_rank(i) * local_h
+        idx = [(first + j) // (h // kv) for j in range(local_h)]
+        heads = sorted(set(idx))
+        if local_h % len(heads) == 0 and idx == [u for u in heads
+                                                   for _ in range(local_h // len(heads))]:
+            pick = slice(heads[0], heads[-1] + 1)  # KV_local heads at the same ratio
+        else:
+            pick = idx  # one KV head per query head
+
+        def fn(q, k, v):
+            return core(q, k[:, :, pick], v[:, :, pick])
+        kv_grad = tuple(Partial() if j == i else pl for j, pl in enumerate(k.placements))
+    return local_map(fn, out_placements=list(q.placements),  # a tuple would mean one per output
+                     in_placements=(q.placements, k.placements, v.placements),
+                     in_grad_placements=(q.placements, kv_grad, kv_grad))(q, k, v)
 
 
 # ---------------------------------------------------------------------------

@@ -3,6 +3,11 @@
 Numerically the twin of ``repro.models.layers``: fp32 norm statistics,
 interleaved RoPE lanes, whisper's sinusoidal positions, weights cast to the
 activation dtype on every call.
+
+Under tensor parallelism the params are DTensors and these functions run
+on them as they are; :func:`reduced` and :func:`whole_grad` are the
+all-reduces of Megatron's row- and column-parallel products (forward and
+backward), and the loss gathers vocab-sharded logits.
 """
 
 from __future__ import annotations
@@ -12,6 +17,9 @@ from typing import Optional
 
 import torch
 import torch.nn.functional as F
+from torch.distributed.tensor import DTensor, Replicate
+
+from repro_torch.sharding.policy import redistribute, replicated
 
 Tensor = torch.Tensor
 
@@ -39,6 +47,36 @@ def dense_init(gen: torch.Generator, shape: tuple[int, ...], scale: float = 1.0,
 def embed_init(gen: torch.Generator, shape: tuple[int, int], dtype=torch.float32) -> Tensor:
     x = torch.randn(shape, generator=gen, device=gen.device, dtype=torch.float32)
     return (x * 0.02).to(dtype)
+
+
+def reduced(x: Tensor) -> Tensor:
+    """``x`` with its partial sums over mesh axes added up: under tensor
+    parallelism, the all-reduce after a row-parallel product (the attention's
+    and the MLP's output projections, a vocab-sharded lookup), so that the
+    next layer reads whole activations and its column-parallel products stay
+    sharded. Any other tensor is returned as it is."""
+    if isinstance(x, DTensor) and any(p.is_partial() for p in x.placements):
+        return redistribute(x, [Replicate() if p.is_partial() else p for p in x.placements])
+    return x
+
+
+def whole_grad(x: Tensor) -> Tensor:
+    """``x``, whose gradient has its partial sums over mesh axes added up in
+    the backward pass: under tensor parallelism, the all-reduce of a
+    column-parallel product's input gradient, so that the gradients of the
+    activations stay whole and the row-parallel products' backward stays
+    sharded. Any other tensor is returned as it is."""
+    return _WholeGrad.apply(x) if isinstance(x, DTensor) else x
+
+
+class _WholeGrad(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x):
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return reduced(g)
 
 
 # ---------------------------------------------------------------------------
@@ -141,6 +179,7 @@ def init_mlp(gen: torch.Generator, d: int, d_ff: int, style: str, dtype=torch.fl
 
 
 def apply_mlp(p: dict, x: Tensor, style: str) -> Tensor:
+    x = whole_grad(x)
     dt = x.dtype
     if style == "swiglu":
         h = F.silu(x @ p["wg"].to(dt)) * (x @ p["wi"].to(dt))
@@ -148,7 +187,7 @@ def apply_mlp(p: dict, x: Tensor, style: str) -> Tensor:
         h = F.gelu(x @ p["wg"].to(dt), approximate="tanh") * (x @ p["wi"].to(dt))
     else:
         h = F.gelu(x @ p["wi"].to(dt), approximate="tanh")
-    return h @ p["wo"].to(dt)
+    return reduced(h @ p["wo"].to(dt))
 
 
 # ---------------------------------------------------------------------------
@@ -156,7 +195,10 @@ def apply_mlp(p: dict, x: Tensor, style: str) -> Tensor:
 # ---------------------------------------------------------------------------
 
 def cross_entropy(logits: Tensor, targets: Tensor, mask: Optional[Tensor] = None) -> Tensor:
-    """Mean token cross-entropy; logits promoted to fp32."""
+    """Mean token cross-entropy; logits promoted to fp32. Vocab-sharded
+    logits (a DTensor) are gathered first: the softmax reads every entry."""
+    if isinstance(logits, DTensor):
+        logits = replicated(logits)
     logp = torch.log_softmax(logits.float(), dim=-1)
     nll = -torch.gather(logp, -1, targets[..., None].long())[..., 0]
     if mask is not None:

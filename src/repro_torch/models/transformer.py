@@ -22,6 +22,13 @@ the encoder's output; both attentions of a decoder block stay dense, as in
 JAX. PaliGemma (``kind="vlm"``) puts stub image embeddings in front of the
 scaled token embeddings under a prefix-LM mask, which the kernel cannot
 take, so it runs dense.
+
+The dense decoder runs tensor-parallel on DTensor params placed by the
+sharding policy (``launch.steps`` on a process mesh with a model axis):
+the tensors it makes for itself (positions, masks, rope tables, zeros)
+enter as replicated DTensors under ``implicit_replication``, and the
+attention core makes its own inside ``local_map``. A vocab-sharded
+embedding is looked up by DTensor's masked rule (:func:`_lookup`).
 """
 
 from __future__ import annotations
@@ -29,6 +36,7 @@ from __future__ import annotations
 from typing import Any
 
 import torch
+from torch.distributed.tensor import DTensor
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
@@ -36,7 +44,8 @@ from repro_torch.models import attention as attn
 from repro_torch.models import moe as moe_lib
 from repro_torch.models import ssm
 from repro_torch.models.layers import (apply_mlp, apply_norm, cross_entropy, dense_init,
-                                       embed_init, init_mlp, init_norm, sinusoidal_positions)
+                                       embed_init, init_mlp, init_norm, reduced, whole_grad,
+                                       sinusoidal_positions)
 
 Tensor = torch.Tensor
 Params = Any  # nested dict/list of tensors, shaped like the JAX pytree
@@ -251,7 +260,7 @@ def forward_logits(params: Params, batch: dict, cfg: ModelConfig) -> tuple[Tenso
     cdt = cfg.cdtype
     tokens = batch["tokens"]
     b, s = tokens.shape
-    x = params["embed"][tokens].to(cdt)
+    x = _lookup(params["embed"], tokens).to(cdt)
     if cfg.scale_embeddings:
         x = x * torch.tensor(cfg.d_model ** 0.5, dtype=cdt)
     mask_kind, prefix_len = "causal", 0
@@ -280,7 +289,18 @@ def forward_logits(params: Params, batch: dict, cfg: ModelConfig) -> tuple[Tenso
     return _unembed(params, x, cfg), aux
 
 
+def _lookup(table: Tensor, tokens: Tensor) -> Tensor:
+    """The embedding rows of ``tokens``. A vocab-sharded table (a DTensor)
+    takes DTensor's embedding rule, each rank reading its own rows with the
+    rest masked to zero, and the partial rows are then added up: the same
+    values as indexing the full table."""
+    if isinstance(table, DTensor):
+        return reduced(torch.nn.functional.embedding(tokens, table))
+    return table[tokens]
+
+
 def _unembed(params: Params, x: Tensor, cfg: ModelConfig) -> Tensor:
+    x = whole_grad(x)
     if cfg.tie_embeddings:
         return torch.einsum("bsd,vd->bsv", x, params["embed"].to(x.dtype))
     return x @ params["lm_head"].to(x.dtype)
@@ -486,7 +506,7 @@ def decode_step(params: Params, caches: list, tokens: Tensor, position: int,
     the sinusoidal position ``position`` to the embedding; a vlm decodes text
     only (no image prefix), as the JAX serving launcher does."""
     cdt = cfg.cdtype
-    x = params["embed"][tokens].to(cdt)
+    x = _lookup(params["embed"], tokens).to(cdt)
     if cfg.scale_embeddings:
         x = x * torch.tensor(cfg.d_model ** 0.5, dtype=cdt)
     if cfg.kind == "encdec":

@@ -8,6 +8,12 @@ Every leaf may carry leading rank axes: ``state["step"]`` has exactly
 those axes (``[]`` for one replica, ``[p]`` for the port's virtual data-
 parallel ranks), and the norm, the clip factor, the learning rate and the
 bias corrections are taken per rank and broadcast over each leaf.
+
+Under tensor parallelism every leaf is a DTensor placed by the sharding
+policy: the norm adds each leaf's squares over all its shards and counts a
+replicated leaf once, and each leaf is updated on its moments' placement
+(ZeRO-1's data shards under ``--comm xla``), its param gathered back to its
+own placement after.
 """
 
 from __future__ import annotations
@@ -18,7 +24,9 @@ import math
 from typing import Any
 
 import torch
+from torch.distributed.tensor import DTensor, Partial, Replicate
 
+from repro_torch.sharding.policy import redistribute
 from repro_torch.tree import leaves, tree_map, unflatten
 
 Tensor = torch.Tensor
@@ -69,10 +77,33 @@ def global_norm(tree: Tree, lead: int = 0) -> Tensor:
     so a virtual rank rounds as a process holding only that rank's leaves
     does."""
     ls = leaves(tree)
+    if isinstance(ls[0], DTensor):
+        return _placed_norm(ls)
     shape = ls[0].shape[:lead]
     norms = [torch.sqrt(sum(torch.sum(torch.square(g[idx].float())) for g in ls))
              for idx in itertools.product(*map(range, shape))]
     return torch.stack(norms).reshape(shape)
+
+
+def _placed_norm(ls: list[DTensor]) -> Tensor:
+    """√Σ g² over DTensor leaves, as a plain scalar on every rank: each
+    leaf's squares summed over its local shard, the shards' sums added over
+    the mesh dims that shard it, and a leaf replicated over a dim counted
+    once (only its coordinate-0 copy is added). One all-reduce per mesh dim
+    that shards any leaf; the sum over leaves then runs in leaf order."""
+    mesh = ls[0].device_mesh
+    sums = torch.stack([torch.sum(torch.square(g.to_local().float())) for g in ls])
+    for dim in range(mesh.ndim):
+        sharded = [g.placements[dim].is_shard() for g in ls]
+        if not any(sharded):
+            continue
+        if mesh.get_local_rank(dim):
+            sums = sums * torch.tensor(sharded, dtype=sums.dtype, device=sums.device)
+        place = [Replicate()] * mesh.ndim
+        place[dim] = Partial()
+        sums = redistribute(DTensor.from_local(sums, mesh, place, run_check=False),
+                            [Replicate()] * mesh.ndim).to_local()
+    return torch.sqrt(sum(sums.unbind()))
 
 
 def _per_leaf(s: Tensor, like: Tensor) -> Tensor:
@@ -82,7 +113,8 @@ def _per_leaf(s: Tensor, like: Tensor) -> Tensor:
 
 def adamw_update(params: Tree, grads: Tree, state: dict,
                  cfg: AdamWConfig) -> tuple[Tree, dict]:
-    step = state["step"] + 1
+    placed = isinstance(state["step"], DTensor)
+    step = (state["step"].to_local() if placed else state["step"]) + 1
     lead = step.dim()
     gn = global_norm(grads, lead)
     clip = torch.clamp(cfg.grad_clip / torch.clamp(gn, min=1e-9), max=1.0)
@@ -91,6 +123,9 @@ def adamw_update(params: Tree, grads: Tree, state: dict,
     b2c = 1 - torch.pow(cfg.b2, step.float())
 
     def upd(p, g, m, v):
+        if placed:  # p and g cut to the moments' shard: a local slice, no wire
+            at = m.placements
+            p, g, m, v = (redistribute(t, at).to_local() for t in (p, g, m, v))
         g = g.float() * _per_leaf(clip, g)
         m = cfg.b1 * m + (1 - cfg.b1) * g
         v = cfg.b2 * v + (1 - cfg.b2) * g * g
@@ -101,8 +136,18 @@ def adamw_update(params: Tree, grads: Tree, state: dict,
                                           + cfg.weight_decay * p32)
         return p32.to(p.dtype), m, v
 
-    new = [upd(p, g, m, v) for p, g, m, v in zip(
-        leaves(params), leaves(grads), leaves(state["m"]), leaves(state["v"]))]
+    new = []
+    for p, g, m, v in zip(leaves(params), leaves(grads), leaves(state["m"]),
+                          leaves(state["v"])):
+        n = upd(p, g, m, v)
+        if placed:  # the param gathered back to its own placement
+            n = [DTensor.from_local(t, m.device_mesh, m.placements, run_check=False)
+                 for t in n]
+            n[0] = redistribute(n[0], p.placements)
+        new.append(n)
+    if placed:
+        s = state["step"]
+        step = DTensor.from_local(step, s.device_mesh, s.placements, run_check=False)
     return (unflatten(params, [n[0] for n in new]),
             {"m": unflatten(params, [n[1] for n in new]),
              "v": unflatten(params, [n[2] for n in new]),

@@ -29,12 +29,20 @@ leaves are this rank's own (no rank axis) and every bucket's collective
 is the cross-process executor's (:mod:`repro_torch.core.collectives_dist`).
 The bucketing, the error feedback and the bucket log are the same code,
 the local leaves taken as a rank axis of width 1.
+
+Under a model axis (``shards``), a rank's leaves are its model shards of
+the global leaves. As under JAX's automatic model axis, where the
+``shard_map`` body sees global leaves, the buckets cut the global flat
+vector, the log holds their global bytes and ``auto`` prices those; each
+rank then reduces, over its data group, only its own shard's elements of
+each bucket.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import functools
+import math
 from typing import Any, Optional
 
 import torch
@@ -166,6 +174,50 @@ def compressed_all_reduce(x: Tensor, n_chunks: int = 1,
 # bucketed gradient all-reduce
 # ---------------------------------------------------------------------------
 
+@dataclasses.dataclass(frozen=True)
+class Shard:
+    """Where a rank's leaf lies in the global leaf: the block of the local
+    leaf's shape that starts at ``offset`` in a leaf of ``shape``."""
+
+    shape: tuple[int, ...]
+    offset: tuple[int, ...]
+
+
+def _count_below(shard: Shard, local_shape: tuple[int, ...], x: int) -> int:
+    """How many of the block's elements come before global flat (row-major)
+    index ``x`` of the leaf."""
+    if x >= math.prod(shard.shape):
+        return math.prod(local_shape)
+    digits = []
+    for n in reversed(shard.shape):
+        x, d = divmod(x, n)
+        digits.append(d)
+    digits.reverse()
+    count = 0
+    for k, d in enumerate(digits):
+        lo, hi = shard.offset[k], shard.offset[k] + local_shape[k]
+        count += (min(max(d, lo), hi) - lo) * math.prod(local_shape[k + 1:])
+        if not lo <= d < hi:
+            break
+    return count
+
+
+def _local_cuts(shards: list[Shard], local_shapes: list[tuple[int, ...]],
+                bounds: list[int]) -> list[int]:
+    """The positions in this rank's flat vector (its blocks, in leaf order)
+    of the global flat positions ``bounds`` (ascending)."""
+    out, leaf, g0, l0 = [], 0, 0, 0
+    for x in bounds:
+        while leaf < len(shards) and x >= g0 + math.prod(shards[leaf].shape):
+            g0 += math.prod(shards[leaf].shape)
+            l0 += math.prod(local_shapes[leaf])
+            leaf += 1
+        below = 0 if leaf == len(shards) else _count_below(shards[leaf], local_shapes[leaf],
+                                                             x - g0)
+        out.append(l0 + below)
+    return out
+
+
 def all_reduce_grads(grads: Tree, algo: str = "auto",
                      bucket_bytes: int = DEFAULT_BUCKET_BYTES,
                      link: LinkModel = LUMORPH_LINK,
@@ -174,6 +226,7 @@ def all_reduce_grads(grads: Tree, algo: str = "auto",
                      wire_dtype: torch.dtype = torch.bfloat16,
                      overlap_chunks: int = 1,
                      group: Optional[dist.ProcessGroup] = None,
+                     shards: Optional[list[Shard]] = None,
                      ) -> tuple[Tree, Optional[Tree], list[tuple[int, str]]]:
     """Mean-ALLREDUCE ``grads`` (leaves ``[p, ...]``) over the rank axis
     with LUMORPH collectives, bucket by bucket: the sum over ranks, divided
@@ -188,6 +241,10 @@ def all_reduce_grads(grads: Tree, algo: str = "auto",
     (LUMORPH-2 whatever ``algo`` picks). ``overlap_chunks > 1`` lowers every
     bucket through the chunked wave pipeline (overlap mode; the log's algo
     gains ``+ovl<C>``); ``1`` keeps the monolithic path.
+
+    ``shards`` (with a ``group``, one per leaf) says where each of this
+    rank's leaves lies in its global leaf: the buckets then cut the global
+    flat vector, and each one's collective moves this rank's elements of it.
     """
     orig = leaves(grads)
     if group is None:
@@ -210,17 +267,25 @@ def all_reduce_grads(grads: Tree, algo: str = "auto",
     comm_dtype = torch.float32 if compress else wire_dtype
     flat = torch.cat([g.to(comm_dtype).reshape(lead, -1) for g in gl], dim=1)
     del gl  # the compensated copies; at full width each copy is GBs
-    buckets = make_buckets(flat.shape[1], bucket_bytes)
+    if shards is None:
+        buckets = make_buckets(flat.shape[1], bucket_bytes)
+        cuts = [b.start for b in buckets] + [flat.shape[1]]
+    else:
+        buckets = make_buckets(sum(math.prod(sh.shape) for sh in shards), bucket_bytes)
+        cuts = _local_cuts(shards, [tuple(g.shape) for g in orig],
+                           [b.start for b in buckets] + [buckets[-1].end])
 
     log: list[tuple[int, str]] = []
     parts = []
-    for b in buckets:
-        piece = flat[:, b.start:b.end]
+    for b, lo, hi in zip(buckets, cuts, cuts[1:]):
+        piece = flat[:, lo:hi]
         n_bytes = b.n_elems * flat.element_size()
         chosen = select_algorithm(n_bytes, p, link) if algo == "auto" else algo
         log.append((n_bytes, chosen + ("+int8" if compress else "")
                     + (f"+ovl{overlap_chunks}" if overlap_chunks > 1 else "")))
-        if group is not None:
+        if hi == lo:  # none of this bucket is this rank's, nor its data group's
+            parts.append(piece)
+        elif group is not None:
             parts.append(_reduce_local(piece[0], chosen, compress, overlap_chunks, group)[None])
         elif compress:
             parts.append(compressed_all_reduce(piece, n_chunks=overlap_chunks))

@@ -22,7 +22,11 @@ reference's pytree path strings. The mesh is anything with a ``shape``
 mapping axis names to sizes: a :class:`MeshShape` (``launch.mesh``'s
 production meshes) or the virtual data-parallel mesh, so the policy needs
 no process group. :func:`to_placements` turns a spec into the DTensor
-placements of a ``DeviceMesh`` with the same axes.
+placements of a ``DeviceMesh`` with the same axes; :func:`distribute_tree`
+places a tree of full tensors by a tree of specs, every rank keeping its
+own shard, and :func:`gather_tree` gathers it back. :func:`redistribute`
+is the port's one way to move a DTensor to other placements: under gloo it
+runs a CUDA DTensor's all-gathers through host memory.
 
 The collective profiles at the end (``derive_tp``, ``collective_profile``,
 ``zoo_profiles``) describe what one training step of each architecture
@@ -33,11 +37,18 @@ paper's link constants (``core.cost_model``), not measurements.
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
 from typing import Any, Optional
 
+import torch
+import torch.distributed as dist
+from torch.distributed.device_mesh import DeviceMesh
+from torch.distributed.tensor import DTensor, Replicate
+
 from repro_torch.bridge import flatten_with_paths
 from repro_torch.configs.base import ModelConfig
+from repro_torch.tree import tree_map, unflatten
 
 Tree = Any
 Entry = Optional["str | tuple[str, ...]"]
@@ -341,6 +352,101 @@ def to_placements(spec: Spec, mesh_axis_names: tuple[str, ...]) -> list:
         raise ValueError(f"spec {spec!r} names axes {sorted(unknown)} that the mesh "
                          f"{mesh_axis_names!r} lacks")
     return [Shard(dim_of[a]) if a in dim_of else Replicate() for a in mesh_axis_names]
+
+
+def _spec_pairs(tree: Tree, spec_tree: Tree) -> list[tuple[Any, Spec]]:
+    """(leaf, spec) pairs of a tree and its spec tree, in leaf order: a spec
+    is a tuple, so the walk follows ``tree``'s nesting, not the spec's."""
+    if isinstance(tree, dict):
+        return [pair for k in sorted(tree) for pair in _spec_pairs(tree[k], spec_tree[k])]
+    if isinstance(tree, (list, tuple)):
+        return [pair for v, s in zip(tree, spec_tree) for pair in _spec_pairs(v, s)]
+    return [(tree, spec_tree)]
+
+
+def place(full, spec: Spec, device_mesh):
+    """``full`` (the same tensor on every rank) as a DTensor on ``device_mesh``
+    placed by ``spec``: this rank keeps a copy of its own shard, and nothing
+    crosses the wire. A replicated leaf is kept as it is.
+
+    A dim split over two mesh axes at once (ZeRO-3's ``("data", "model")``
+    entry, which only dbrx-132b's policy makes) raises
+    ``NotImplementedError``: the port places no such leaf (ROADMAP)."""
+    for entry in spec:
+        if isinstance(entry, (tuple, list)) and len(entry) > 1:
+            raise NotImplementedError(
+                f"spec {spec!r} splits one dim over the mesh axes {tuple(entry)}: the port "
+                "places no such leaf (ZeRO-3's tuple specs, ROADMAP Queue 1)")
+    return _placed(full, to_placements(spec, tuple(device_mesh.mesh_dim_names)), device_mesh)
+
+
+def place_like(full, like):
+    """``full`` placed as the DTensor ``like`` is."""
+    return _placed(full, list(like.placements), like.device_mesh)
+
+
+def _placed(full, placements: list, device_mesh):
+    local = full
+    for i, pl in enumerate(placements):
+        if pl.is_shard():
+            n, size = device_mesh.size(i), full.shape[pl.dim]
+            if size % n:
+                raise ValueError(f"dim {pl.dim} of {tuple(full.shape)} does not split "
+                                 f"{n} ways over {device_mesh.mesh_dim_names[i]!r}")
+            local = local.narrow(pl.dim, device_mesh.get_local_rank(i) * (size // n), size // n)
+    if local is not full:
+        local = local.clone()  # the shard alone, so that the full leaf can be freed
+    return DTensor.from_local(local, device_mesh, placements, run_check=False)
+
+
+def _host_mesh(device_mesh):
+    """A CPU twin of ``device_mesh``: the same ranks and the same groups."""
+    return _host_twin(tuple(device_mesh.get_group(i) for i in range(device_mesh.ndim)),
+                      tuple(device_mesh.mesh.flatten().tolist()), tuple(device_mesh.mesh.shape),
+                      device_mesh.mesh_dim_names)
+
+
+@functools.lru_cache(maxsize=16)
+def _host_twin(groups: tuple, ranks: tuple, shape: tuple, names):
+    return DeviceMesh.from_group(list(groups) if len(groups) > 1 else groups[0], "cpu",
+                                 mesh=torch.tensor(ranks).reshape(shape), mesh_dim_names=names)
+
+
+def redistribute(t, placements):
+    """``t.redistribute(placements=placements)``, differentiable. Under gloo,
+    a CUDA DTensor that an all-gather reaches (a ``Shard`` made
+    ``Replicate``) is redistributed on a CPU twin of its mesh and copied
+    back, as ``core.collectives_dist.Wire`` stages a payload: gloo's
+    all-gather of CUDA tensors inside DTensor's functional collectives kills
+    the process (torch 2.11 on an H100), while its all-reduce and
+    reduce-scatter of them run. The backend is the caller's choice; nothing
+    here switches it or retries."""
+    mesh = t.device_mesh
+    gathers = any(a.is_shard() and not b.is_shard() for a, b in zip(t.placements, placements))
+    staged = (t.device.type == "cuda" and gathers
+              and any(dist.get_backend(mesh.get_group(i)) == "gloo" for i in range(mesh.ndim)))
+    if not staged:
+        return t.redistribute(placements=placements)
+    host = DTensor.from_local(t.to_local().cpu(), _host_mesh(mesh), t.placements,
+                              run_check=False).redistribute(placements=placements)
+    return DTensor.from_local(host.to_local().to(t.device), mesh, placements, run_check=False)
+
+
+def replicated(t):
+    """``t`` replicated over every mesh dim that shards it (:func:`redistribute`)."""
+    return redistribute(t, [Replicate() if p.is_shard() else p for p in t.placements])
+
+
+def distribute_tree(tree: Tree, spec_tree: Tree, device_mesh) -> Tree:
+    """Every leaf of ``tree`` placed by its spec in ``spec_tree`` (:func:`place`)."""
+    return unflatten(tree, [place(t, s, device_mesh) for t, s in _spec_pairs(tree, spec_tree)])
+
+
+def gather_tree(tree: Tree) -> Tree:
+    """Every DTensor leaf of ``tree`` as its full tensor. Collective: every
+    rank of the leaves' mesh calls it."""
+    return tree_map(lambda t: redistribute(t, [Replicate()] * t.device_mesh.ndim).to_local()
+                    if isinstance(t, DTensor) else t, tree)
 
 
 # ---------------------------------------------------------------------------

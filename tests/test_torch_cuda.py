@@ -348,6 +348,60 @@ def test_cross_process_executor_on_cards_equals_virtual_ranks(card, tmp_path, ba
         assert p.returncode == 0, f"rank {r}: {err[-3000:]}"
 
 
+# one rank of a (1, 2) tensor-parallel mesh on the card: danube's smoke prefill
+# through the flash kernel on each rank's own heads, against the kernel path of
+# one process over the full params
+TP_PREFILL_RANK = r"""
+import sys
+import torch
+import torch.distributed as dist
+sys.path.insert(0, {src!r})
+from repro_torch.configs import get_smoke_config
+from repro_torch.kernels import ops
+from repro_torch.launch.mesh import init_process_mesh, split_model_axis
+from repro_torch.launch.steps import make_prefill
+from repro_torch.models import transformer as tf
+from repro_torch.sharding.policy import gather_tree, make_policy
+rank = int(sys.argv[1])
+mesh = split_model_axis(init_process_mesh("cuda", {backend!r}, init_method="file://" + {rdzv!r},
+                                          rank=rank, world_size=2), 1)
+gen = torch.Generator(device=mesh.device).manual_seed(0)
+cfg = get_smoke_config("h2o-danube-1.8b")
+params = tf.init_params(gen, cfg)
+tokens = torch.randint(0, cfg.vocab_size, (2, 96), generator=gen, device=mesh.device)
+for dtype, tol in (("float32", 1e-4), ("bfloat16", 5e-2)):
+    c = cfg.replace(compute_dtype=dtype, use_pallas=True)
+    expect = make_prefill(c, mesh.device)(params, {{"tokens": tokens}}).float()
+    n0 = ops.LAUNCHES["flash_attention"]
+    got = gather_tree(make_prefill(c, mesh.device, make_policy(c, mesh), mesh)(
+        params, {{"tokens": tokens}})).float()
+    assert ops.LAUNCHES["flash_attention"] == n0 + cfg.n_layers, dtype  # on its own heads
+    rel = float((got - expect).abs().max() / expect.abs().max())
+    assert rel <= tol, (dtype, rel)
+dist.destroy_process_group()
+"""
+
+
+@pytest.mark.parametrize("backend", ["gloo", "nccl"])
+def test_tensor_parallel_prefill_on_cards_equals_one_process(card, tmp_path, backend):
+    """2 ranks as a (1, 2) mesh: gloo (host-staged) on one card; nccl only
+    where two cards are visible. Under a timeout: a hang fails."""
+    if backend == "nccl" and torch.cuda.device_count() < 2:
+        pytest.skip(f"nccl needs 2 cards, {torch.cuda.device_count()} visible")
+    code = TP_PREFILL_RANK.format(src=str(pathlib.Path(__file__).resolve().parents[1] / "src"),
+                                  backend=backend, rdzv=str(tmp_path / "rdzv"))
+    procs = [subprocess.Popen([sys.executable, "-c", code, str(r)], stderr=subprocess.PIPE,
+                              text=True, env={**os.environ, "OMP_NUM_THREADS": "1"})
+             for r in range(2)]
+    try:
+        errs = [p.communicate(timeout=300)[1] for p in procs]
+    finally:
+        for p in procs:
+            p.kill()
+    for r, (p, err) in enumerate(zip(procs, errs)):
+        assert p.returncode == 0, f"rank {r}: {err[-3000:]}"
+
+
 def _to(tree, dev):
     if isinstance(tree, dict):
         return {k: _to(v, dev) for k, v in tree.items()}

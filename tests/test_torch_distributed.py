@@ -26,9 +26,10 @@ read both:
     virtual-rank trainer's, and rank 0's checkpoint equal to its byte for
     byte (``xla`` within 1e-6: gloo's all-reduce adds in its own order); a
     restart from the step-2 checkpoint ends on the uninterrupted loss;
-  * the error paths: ``--data-parallel 2`` in a world of 4 exits naming
-    ROADMAP item 6(c); ``nccl`` with more ranks than cards raises before
-    any group is made.
+  * the error paths: ``--data-parallel 3`` in a world of 4 exits (a width
+    that does not divide the world; 2 lays out a model axis,
+    ``tests/test_torch_model_axis.py``); ``nccl`` with more ranks than
+    cards raises before any group is made.
 """
 
 import json
@@ -157,9 +158,9 @@ if rank == 0:
 dist.barrier()
 runs["restart_resumed"] = train.main(T.TRAIN + T.RESTART + ["--ckpt-dir", ckpt])
 try:
-    train.main(T.TRAIN + ["--comm", "lumorph4", "--data-parallel", "2"])
+    train.main(T.TRAIN + ["--comm", "lumorph4", "--data-parallel", "3"])
 except SystemExit as e:
-    runs["dp2_exit"] = str(e)
+    runs["dp3_exit"] = str(e)
 out["runs"] = runs
 dist.destroy_process_group()
 with open(os.path.join(out_dir, f"rank{{rank}}.pkl"), "wb") as f:
@@ -396,10 +397,12 @@ def test_process_trainer_restarts_from_its_checkpoint(world):
 
 
 def test_data_parallel_other_than_the_world_exits_naming_the_model_axis(world):
+    """A width that does not divide the world exits, naming the model axis
+    it would leave uneven; a divisor lays one out."""
     for out in world[0]:
-        msg = out["runs"]["dp2_exit"]
-        assert "--data-parallel 2 in a world of 4" in msg
-        assert "ROADMAP Queue 1 item 6(c)" in msg
+        msg = out["runs"]["dp3_exit"]
+        assert "--data-parallel 3 does not divide a world of 4 ranks" in msg
+        assert "the model axis is world / data ranks wide" in msg
 
 
 @pytest.mark.parametrize("backend", ["nccl", None])

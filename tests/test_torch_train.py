@@ -251,16 +251,16 @@ def test_microbatches_accumulate_the_same_gradient():
         torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-6)
 
 
-@pytest.mark.parametrize("flags,item", [
-    (["--mesh", "single"], r"single production mesh \{'data': 16, 'model': 16\} is valid"),
-    (["--mesh", "multi"], r"multi production mesh \{'pod': 2, 'data': 16, 'model': 16\}"),
+@pytest.mark.parametrize("flags,item,ranks", [
+    (["--mesh", "single"], r"single production mesh \{'data': 16, 'model': 16\} is valid", 256),
+    (["--mesh", "multi"], r"multi production mesh \{'pod': 2, 'data': 16, 'model': 16\}", 512),
 ])
-def test_unported_flags_exit_naming_their_item(flags, item):
+def test_unported_flags_exit_naming_their_item(flags, item, ranks):
     """``--mesh single|multi`` makes and checks the production mesh's policy,
-    then stops: running on it needs the executor across devices."""
+    then stops: running on it needs 256 or 512 ranks, one per card."""
     with pytest.raises(SystemExit, match=item) as exc:
         _train("--steps", "1", *flags)
-    assert "ROADMAP Queue 1 item 6(c)" in str(exc.value)
+    assert f"training on it needs {ranks} ranks, one per card" in str(exc.value)
 
 
 def test_overlap_needs_a_lumorph_comm():
