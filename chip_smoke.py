@@ -194,6 +194,33 @@ JAX or of the JAX package. No phase's failure is caught.
      its local ``[1, 4608, 16, 80]``; the logits gathered on rank 0 against
      phase 3's kernel-path logits within ``PREFILL_TOL``, the argmax
      agreement printed, and each rank's prefill seconds beside phase 3's.
+ 17. The rest of the model axis for the dense decoder: a third world of 4
+     rank processes on this card over gloo (``python3 chip_smoke.py
+     --decode-rank DIR``), after phase 16's. (a) The decode with every cache
+     leaf placed by the policy's cache specs (``launch.steps.make_decode_
+     step`` with a policy and a mesh), each run of ``DEC_RUNS`` fed the
+     tokens of the same decode in this one process, run here first (a
+     prompt replayed, then greedy tokens): the prompt replayed through
+     ``serve.prefill_with_caches`` with the policy and the mesh (each rank
+     making only its shard of the caches), then the generated
+     tokens, each step's logits gathered and held to the one process's
+     within ``DEC_TOL`` (1e-4 relative in fp32, 5e-2 in bf16 and with the
+     int8 cache), the greedy agreement printed. danube whole at data 1 ×
+     model 4, batch 4, 8 + 8 (KV heads over model) in fp32, bf16 and with
+     the int8 cache (its scales replicated over model); at data 2 × model
+     2, batch 1, 8 + 4 (the sequence over data) in fp32 and bf16; glm4 at
+     full width, 4 of its 40 layers, data 1 × model 4, batch 4, 8 + 8 (2 KV
+     heads: the sequence over model) in fp32 and bf16. Every rank's
+     local cache shapes equal ``steps.shard_shape`` of their specs; TPOT and
+     peak memory per rank, labelled host-staged. (b) bert-large as phase
+     16(a), its policy ZeRO-3's (``train.main(..., zero3=True)``, which
+     passes ``make_policy``'s own argument): each final loss within 1e-6
+     relative of phase 16's run with the same flags (bit-equality printed),
+     the int8 kernels launched in every rank under ``--compress``; the
+     params' local shapes as the trainer returns them (over data under
+     ``xla``; replicated over data after the LUMORPH comms' first step, as
+     JAX's), ``step_s``, the communication's seconds and the peak memory per
+     rank beside phase 16's.
 
 Phase 2 also holds the RMSNorm kernel against its plain version (fp32
 within 1e-5, bf16 within 2e-2, the limits of tests/test_kernels.py, or one
@@ -215,7 +242,7 @@ mode (phase 7), deepseek (phase 8), dbrx (phase 9), the dense trio (phase
 10, per model), the SSM models (phase 11, per model) and whisper and
 paligemma (phase 12, per model), the ``--comm auto`` runs and the KIVI
 decodes (phase 13), the roofline's danube prefills and the example
-twins (phase 14), and each run of phases 15 and 16 in each rank's process. Each
+twins (phase 14), and each run of phases 15, 16 and 17 in each rank's process. Each
 phase prints its seconds. The last lines are the ``{"kernels": [...]}`` record, the run
 record, and ``{"ok": true, "device": {...}}``.
 """
@@ -362,6 +389,32 @@ TP_LAYERS = 24  # flash launches per prefill in each rank: one per layer
 TP_LOCAL_Q, TP_LOCAL_KV = [1, 4608, 16, 80], [1, 4608, 4, 80]  # each rank's heads
 TP_DIR = ROOT / "build" / "chip_smoke_tp"  # gitignored; the ranks' results and logits
 PHASE3_LOGITS: dict = {}  # phase 3's kernel-path logits, on the host, for phase 16
+# phase 17: the rest of the model axis for the dense decoder, a third 4-rank world on
+# this card over gloo. (a) decodes with every cache leaf placed by the policy's cache
+# specs, fed the one-process reference's tokens; name -> (arch, layers (None: all), data,
+# batch, prompt, generated, compute dtype, KV cache). Short: with 4 ranks on one card
+# every collective costs ~6-8 ms (gloo, host-staged, 4 processes on one card), and a
+# danube step makes ~50 of them, 0.3-0.65 s a step
+DEC_RUNS = {
+    "danube_1x4_fp32": ("h2o-danube-1.8b", None, 1, 4, 8, 8, "float32", "bfloat16"),
+    "danube_1x4_bf16": ("h2o-danube-1.8b", None, 1, 4, 8, 8, "bfloat16", "bfloat16"),
+    "danube_1x4_int8": ("h2o-danube-1.8b", None, 1, 4, 8, 8, "bfloat16", "int8"),
+    "danube_2x2_b1_fp32": ("h2o-danube-1.8b", None, 2, 1, 8, 4, "float32", "bfloat16"),
+    "danube_2x2_b1_bf16": ("h2o-danube-1.8b", None, 2, 1, 8, 4, "bfloat16", "bfloat16"),
+    "glm4_4l_1x4_fp32": ("glm4-9b", 4, 1, 4, 8, 8, "float32", "bfloat16"),
+    "glm4_4l_1x4_bf16": ("glm4-9b", 4, 1, 4, 8, 8, "bfloat16", "bfloat16"),
+}
+DEC_TOL = {"float32": 1e-4, "bfloat16": 5e-2}  # relative; bf16 and int8: phases 3, 13(c)
+# each run's local k leaf: KV heads over model (8 / 4), the sequence over data (12 / 2)
+# with KV heads over model (8 / 2), glm4's sequence over model (2 KV heads; 16 / 4)
+DEC_K_LOCAL = {"danube_1x4": [4, 16, 2, 80], "danube_2x2_b1": [1, 6, 4, 80],
+               "glm4_4l_1x4": [4, 4, 2, 128]}
+DEC_TIMEOUT_S = 420
+DEC_DIR = ROOT / "build" / "chip_smoke_decode"  # gitignored; the ranks' results
+DEC_REF_DIR = ROOT / "build" / "chip_smoke_decode_refs"  # gitignored; the references
+# (b) bert-large as phase 16 under a ZeRO-3 policy (make_policy(..., zero3=True)): each
+# final loss within Z3_RTOL of phase 16's run of the same flags
+Z3_RTOL = 1e-6
 # overlap mode (phase 7): the JAX package's overlap benchmark (OVERLAP_SCRIPT and
 # CLAIM_BYTES of benchmarks/bench_collective_exec.py) on 8 virtual ranks
 OVL_P, OVL_D, OVL_CHUNKS = 8, 128, (2, 4, 8)
@@ -875,10 +928,11 @@ def timed_grad_comm(steps_lib, comm_s: list):
         steps_lib.record_function = span
 
 
-def rank_train(train, ops, runs, extra: list) -> dict:
+def rank_train(train, ops, runs, extra: list, zero3=None) -> dict:
     """Each of ``runs`` (name, flags, ...) through ``train.main`` in this rank's
-    process: its result, the kernel launches, the gradient communication's
-    seconds per step and the peak memory."""
+    process, under ``make_policy``'s ``zero3``: its result, the kernel
+    launches, the gradient communication's seconds per step and the peak
+    memory."""
     from repro_torch.launch import steps as steps_lib
     out, comm_s = {}, []
     with timed_grad_comm(steps_lib, comm_s):
@@ -887,7 +941,7 @@ def rank_train(train, ops, runs, extra: list) -> dict:
             for k in ops.LAUNCHES:
                 ops.LAUNCHES[k] = 0
             torch.cuda.reset_peak_memory_stats()
-            res = train.main(extra + flags + ["--dist-backend", "gloo"])
+            res = train.main(extra + flags + ["--dist-backend", "gloo"], zero3=zero3)
             torch.cuda.synchronize()
             out[name] = {**res, "launches": dict(ops.LAUNCHES),
                          "grad_comm_s": sum(comm_s) / res["steps"],
@@ -1061,6 +1115,213 @@ def tp_rank(out_dir: str) -> None:
     dist.barrier()
     dist.destroy_process_group()
     pathlib.Path(out_dir, f"rank{mesh.rank}.json").write_text(json.dumps(out))
+
+
+def _dec_config(get_config, arch: str, layers):
+    """An arch's config at full width, cut to its first ``layers`` layers."""
+    cfg = get_config(arch)
+    if layers is None:
+        return cfg
+    return cfg.replace(n_layers=layers, block_pattern=cfg.block_pattern[:layers])
+
+
+def _dec_groups() -> dict:
+    """The runs of phase 17(a) by (arch, layers, data): one params build each."""
+    groups: dict = {}
+    for name, (arch, layers, data, *_) in DEC_RUNS.items():
+        groups.setdefault((arch, layers, data), []).append(name)
+    return groups
+
+
+def phase_decode_zero3(get_config, tf, steps_lib, tp) -> dict:
+    """Phase 17: the placed decode and ZeRO-3. (a)'s references, each run's
+    decode in this one process through ``make_decode_step`` (the prompt
+    replayed, then greedy tokens), run here first and written with the tokens
+    they fed; then one 4-rank gloo world (``python3 chip_smoke.py
+    --decode-rank DIR``), under a timeout, any rank's failure failing the
+    phase: (a) every run of ``DEC_RUNS`` through the placed step, fed the
+    reference's tokens, each rank's gathered logits held to the reference's
+    at every step; (b) bert-large with ``TP_TRAIN_RUNS`` under a ZeRO-3
+    policy, held to phase 16's runs (``tp``)."""
+    dev = torch.device("cuda")
+    shutil.rmtree(DEC_REF_DIR, ignore_errors=True)
+    DEC_REF_DIR.mkdir(parents=True)
+    refs = {}
+    for (arch, layers, _), names in _dec_groups().items():
+        cfg = _dec_config(get_config, arch, layers)
+        params = tf.init_params(torch.Generator(device=dev).manual_seed(0), cfg)
+        for name in names:
+            _, _, _, b, prompt, n_gen, dtype, kv = DEC_RUNS[name]
+            c = cfg.replace(compute_dtype=dtype, kv_cache_dtype=kv)
+            gen = torch.Generator(device=dev).manual_seed(1)
+            tokens = torch.randint(0, c.vocab_size, (b, prompt + n_gen), generator=gen,
+                                   device=dev)
+            step, n = steps_lib.make_decode_step(c, dev), prompt + n_gen
+            caches, logits, step_s = tf.init_caches(c, b, n, dev), [], []
+            for t in range(n):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                out, caches = step(params, caches, tokens[:, t:t + 1], t)
+                torch.cuda.synchronize()
+                step_s.append(time.perf_counter() - t0)
+                logits.append(out[:, -1])
+                if prompt - 1 <= t < n - 1:  # greedy from the prompt's last token on
+                    tokens[:, t + 1] = out[:, -1].argmax(-1)
+            logits = torch.stack(logits[prompt - 1:])
+            assert torch.isfinite(logits).all(), name
+            torch.save({"tokens": tokens.cpu(), "logits": logits.cpu()},
+                       DEC_REF_DIR / f"{name}.pt")
+            refs[name] = {"tpot_s_one_process": statistics.median(step_s[prompt:])}
+            del caches, logits, tokens
+        del params
+        torch.cuda.empty_cache()
+    ranks = run_ranks("--decode-rank", DEC_DIR, DEC_TIMEOUT_S)
+    shutil.rmtree(DEC_REF_DIR)
+    out = {"wire": HOST_STAGED, "decode": {}, "zero3": {}}
+    for name, (arch, layers, data, b, prompt, n_gen, dtype, kv) in DEC_RUNS.items():
+        per = [rk["decode"][name] for rk in ranks]
+        tol = DEC_TOL[dtype]
+        res = {"arch": arch, "layers": layers, "mesh": {"data": data,
+                                                          "model": DIST_WORLD // data},
+               "batch": b, "prompt": prompt, "generated": n_gen, "compute_dtype": dtype,
+               "kv_cache": kv, "tol": tol, "steps_compared": per[0]["steps"],
+               "rel_max_err_per_rank": [x["rel"] for x in per],
+               "greedy_agree_per_rank": [x["agree"] for x in per],
+               "k_local_per_rank": [x["k_local"] for x in per],
+               "cache_shapes_as_spec_per_rank": [x["shapes_ok"] for x in per],
+               "flash_launches_per_rank": [x["launches"]["flash_attention"] for x in per],
+               "tpot_s_per_rank_gloo_host_staged": [x["tpot_s"] for x in per],
+               "peak_gb_per_rank": [x["peak_gb"] for x in per], **refs[name]}
+        out["decode"][name] = res
+        print(json.dumps({"placed_decode": name, **res}), flush=True)
+        assert all(x["steps"] == n_gen + 1 for x in per), res
+        assert all(x["finite"] for x in per), res
+        assert max(res["rel_max_err_per_rank"]) <= tol, res
+        assert all(res["cache_shapes_as_spec_per_rank"]), res
+        key = name.rsplit("_", 1)[0]
+        assert all(k == DEC_K_LOCAL[key] for k in res["k_local_per_rank"]), res
+        assert res["flash_launches_per_rank"] == [0] * DIST_WORLD, res  # decode is dense
+    for name, flags, _ in TP_TRAIN_RUNS:  # (b)
+        per = [rk["train"][name] for rk in ranks]
+        ref = tp["train"][name]
+        res = {**{k: per[0][k] for k in ("final_loss", "first_loss", "steps", "world",
+                                           "dist_backend", "data", "model")},
+               "phase16_final_loss": ref["final_loss"],
+               "rel_to_phase16": abs(per[0]["final_loss"] - ref["final_loss"]) /
+               abs(ref["final_loss"]), "tol": Z3_RTOL,
+               "bit_equal_to_phase16": per[0]["final_loss"] == ref["final_loss"],
+               "local_params": per[0]["local_params"],
+               "step_s_gloo_host_staged": [x["step_s"] for x in per],
+               "phase16_step_s": ref["step_s_gloo_host_staged"],
+               "grad_comm_s_gloo_host_staged": [x["grad_comm_s"] for x in per],
+               "phase16_grad_comm_s": ref["grad_comm_s_gloo_host_staged"],
+               "peak_gb_per_rank_gloo_host_staged": [x["peak_gb"] for x in per],
+               "phase16_peak_gb": ref["peak_gb_per_rank_gloo_host_staged"],
+               "launches_per_rank": [x["launches"] for x in per]}
+        out["zero3"][name] = res
+        print(json.dumps({"zero3_train": name, **res}), flush=True)
+        assert all(x["final_loss"] == per[0]["final_loss"] for x in per), name
+        assert res["steps"] == TP_STEPS and res["world"] == DIST_WORLD, res
+        assert (res["data"], res["model"]) == (TP_DATA, DIST_WORLD // TP_DATA), res
+        assert res["rel_to_phase16"] <= Z3_RTOL, res
+        # xla keeps ZeRO-3's params over data; the LUMORPH comms gather them at the first
+        # step and return them replicated over data, as JAX's shard_map (rep)
+        for x in per:
+            lp = x["local_params"]
+            if name == "xla":
+                assert lp["over_data"] > 0 and lp["quarter"] > 0, lp
+            else:
+                assert lp["over_data"] == 0, lp
+        if "--compress" in flags:
+            for x in per:  # the int8 kernels ran in every rank's process
+                assert x["launches"]["quantize_int8"] > 0, x
+                assert x["launches"]["dequantize_int8"] > 0, x
+    return out
+
+
+def decode_rank(out_dir: str) -> None:
+    """One rank of phase 17's world: its runs, written to ``out_dir/rank<r>.json``."""
+    sys.path.insert(0, str(ROOT / "src"))
+    import torch.distributed as dist
+    from repro_torch.bridge import flatten_with_paths
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.launch import serve, train
+    from repro_torch.launch import steps as steps_lib
+    from repro_torch.launch.mesh import init_process_mesh, split_model_axis
+    from repro_torch.models import transformer as tf
+    from repro_torch.sharding.policy import distribute_tree, gather_tree, make_policy
+
+    torch.backends.cuda.matmul.allow_tf32 = False  # as the references' runs
+    torch.backends.cudnn.allow_tf32 = False
+    world = init_process_mesh("cuda", "gloo")  # kept for the phase: each run reuses it
+    dev = world.device
+    meshes = {d: split_model_axis(world, d) for d in sorted({r[2] for r in DEC_RUNS.values()})}
+    out = {"decode": {}}
+    for (arch, layers, data), names in _dec_groups().items():  # (a)
+        mesh, cfg = meshes[data], _dec_config(get_config, arch, layers)
+        full = tf.init_params(torch.Generator(device=dev).manual_seed(0), cfg)
+        params = distribute_tree(full, make_policy(cfg, mesh).param_specs(
+            tf.param_shapes(cfg)), mesh.device_mesh)
+        del full  # the rank keeps its shards alone
+        torch.cuda.empty_cache()
+        for name in names:
+            _, _, _, b, prompt, n_gen, dtype, kv = DEC_RUNS[name]
+            c = cfg.replace(compute_dtype=dtype, kv_cache_dtype=kv)
+            ref = torch.load(DEC_REF_DIR / f"{name}.pt")
+            tokens, n = ref["tokens"].to(dev), prompt + n_gen
+            policy = make_policy(c, mesh)
+            step = steps_lib.make_decode_step(c, dev, policy, mesh, b, n)
+            for k in ops.LAUNCHES:
+                ops.LAUNCHES[k] = 0
+            torch.cuda.reset_peak_memory_stats()
+            dist.barrier()
+            logits, caches = serve.prefill_with_caches(params, {"tokens": tokens[:, :prompt]},
+                                                       c, n, dev, policy, mesh)
+            got, step_s = [gather_tree(logits)[:, -1]], []
+            for t in range(prompt, n):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                logits, caches = step(params, caches, tokens[:, t:t + 1], t)
+                torch.cuda.synchronize()
+                step_s.append(time.perf_counter() - t0)
+                got.append(gather_tree(logits)[:, -1])  # collective; not timed
+            expect = ref["logits"].to(dev)
+            rel = max(_rel(g, e) for g, e in zip(got, expect))
+            agree = float(torch.stack([(g.argmax(-1) == tokens[:, prompt + i]).float().mean()
+                                       for i, g in enumerate(got[:-1])]).mean())
+            specs = policy.cache_specs(steps_lib.cache_shapes(c, b, n))
+            shapes_ok = all(  # each layer's cache is a flat dict of leaves
+                tuple(leaf.to_local().shape) == steps_lib.shard_shape(tuple(leaf.shape),
+                                                                      spec[k], mesh)
+                for layer, spec in zip(caches, specs) for k, leaf in layer.items())
+            out["decode"][name] = {
+                "steps": len(got), "rel": rel, "agree": agree,
+                "finite": all(bool(torch.isfinite(g).all()) for g in got),
+                "k_local": list(caches[0]["k"].to_local().shape), "shapes_ok": shapes_ok,
+                "launches": dict(ops.LAUNCHES), "tpot_s": statistics.median(step_s),
+                "peak_gb": torch.cuda.max_memory_allocated() / 1e9}
+            del caches, logits, got, expect
+            torch.cuda.empty_cache()
+        del params
+        torch.cuda.empty_cache()
+    # (b): bert-large as phase 16 under make_policy(..., zero3=True); the params' local
+    # shapes as the trainer returns them
+    cfg = get_config("bert-large")
+    shapes = {p: list(t.shape) for p, t in flatten_with_paths(tf.param_shapes(cfg))}
+    out["train"] = rank_train(train, ops, TP_TRAIN_RUNS, TP_TRAIN, zero3=True)
+    for res in out["train"].values():
+        local = res.pop("local_params")
+        res["local_params"] = {
+            "leaves": len(local["shapes"]), "over_data": len(local["over_data"]),
+            "quarter": sum(4 * math.prod(v) == math.prod(shapes[p])
+                           for p, v in local["shapes"].items()),
+            "local_numel": sum(math.prod(v) for v in local["shapes"].values()),
+            "numel": sum(math.prod(v) for v in shapes.values()),
+            "embed": local["shapes"]["embed"]}
+    dist.barrier()
+    dist.destroy_process_group()
+    pathlib.Path(out_dir, f"rank{world.rank}.json").write_text(json.dumps(out))
 
 
 def phase_trace(get_config, steps_lib, pipeline, AdamWConfig) -> dict:
@@ -2230,6 +2491,12 @@ def main() -> None:
                           "phase3_one_process": res["phase3_kernel_prefill_s"]}), flush=True)
     done("16_model_axis", t_phase)
 
+    # -- phase 17: the placed decode and ZeRO-3, over gloo on this card ----------
+    t_phase = time.perf_counter()
+    torch.cuda.empty_cache()
+    rest = phase_decode_zero3(get_config, tf, steps_lib, tp)
+    done("17_decode_zero3", t_phase)
+
     bf, f32 = kern["timed"]["danube"][torch.bfloat16], kern["timed"]["danube"][torch.float32]
     for dt, t in ((torch.bfloat16, bf), (torch.float32, f32)):  # the entries danube's D runs
         t["entry"] = FLASH_ENTRY[dt]
@@ -2290,6 +2557,9 @@ def main() -> None:
                                          "launches_per_rank"]],
                                  "model_axis_per_rank": [
                                      x[name] for x in tp["train"]["lumorph2+int8"][
+                                         "launches_per_rank"]],
+                                 "zero3_per_rank": [
+                                     x[name] for x in rest["zero3"]["lumorph2+int8"][
                                          "launches_per_rank"]]},
             "max_abs_err": max(c["max_abs_err"] for c in int8["checks"]),
             "ms": t[BUCKET_N]["ms"], "plain_ms": t[BUCKET_N]["plain_ms"],
@@ -2315,6 +2585,7 @@ def main() -> None:
                       "policies": policies, "kivi": kivi, "dryrun": dry, "roofline": roof,
                       "examples": {k: v for k, v in examples.items() if k != "serve_decode"},
                       "cross_process": dist_runs, "model_axis": tp,
+                      "decode_zero3": rest,
                       "phase_s": phase_s,
                       "card": smi, "total_s": time.perf_counter() - t_start}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
@@ -2327,5 +2598,7 @@ if __name__ == "__main__":
         dist_rank(sys.argv[2])
     elif sys.argv[1:2] == ["--tp-rank"]:
         tp_rank(sys.argv[2])
+    elif sys.argv[1:2] == ["--decode-rank"]:
+        decode_rank(sys.argv[2])
     else:
         main()

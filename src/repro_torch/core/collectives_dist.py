@@ -92,12 +92,13 @@ class Wire:
             work.wait()
         return tuple(b.to(like.device) for b, like in zip(ins, likes))
 
-    def all_reduce(self, x: Tensor) -> Tensor:
-        """``dist.all_reduce`` (sum) of a copy of ``x``: the library reduction."""
+    def all_reduce(self, x: Tensor, op=dist.ReduceOp.SUM) -> Tensor:
+        """``dist.all_reduce`` of a copy of ``x`` (a sum unless ``op`` says
+        otherwise): the library reduction."""
         y = self._out(x)
         if y.data_ptr() == x.data_ptr():
             y = y.clone()
-        dist.all_reduce(y, group=self.group)
+        dist.all_reduce(y, op=op, group=self.group)
         return y.to(x.device)
 
     def broadcast(self, x: Tensor) -> Tensor:

@@ -31,14 +31,23 @@ def _sync(dev: torch.device) -> None:
         torch.cuda.synchronize(dev)
 
 
-def prefill_with_caches(params, batch, cfg, max_len: int, device: torch.device):
+def prefill_with_caches(params, batch, cfg, max_len: int, device: torch.device,
+                        policy=None, mesh=None):
     """Build decode caches by replaying the prompt token by token.
 
     (Production would fuse this; token replay is exact and reuses the
-    decode path, as the JAX launcher does.)"""
+    decode path, as the JAX launcher does.) With a ``policy`` and a process
+    ``mesh`` with a model axis it replays through the placed decode step
+    (``steps.make_decode_step`` with them) on caches placed by the policy's
+    cache specs, each rank making only its own shard
+    (``steps.init_placed_caches``), and returns them placed."""
     b, s = batch["tokens"].shape
-    caches = tf.init_caches(cfg, b, max_len, device)
-    step = steps_lib.make_decode_step(cfg, device)
+    if getattr(mesh, "model", 1) > 1:
+        step = steps_lib.make_decode_step(cfg, device, policy, mesh, b, max_len)
+        caches = steps_lib.init_placed_caches(cfg, policy, mesh, b, max_len)
+    else:
+        step = steps_lib.make_decode_step(cfg, device)
+        caches = tf.init_caches(cfg, b, max_len, device)
     logits = None
     for t in range(s):
         logits, caches = step(params, caches, batch["tokens"][:, t:t + 1], t)

@@ -4,15 +4,18 @@ The twin of ``repro.launch.steps``. Every step runs eagerly. On virtual
 ranks and on a process mesh with a model axis of 1 the sharding policy
 (``sharding.policy``) is checked by the launchers but places nothing. On a
 process mesh with a model axis (``launch.mesh.split_model_axis``) every
-parameter, optimizer and batch leaf is a DTensor placed by the policy's
-spec: TP over ``model``, ZeRO-1 moments over ``data`` under ``comm="xla"``.
+parameter, optimizer, batch and cache leaf is a DTensor placed by the
+policy's spec: TP over ``model``, ZeRO-1 moments over ``data`` under
+``comm="xla"``, and under a ZeRO-3 policy the params over ``data`` too.
 The step then runs as the JAX LUMORPH step's ``shard_map`` does, manual over
 the data axis and automatic over the model axis: each data rank runs the
 forward and backward on its own rows with the params as DTensors on its
-model group (DTensor's sharding propagation inserts the tensor-parallel
-collectives, :func:`repro_torch.models.attention.head_local` keeps the
-attention on each rank's own heads), and the gradients are reduced over
-its data group.
+model group, a ZeRO-3 param gathered over data first (DTensor's sharding
+propagation inserts the tensor-parallel collectives,
+:func:`repro_torch.models.attention.head_local` keeps the attention on each
+rank's own heads), and the gradients are reduced over its data group. The
+prefill and the decode run the same way, the decode on caches placed by the
+policy's cache specs.
 
 The train step runs ``dp`` data-parallel ranks as a leading axis of every
 parameter and optimizer tensor (the virtual-rank executor,
@@ -51,7 +54,7 @@ from typing import Any, Callable, Optional
 
 import torch
 import torch.distributed as dist
-from torch.distributed.tensor import DTensor
+from torch.distributed.tensor import DTensor, Replicate
 from torch.distributed.tensor.experimental import implicit_replication
 from torch.profiler import record_function
 
@@ -61,7 +64,8 @@ from repro_torch.device import resolve_device
 from repro_torch.models import transformer as tf
 from repro_torch.optim import grad_comm
 from repro_torch.optim.adamw import AdamWConfig, adamw_update, init_opt_state
-from repro_torch.sharding.policy import distribute_tree, redistribute
+from repro_torch.sharding.policy import (distribute_tree, gather_data, local_offsets, place,
+                                        place_filled, redistribute)
 from repro_torch.tree import leaves, tree_map, unflatten
 
 Tree = Any
@@ -145,9 +149,10 @@ def init_train_state(cfg: ModelConfig, dp: int, seed: int = 0,
     On a process ``mesh`` with a model axis, every rank builds the full
     params from the seed, as above, and keeps only its shard under
     ``policy``'s param specs, which gives JAX ``init_sharded_state``'s
-    numbers. The moments follow the opt specs (ZeRO-1) under ``comm="xla"``
-    and the param specs on the LUMORPH comms, whose JAX step replicates them
-    over data; the error-feedback buffers follow the param specs."""
+    numbers (a ZeRO-3 policy's params shard over data too). The moments
+    follow the opt specs (ZeRO-1, or ZeRO-3's) under ``comm="xla"`` and the
+    param specs on the LUMORPH comms, whose JAX step replicates them over
+    data; the error-feedback buffers follow the param specs."""
     dev = resolve_device(device)
     one = tf.init_params(torch.Generator(device=dev).manual_seed(seed), cfg)
     if _model_axis(mesh):
@@ -238,7 +243,12 @@ def make_train_step(cfg: ModelConfig, opt_cfg: Optional[AdamWConfig] = None,
     data and replicated on model. ``comm="xla"`` reduces the gradients over
     the data group with ``dist.all_reduce``, as GSPMD's psum; the LUMORPH
     comms bucket the global gradient and reduce each rank's model shard of
-    every bucket over its data group.
+    every bucket over its data group. Under a ZeRO-3 policy every param is
+    gathered over its data group for the forward; ``xla`` keeps the params
+    and moments sharded over data (AdamW keeps each rank's data shard of the
+    reduced gradient), while the LUMORPH comms gather the whole state at the
+    first step and return it replicated over data, as JAX's ``shard_map``
+    takes and gives it (``rep``).
     """
     if comm not in COMMS:
         raise ValueError(f"unknown comm {comm!r}; have {COMMS}")
@@ -248,9 +258,6 @@ def make_train_step(cfg: ModelConfig, opt_cfg: Optional[AdamWConfig] = None,
     dev = resolve_device(device)
 
     model_axis = _model_axis(mesh)
-    if model_axis and policy.zero3:
-        raise NotImplementedError(f"{cfg.name}'s policy shards params over the data axes "
-                                  "(ZeRO-3): the port's step does not run it (ROADMAP)")
 
     def grad_fn(params, batch) -> tuple[torch.Tensor, list[torch.Tensor]]:
         plist = leaves(params)
@@ -335,10 +342,13 @@ def make_train_step(cfg: ModelConfig, opt_cfg: Optional[AdamWConfig] = None,
     def placed_step(params, opt_state, batch):
         dm = mesh.device_mesh
         batch = distribute_tree(batch, policy.batch_specs(batch), dm)
+        if comm != "xla":  # JAX's shard_map takes the state replicated over data (rep)
+            params, opt_state = tree_map(gather_data, (params, opt_state))
         plist = leaves(params)
         with record_function("train/forward_backward"):
             # manual over data: this data rank's rows, and every leaf on the model group
-            p_m = unflatten(params, [on_model(p).detach().requires_grad_() for p in plist])
+            p_m = unflatten(params, [param_on_model(p).detach().requires_grad_()
+                                     for p in plist])
             with implicit_replication():  # the positions, masks and constants the model makes
                 loss_r, grads = grad_fn(p_m, {k: on_model(v) for k, v in batch.items()})
             grads = [redistribute(g, [p.placements[1]]).to_local() for g, p in zip(grads, plist)]
@@ -356,7 +366,10 @@ def make_train_step(cfg: ModelConfig, opt_cfg: Optional[AdamWConfig] = None,
                     error_feedback=None if ef is None else tree_map(lambda e: e.to_local(), ef),
                     group=group, shards=[_shard_of(p) for p in plist])
                 grads = leaves(red)
-        grads = unflatten(params, [DTensor.from_local(g, dm, p.placements, run_check=False)
+        # whole over data: adamw_update takes the norm as without ZeRO-3, then keeps
+        # this rank's data shard of each (the moments' placement), a local slice
+        grads = unflatten(params, [DTensor.from_local(g, dm, [Replicate(), p.placements[1]],
+                                                      run_check=False)
                                    for g, p in zip(grads, plist)])
         core = {k: v for k, v in opt_state.items() if k != "ef"}
         with record_function("train/adamw"):
@@ -378,13 +391,15 @@ def on_model(t: DTensor) -> DTensor:
     return DTensor.from_local(t.to_local(), dm["model"], [t.placements[1]], run_check=False)
 
 
+def param_on_model(t: DTensor) -> DTensor:
+    """A param on this rank's model group, whole over data: a ZeRO-3 leaf is
+    gathered over the data group first (``sharding.policy.gather_data``)."""
+    return on_model(gather_data(t))
+
+
 def _shard_of(t: DTensor) -> grad_comm.Shard:
     """Where ``t``'s local tensor lies in the global leaf."""
-    off = [0] * t.dim()
-    for i, pl in enumerate(t.placements):
-        if pl.is_shard():
-            off[pl.dim] += t.device_mesh.get_local_rank(i) * t.to_local().shape[pl.dim]
-    return grad_comm.Shard(tuple(t.shape), tuple(off))
+    return grad_comm.Shard(tuple(t.shape), local_offsets(t))
 
 
 # ---------------------------------------------------------------------------
@@ -428,7 +443,7 @@ def _placed_prefill(cfg: ModelConfig, policy, mesh) -> Callable:
         batch = {k: v.to(mesh.device) for k, v in batch.items()}
         batch = distribute_tree(batch, policy.batch_specs(batch), dm)
         with implicit_replication():
-            logits, _ = tf.forward_logits(tree_map(on_model, params),
+            logits, _ = tf.forward_logits(tree_map(param_on_model, params),
                                           {k: on_model(v) for k, v in batch.items()}, cfg)
         data = batch["tokens"].placements[0]
         return DTensor.from_local(logits.to_local(), dm, [data, logits.placements[0]],
@@ -437,13 +452,91 @@ def _placed_prefill(cfg: ModelConfig, policy, mesh) -> Callable:
     return prefill
 
 
-def make_decode_step(cfg: ModelConfig, device: Optional[torch.device] = None) -> Callable:
+def make_decode_step(cfg: ModelConfig, device: Optional[torch.device] = None,
+                     policy=None, mesh=None, batch: Optional[int] = None,
+                     max_len: Optional[int] = None) -> Callable:
     """``decode(params, caches, tokens [B,1], position) -> (logits, caches)``;
-    the caches are updated in place."""
+    the caches are updated in place.
+
+    On a process ``mesh`` with a model axis, as JAX's ``make_decode_step``
+    on its mesh: the params are placed by ``policy``'s param specs and the
+    caches (of ``batch`` rows and ``max_len`` positions) by its cache specs,
+    whole tensors on the way in and placed ones kept as they are
+    (:func:`init_placed_caches` makes them placed). The tokens are
+    ``Shard(0)`` on data where the batch splits, and each data rank decodes
+    its rows on its model group: ZeRO-3 params gathered over data, every
+    attention on its own heads and slots
+    (:func:`repro_torch.models.attention.placed_decode_attention`). The
+    caches come back placed, the logits as a DTensor on the mesh
+    (vocab-sharded where ``lm_head`` is). Only dense blocks are placed: a
+    config with any other raises ``NotImplementedError``."""
     dev = resolve_device(device)
+    if _model_axis(mesh):
+        return _placed_decode(cfg, policy, mesh, batch, max_len)
 
     @torch.inference_mode()
     def decode(params, caches, tokens, position: int):
         return tf.decode_step(params, caches, tokens.to(dev), position, cfg)
+
+    return decode
+
+
+def cache_shapes(cfg: ModelConfig, batch: int, max_len: int) -> list:
+    """The decode caches on the meta device: every leaf's shape and dtype,
+    the twin of JAX's ``eval_shape`` of ``init_caches``."""
+    return tf.init_caches(cfg, batch, max_len, META)
+
+
+def init_placed_caches(cfg: ModelConfig, policy, mesh, batch: int, max_len: int) -> list:
+    """Empty decode caches placed by ``policy``'s cache specs on ``mesh``,
+    filled as ``tf.init_caches`` fills them: each rank makes its own shard
+    of every leaf, and no rank the whole cache. Only dense blocks are
+    placed: a config with any other raises ``NotImplementedError``."""
+    _dense_only(cfg)
+    shapes = cache_shapes(cfg, batch, max_len)
+    specs = policy.cache_specs(shapes)
+    # every leaf of a fresh cache is one constant (the positions -1, the rest 0)
+    fills = tree_map(lambda t: t.flatten()[0].item(), tf.init_caches(cfg, 1, 1, "cpu"))
+    return [{k: place_filled(tuple(t.shape), fill[k], t.dtype, spec[k], mesh.device_mesh,
+                             mesh.device) for k, t in layer.items()}
+            for layer, fill, spec in zip(shapes, fills, specs)]
+
+
+def _dense_only(cfg: ModelConfig) -> None:
+    other = sorted(set(tf.cache_layout(cfg)) - {"dense"})
+    if other:
+        raise NotImplementedError(
+            f"{cfg.name} has {other} blocks: the placed decode runs dense blocks only "
+            "(MoE, MLA, SSM, cross and shared blocks on DTensor params are ROADMAP Queue 1 "
+            "item 4(d))")
+
+
+def _placed_decode(cfg: ModelConfig, policy, mesh, batch: Optional[int],
+                   max_len: Optional[int]) -> Callable:
+    _dense_only(cfg)
+    if batch is None or max_len is None:
+        raise ValueError("a placed decode step needs the caches' batch and max_len")
+    dm = mesh.device_mesh
+    p_specs = policy.param_specs(tf.param_shapes(cfg))
+    shapes = cache_shapes(cfg, batch, max_len)
+    c_specs = policy.cache_specs(shapes)
+
+    @torch.no_grad()  # not inference mode: DTensor views of placed params need versions
+    def decode(params, caches, tokens, position: int):
+        if not isinstance(leaves(params)[0], DTensor):
+            params = distribute_tree(params, p_specs, dm)
+        if not isinstance(leaves(caches)[0], DTensor):
+            if [t.shape for t in leaves(caches)] != [t.shape for t in leaves(shapes)]:
+                raise ValueError(f"the caches are not those of batch {batch} and max_len "
+                                 f"{max_len} that the step was made for")
+            caches = distribute_tree(caches, c_specs, dm)
+        tokens = tokens.to(mesh.device)
+        tokens = place(tokens, policy.batch_spec("tokens", tuple(tokens.shape)), dm)
+        with implicit_replication():
+            logits, caches = tf.decode_step(tree_map(param_on_model, params), caches,
+                                            on_model(tokens), position, cfg)
+        return DTensor.from_local(logits.to_local(), dm,
+                                  [tokens.placements[0], logits.placements[0]],
+                                  run_check=False), caches
 
     return decode

@@ -15,7 +15,8 @@ Two meshes (:mod:`repro_torch.launch.mesh`):
     world / D, as the JAX trainer lays out its devices; 0 is the world
     (model 1), and a D that does not divide exits. Under a model axis every
     leaf is a DTensor placed by the sharding policy (TP over model, ZeRO-1
-    moments over data under ``--comm xla``), and the gradients are reduced
+    moments over data under ``--comm xla``, and params over data where
+    ``make_policy`` picks ZeRO-3), and the gradients are reduced
     over each rank's data group. ``--dist-backend`` is ``nccl`` on ``cuda``
     and ``gloo`` on ``cpu`` unless given; on one card only ``gloo`` runs
     several ranks, its payloads staged through host memory. Rank 0 prints
@@ -23,9 +24,13 @@ Two meshes (:mod:`repro_torch.launch.mesh`):
   * otherwise ``--data-parallel`` virtual ranks on one device.
 
 The sharding policy is made on the mesh and checked: every spec of every
-parameter and optimizer leaf must divide. With ``--mesh single|multi`` the
-trainer makes and checks the policy of the production mesh and then
-exits: running on it needs 256 or 512 ranks.
+parameter and optimizer leaf must divide. ``main(argv, zero3=...)`` passes
+``make_policy``'s ``zero3`` (``None``: its own rule) from a Python caller;
+the CLI has no flag for it, as the JAX trainer has none. Under a model axis
+the result also holds each param's local shape on this rank at the end and
+the params that the data axis then shards (``local_params``). With
+``--mesh single|multi`` the trainer makes and checks the policy of the
+production mesh and then exits: running on it needs 256 or 512 ranks.
 
 Checkpoints hold rank 0's params and optimizer state, and a restore gives
 every rank that copy, as the JAX trainer does: its ``save`` writes
@@ -57,6 +62,7 @@ import time
 import torch
 import torch.distributed as dist
 
+from repro_torch.bridge import flatten_with_paths
 from repro_torch.checkpoint import checkpoint as ckpt_lib
 from repro_torch.configs import get_config, get_smoke_config
 from repro_torch.configs.base import torch_dtype
@@ -77,10 +83,10 @@ DP_NOT_DIVIDES = ("--data-parallel {dp} does not divide a world of {world} ranks
                   "axis is world / data ranks wide; pass a divisor of {world} (0: the world)")
 
 
-def checked_policy(cfg, mesh):
-    """``make_policy(cfg, mesh)``, with every param and optimizer spec
+def checked_policy(cfg, mesh, zero3=None):
+    """``make_policy(cfg, mesh, zero3)``, with every param and optimizer spec
     checked to divide its leaf (shapes on the meta device)."""
-    policy = make_policy(cfg, mesh)
+    policy = make_policy(cfg, mesh, zero3=zero3)
     shapes = param_shapes(cfg)
     policy.check_divides(shapes, policy.param_spec)
     policy.check_divides(steps_lib.opt_shapes(cfg, shapes), policy.opt_spec)
@@ -97,7 +103,7 @@ def _sync(dev: torch.device) -> None:
         torch.cuda.synchronize(dev)
 
 
-def main(argv=None) -> dict:
+def main(argv=None, zero3=None) -> dict:
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", required=True)
     ap.add_argument("--smoke", action="store_true", help="reduced config")
@@ -148,20 +154,21 @@ def main(argv=None) -> dict:
             if args.data_parallel < 0 or (args.data_parallel and
                                           mesh.world % args.data_parallel):
                 raise SystemExit(DP_NOT_DIVIDES.format(dp=args.data_parallel, world=mesh.world))
-            return _train(args, cfg, split_model_axis(mesh, args.data_parallel or mesh.world))
+            return _train(args, cfg, split_model_axis(mesh, args.data_parallel or mesh.world),
+                          zero3)
         finally:
             if made_group:
                 dist.destroy_process_group()
     dev = resolve_device(args.device)
     visible = torch.cuda.device_count() if dev.type == "cuda" else 1
-    return _train(args, cfg, make_host_mesh(args.data_parallel or visible, dev))
+    return _train(args, cfg, make_host_mesh(args.data_parallel or visible, dev), zero3)
 
 
-def _train(args, cfg, mesh) -> dict:
+def _train(args, cfg, mesh, zero3=None) -> dict:
     """The training loop on a virtual or a process mesh."""
     group = mesh.group if isinstance(mesh, ProcessMesh) else None
     lead = group is None or mesh.rank == 0  # prints, and writes the checkpoints
-    policy = checked_policy(cfg, mesh)
+    policy = checked_policy(cfg, mesh, zero3)
     placed = getattr(mesh, "model", 1) > 1
     opt_cfg = AdamWConfig(lr=args.lr, total_steps=args.steps,
                           warmup_steps=max(1, args.steps // 20))
@@ -218,7 +225,10 @@ def _train(args, cfg, mesh) -> dict:
     if group is not None:
         result.update(world=mesh.world, dist_backend=mesh.backend)
         if placed:
-            result.update(data=mesh.data, model=mesh.model)
+            result.update(data=mesh.data, model=mesh.model, local_params={
+                "shapes": {p: list(t.to_local().shape) for p, t in flatten_with_paths(params)},
+                "over_data": [p for p, t in flatten_with_paths(params)
+                              if t.placements[0].is_shard()]})
     if lead:
         print(json.dumps(result))
     return result

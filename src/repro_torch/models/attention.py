@@ -19,7 +19,9 @@ from its value dim, and the kernel takes one head dim.
 
 Under tensor parallelism (DTensor params, the heads sharded over the model
 axis) the standard block's attention core runs on each rank's own heads
-(:func:`head_local`).
+(:func:`head_local`), and its decode runs on a KV cache placed by the
+sharding policy's cache specs, each rank on its own heads and slots
+(:func:`placed_decode_attention`).
 """
 
 from __future__ import annotations
@@ -28,13 +30,16 @@ import math
 from typing import Optional
 
 import torch
-from torch.distributed.tensor import DTensor, Partial
+import torch.distributed as dist
+from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
 from torch.distributed.tensor.experimental import local_map
 
+from repro_torch.core import collectives_dist
 from repro_torch.kernels import ops as kops
 from repro_torch.kernels.ref import RECIP_127
 from repro_torch.models import loop_fold
 from repro_torch.models.layers import apply_rope, dense_init, reduced, whole_grad
+from repro_torch.sharding.policy import local_offsets, redistribute
 
 Tensor = torch.Tensor
 
@@ -239,16 +244,8 @@ def head_local(core, q: Tensor, k: Tensor, v: Tensor) -> Tensor:
         fn, kv_grad = core, k.placements
     else:
         [i] = sliced
-        n = q.device_mesh.size(i)
-        local_h = h // n
-        first = q.device_mesh.get_local_rank(i) * local_h
-        idx = [(first + j) // (h // kv) for j in range(local_h)]
-        heads = sorted(set(idx))
-        if local_h % len(heads) == 0 and idx == [u for u in heads
-                                                   for _ in range(local_h // len(heads))]:
-            pick = slice(heads[0], heads[-1] + 1)  # KV_local heads at the same ratio
-        else:
-            pick = idx  # one KV head per query head
+        local_h = h // q.device_mesh.size(i)
+        pick = kv_pick(h, kv, q.device_mesh.get_local_rank(i) * local_h, local_h, 0)
 
         def fn(q, k, v):
             return core(q, k[:, :, pick], v[:, :, pick])
@@ -256,6 +253,20 @@ def head_local(core, q: Tensor, k: Tensor, v: Tensor) -> Tensor:
     return local_map(fn, out_placements=list(q.placements),  # a tuple would mean one per output
                      in_placements=(q.placements, k.placements, v.placements),
                      in_grad_placements=(q.placements, kv_grad, kv_grad))(q, k, v)
+
+
+def kv_pick(h: int, kv: int, first: int, local_h: int, kv_first: int):
+    """Which of a rank's KV heads (the global heads from ``kv_first``) its
+    ``local_h`` query heads from ``first`` read, query head ``j`` reading
+    KV head ``j // (h/kv)``: a slice where they read contiguous KV heads at
+    one ratio (the local map ``j // (local_h/KV_local)`` then holds), else
+    one KV head per query head."""
+    idx = [(first + j) // (h // kv) - kv_first for j in range(local_h)]
+    heads = sorted(set(idx))
+    if local_h % len(heads) == 0 and idx == [u for u in heads
+                                               for _ in range(local_h // len(heads))]:
+        return slice(heads[0], heads[-1] + 1)
+    return idx
 
 
 # ---------------------------------------------------------------------------
@@ -303,8 +314,11 @@ def decode_attention(p: dict, x: Tensor, cache: dict, position: int, cfg) -> tup
     semantics when ``cfg.sliding_window`` is set (slot = pos % max_len).
     An int8 cache (one with ``k_scale``) takes the new token's payload and
     scales at the slot, and the whole cache is dequantized to ``x``'s dtype
-    and attended densely, as in JAX.
+    and attended densely, as in JAX. A cache of DTensors placed by the
+    policy's cache specs takes :func:`placed_decode_attention`.
     """
+    if isinstance(cache["k"], DTensor):
+        return placed_decode_attention(p, x, cache, position, cfg)
     b = x.shape[0]
     max_len = cache["k"].shape[1]
     pos_b = torch.full((b, 1), position, dtype=torch.int32, device=x.device)
@@ -325,6 +339,138 @@ def decode_attention(p: dict, x: Tensor, cache: dict, position: int, cfg) -> tup
     mask = build_mask(pos_b, cache["pos"], "causal", cfg.sliding_window)
     out = dense_attention(q, kk, vv, mask)
     return torch.einsum("bshk,hkd->bsd", out, p["wo"].to(x.dtype)), cache
+
+
+def placed_decode_attention(p: dict, x: Tensor, cache: dict, position: int,
+                            cfg) -> tuple[Tensor, dict]:
+    """:func:`decode_attention` on a cache whose leaves are DTensors on the
+    ``(data, model)`` mesh, placed by ``ShardingPolicy.cache_spec``, with
+    ``p`` and ``x`` DTensors on this data rank's model group (its rows when
+    the batch is split over data). Every rank works on its local tensors:
+
+      * the new token is written through the local tensor of each leaf whose
+        shard holds the slot ``position % L`` (of a ring buffer too), at the
+        slot less the shard's offset, and with the heads of the shard: every
+        rank for a leaf whose sequence is whole, the slot's owner for one
+        whose sequence is split over model or data. Where the int8 scales
+        keep every KV head and the payload its own (KV heads over model),
+        the new token's scales are gathered over model first;
+      * each rank attends its query heads over its own slots, reading the KV
+        heads they map to (:func:`kv_pick`) and masking with the slice of
+        ``pos`` beside its keys. Where the sequence is split, the softmax's
+        max per (row, head), then its sum and the partial P·V, are added over
+        the group that splits it (:func:`_seq_split_attention`): scalars and
+        one output row per head cross the wire, never the cache. Where that
+        group is the model group, which also splits the query heads, every
+        rank first gathers the new token's query heads, attends them all, and
+        keeps its own.
+    """
+    if any(not pl.is_replicate() for pl in x.placements):
+        raise ValueError("decode attention takes a whole x: reduce the layer's input first")
+    model = x.device_mesh  # this data rank's model group
+    xl = x.to_local()
+    b = xl.shape[0]
+    pos_b = torch.full((b, 1), position, dtype=torch.int32, device=xl.device)
+    # q, k, v of the rank's own heads from its own weights, as local tensors like the
+    # cache they go into: the products DTensor would run, with no wire
+    ql, kn, vn = _project_qkv({k: t.to_local() for k, t in p.items() if k != "wo"},
+                              xl, xl, pos_b, pos_b, cfg)
+    q_first, kv_first = local_offsets(p["wq"])[1], local_offsets(p["wk"])[1]
+    q_split = p["wq"].placements[0].is_shard()
+    keys = cache["k"]
+    slot = position % keys.shape[1]  # ring buffer; the owner follows the ring slot
+    new, first = {"k": kn, "v": vn}, {"k": kv_first, "v": kv_first}
+    if "k_scale" in cache:
+        for name in ("k", "v"):
+            new[name], new[name + "_scale"] = _quant_kv(new[name])
+            first[name + "_scale"] = first[name]
+        if cache["k_scale"].to_local().shape[2] > new["k_scale"].shape[2]:
+            # the scales keep every KV head: gather the new token's over model, k's and
+            # v's in one call
+            parts = collectives_dist.Wire(model.get_group()).all_gather(
+                torch.stack([new["k_scale"], new["v_scale"]]))
+            new["k_scale"], new["v_scale"] = torch.cat(parts, dim=3).unbind()
+            first["k_scale"] = first["v_scale"] = 0
+    new["pos"], first["pos"] = pos_b, 0
+    for name, value in new.items():
+        _write_slot(cache[name], slot, value, first[name])
+
+    kl = keys.to_local()
+    if "k_scale" in cache:
+        kk = _dequant_kv(kl, _local_like(cache["k_scale"], keys), x.dtype)
+        vv = _dequant_kv(cache["v"].to_local(), _local_like(cache["v_scale"], cache["v"]),
+                         x.dtype)
+    else:
+        kk, vv = kl.to(x.dtype), cache["v"].to_local().to(x.dtype)
+    split = [i for i, pl in enumerate(keys.placements) if pl.is_shard(1)]
+    own = None
+    if split and keys.device_mesh.mesh_dim_names[split[0]] == "model" and q_split:
+        # the model group splits the slots: every rank attends every query head
+        own = slice(q_first, q_first + ql.shape[2])
+        ql = torch.cat(collectives_dist.Wire(model.get_group()).all_gather(ql), dim=2)
+        q_first = 0
+    pick = kv_pick(cfg.n_heads, cfg.n_kv_heads, q_first, ql.shape[2], local_offsets(keys)[2])
+    kk, vv = kk[:, :, pick], vv[:, :, pick]
+    mask = build_mask(pos_b, _local_like(cache["pos"], keys), "causal", cfg.sliding_window)
+    if split:
+        out = _seq_split_attention(ql, kk, vv, mask, keys.device_mesh.get_group(split[0]))
+    else:
+        out = dense_attention(ql, kk, vv, mask)
+    if own is not None:
+        out = out[:, :, own]
+    out = DTensor.from_local(out, model, [Shard(2) if q_split else Replicate()],
+                             run_check=False)
+    return reduced(torch.einsum("bshk,hkd->bsd", out, p["wo"].to(x.dtype))), cache
+
+
+def _write_slot(leaf: DTensor, slot: int, new: Tensor, first: int) -> None:
+    """``new`` [b, 1, ...] (its dim 2, if any, the heads from ``first``) at
+    global slot ``slot`` of ``leaf``'s dim 1, written through the local tensor
+    of the rank whose shard holds the slot; the other ranks write nothing."""
+    off, local = local_offsets(leaf), leaf.to_local()
+    at = slot - off[1]
+    if not 0 <= at < local.shape[1]:
+        return
+    if local.dim() > 2:
+        new = new.narrow(2, off[2] - first, local.shape[2])
+    local[:, at] = new[:, 0].to(local.dtype)
+
+
+def _local_like(leaf: DTensor, like: DTensor) -> Tensor:
+    """The part of ``leaf`` (``pos`` or the int8 scales) beside ``like``'s
+    local keys on dims 1 (slots) and 2 (heads, where ``leaf`` has them).
+    ``leaf`` is first gathered over any mesh dim that splits one of those
+    dims and does not split ``like``'s the same way (``pos`` over data where
+    the keys' sequence is split over model)."""
+    dims = range(1, min(leaf.dim(), 3))
+    if any(pl.is_shard() and pl.dim in dims and pl != like.placements[i]
+           for i, pl in enumerate(leaf.placements)):
+        leaf = redistribute(leaf, [Replicate() if pl.is_shard() and pl.dim in dims
+                                   and pl != like.placements[i] else pl
+                                   for i, pl in enumerate(leaf.placements)])
+    out, off, at = leaf.to_local(), local_offsets(leaf), local_offsets(like)
+    for d in dims:
+        out = out.narrow(d, at[d] - off[d], like.to_local().shape[d])
+    return out
+
+
+def _seq_split_attention(q: Tensor, k: Tensor, v: Tensor, mask: Tensor, group) -> Tensor:
+    """:func:`dense_attention` of local ``q`` over keys whose sequence is split
+    over ``group``, each rank holding its own slots, in two all-reduces: the
+    softmax's max per (row, head), then, in one call, the sum of the
+    exponentials and the exponential-weighted values, in fp32; their
+    quotient is the attention, cast to ``q``'s dtype."""
+    b, sq, h, dk = q.shape
+    kv, dv = k.shape[2], v.shape[-1]
+    wire = collectives_dist.Wire(group)
+    qg = q.reshape(b, sq, kv, h // kv, dk)
+    s = torch.einsum("bqhrd,bkhd->bhrqk", qg, k).float() * (1.0 / math.sqrt(dk))
+    s = torch.where(mask[:, None, None, :, :], s, NEG_INF)
+    e = torch.exp(s - wire.all_reduce(s.amax(dim=-1, keepdim=True), op=dist.ReduceOp.MAX))
+    acc = torch.einsum("bhrqk,bkhd->bhrqd", e, v.float())
+    both = wire.all_reduce(torch.cat([acc, e.sum(dim=-1, keepdim=True)], dim=-1))
+    out = both[..., :dv] / both[..., dv:]
+    return out.permute(0, 3, 1, 2, 4).reshape(b, sq, h, dv).to(q.dtype)
 
 
 # ---------------------------------------------------------------------------

@@ -28,7 +28,10 @@ sharding policy (``launch.steps`` on a process mesh with a model axis):
 the tensors it makes for itself (positions, masks, rope tables, zeros)
 enter as replicated DTensors under ``implicit_replication``, and the
 attention core makes its own inside ``local_map``. A vocab-sharded
-embedding is looked up by DTensor's masked rule (:func:`_lookup`).
+embedding is looked up by DTensor's masked rule (:func:`_lookup`). Its
+decode step takes caches placed by the policy's cache specs
+(``attention.placed_decode_attention``); ``launch.steps`` places a decode
+of dense blocks only.
 """
 
 from __future__ import annotations

@@ -11,8 +11,8 @@ optimizer, batch and cache leaf, which mesh axes shard which dimension:
     still shards their embeddings and MLPs.
   * **ZeRO-1** always: optimizer moments shard over the data axes on the
     largest divisible dim not already sharded.
-  * **ZeRO-3** optionally (dbrx-132b): parameters themselves also shard
-    over the data axes.
+  * **ZeRO-3** optionally (``make_policy``'s rule: bf16 params past 12 GB
+    per model shard): parameters themselves also shard over the data axes.
 
 A spec is a tuple with one entry per tensor dim. Each entry is ``None``,
 an axis name, or a tuple of axis names: a ``PartitionSpec``'s own entries,
@@ -26,7 +26,10 @@ placements of a ``DeviceMesh`` with the same axes; :func:`distribute_tree`
 places a tree of full tensors by a tree of specs, every rank keeping its
 own shard, and :func:`gather_tree` gathers it back. :func:`redistribute`
 is the port's one way to move a DTensor to other placements: under gloo it
-runs a CUDA DTensor's all-gathers through host memory.
+runs a CUDA DTensor's all-gathers through host memory. :func:`gather_data`
+gathers a ZeRO-3 leaf over data for use, :func:`local_offsets` says
+where a rank's shard lies in its leaf, and :func:`place_filled` makes a
+constant leaf's shard alone (an empty decode cache).
 
 The collective profiles at the end (``derive_tp``, ``collective_profile``,
 ``zoo_profiles``) describe what one training step of each architecture
@@ -369,15 +372,38 @@ def place(full, spec: Spec, device_mesh):
     placed by ``spec``: this rank keeps a copy of its own shard, and nothing
     crosses the wire. A replicated leaf is kept as it is.
 
-    A dim split over two mesh axes at once (ZeRO-3's ``("data", "model")``
-    entry, which only dbrx-132b's policy makes) raises
-    ``NotImplementedError``: the port places no such leaf (ROADMAP)."""
+    ZeRO-3's data entry on a ``(data, model)`` mesh is the bare ``"data"``
+    and is placed. A dim split over two mesh axes at once (the multi-pod
+    mesh's ``("pod", "data")``, ``flat_dp``'s ``("data", "model")``) raises
+    ``NotImplementedError``: the port places no such leaf (ROADMAP Queue 1
+    item 4(c))."""
+    return _placed(full, _placements(spec, device_mesh), device_mesh)
+
+
+def place_filled(shape: tuple[int, ...], fill, dtype, spec: Spec, device_mesh, device):
+    """A DTensor of ``shape`` whose every entry is ``fill``, placed by
+    ``spec`` as :func:`place` places it: this rank makes its own shard
+    alone, and no rank ever holds the whole leaf."""
+    placements = _placements(spec, device_mesh)
+    local = list(shape)
+    for i, pl in enumerate(placements):
+        if pl.is_shard():
+            n = device_mesh.size(i)
+            if local[pl.dim] % n:
+                raise ValueError(f"dim {pl.dim} of {tuple(shape)} does not split "
+                                 f"{n} ways over {device_mesh.mesh_dim_names[i]!r}")
+            local[pl.dim] //= n
+    return DTensor.from_local(torch.full(local, fill, dtype=dtype, device=device), device_mesh,
+                              placements, run_check=False)
+
+
+def _placements(spec: Spec, device_mesh) -> list:
     for entry in spec:
         if isinstance(entry, (tuple, list)) and len(entry) > 1:
             raise NotImplementedError(
                 f"spec {spec!r} splits one dim over the mesh axes {tuple(entry)}: the port "
-                "places no such leaf (ZeRO-3's tuple specs, ROADMAP Queue 1)")
-    return _placed(full, to_placements(spec, tuple(device_mesh.mesh_dim_names)), device_mesh)
+                "places no such leaf (ROADMAP Queue 1 item 4(c))")
+    return to_placements(spec, tuple(device_mesh.mesh_dim_names))
 
 
 def place_like(full, like):
@@ -435,6 +461,29 @@ def redistribute(t, placements):
 def replicated(t):
     """``t`` replicated over every mesh dim that shards it (:func:`redistribute`)."""
     return redistribute(t, [Replicate() if p.is_shard() else p for p in t.placements])
+
+
+def gather_data(t):
+    """A leaf of the ``(data, model)`` mesh replicated over data, its model
+    placement kept: a ZeRO-3 param (or moment) gathered for use
+    (:func:`redistribute`). A leaf that data does not shard comes back as
+    it is. A gradient goes the other way with no wire: redistributing a
+    leaf replicated over data to a ``Shard`` over data keeps this rank's
+    slice, as ``optim.adamw`` does for the moments' placement."""
+    if not t.placements[0].is_shard():
+        return t
+    return redistribute(t, [Replicate(), *t.placements[1:]])
+
+
+def local_offsets(t) -> tuple[int, ...]:
+    """Where the local tensor of ``t`` (placed evenly, as :func:`place`
+    places) starts in the global leaf, per dim."""
+    off = [0] * t.dim()
+    local = t.to_local().shape
+    for i, pl in enumerate(t.placements):
+        if pl.is_shard():
+            off[pl.dim] += t.device_mesh.get_local_rank(i) * local[pl.dim]
+    return tuple(off)
 
 
 def distribute_tree(tree: Tree, spec_tree: Tree, device_mesh) -> Tree:

@@ -402,6 +402,62 @@ def test_tensor_parallel_prefill_on_cards_equals_one_process(card, tmp_path, bac
         assert p.returncode == 0, f"rank {r}: {err[-3000:]}"
 
 
+# one rank of a (1, 2) mesh on the card over gloo: danube's smoke decode with the
+# caches placed by the policy (KV heads over model), every step's logits against
+# one process's decode of the same params and tokens
+TP_DECODE_RANK = r"""
+import sys
+import torch
+import torch.distributed as dist
+sys.path.insert(0, {src!r})
+from repro_torch.configs import get_smoke_config
+from repro_torch.launch import steps
+from repro_torch.launch.mesh import init_process_mesh, split_model_axis
+from repro_torch.models import transformer as tf
+from repro_torch.sharding.policy import gather_tree, make_policy
+rank = int(sys.argv[1])
+mesh = split_model_axis(init_process_mesh("cuda", "gloo", init_method="file://" + {rdzv!r},
+                                          rank=rank, world_size=2), 1)
+gen = torch.Generator(device=mesh.device).manual_seed(0)
+cfg = get_smoke_config("h2o-danube-1.8b")
+params = tf.init_params(gen, cfg)
+b, n = 2, 24  # past the 16-slot window: the ring wraps
+tokens = torch.randint(0, cfg.vocab_size, (b, n), generator=gen, device=mesh.device)
+for dtype, kv, tol in (("float32", "bfloat16", 1e-4), ("bfloat16", "bfloat16", 5e-2),
+                       ("bfloat16", "int8", 5e-2)):
+    c = cfg.replace(compute_dtype=dtype, kv_cache_dtype=kv)
+    one, caches = steps.make_decode_step(c, mesh.device), tf.init_caches(c, b, n, mesh.device)
+    policy = make_policy(c, mesh)
+    placed = steps.make_decode_step(c, mesh.device, policy, mesh, b, n)
+    pcaches = steps.init_placed_caches(c, policy, mesh, b, n)
+    for t in range(n):
+        expect, caches = one(params, caches, tokens[:, t:t + 1], t)
+        got, pcaches = placed(params, pcaches, tokens[:, t:t + 1], t)
+        got = gather_tree(got).float()
+        rel = float((got - expect.float()).abs().max() / expect.float().abs().max())
+        assert rel <= tol, (dtype, kv, t, rel)
+    assert pcaches[0]["k"].to_local().shape == (b, 16, cfg.n_kv_heads // 2, cfg.head_dim)
+dist.destroy_process_group()
+"""
+
+
+def test_placed_decode_on_card_equals_one_process(card, tmp_path):
+    """2 ranks as a (1, 2) mesh over gloo (host-staged) on one card, under a
+    timeout: a hang fails."""
+    code = TP_DECODE_RANK.format(src=str(pathlib.Path(__file__).resolve().parents[1] / "src"),
+                                 rdzv=str(tmp_path / "rdzv"))
+    procs = [subprocess.Popen([sys.executable, "-c", code, str(r)], stderr=subprocess.PIPE,
+                              text=True, env={**os.environ, "OMP_NUM_THREADS": "1"})
+             for r in range(2)]
+    try:
+        errs = [p.communicate(timeout=300)[1] for p in procs]
+    finally:
+        for p in procs:
+            p.kill()
+    for r, (p, err) in enumerate(zip(procs, errs)):
+        assert p.returncode == 0, f"rank {r}: {err[-3000:]}"
+
+
 def _to(tree, dev):
     if isinstance(tree, dict):
         return {k: _to(v, dev) for k, v in tree.items()}
