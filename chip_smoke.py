@@ -221,6 +221,30 @@ JAX or of the JAX package. No phase's failure is caught.
      ``xla``; replicated over data after the LUMORPH comms' first step, as
      JAX's), ``step_s``, the communication's seconds and the peak memory per
      rank beside phase 16's.
+ 18. The MoE and MLA block kinds on the model axis: a fourth world of 4 rank
+     processes on this card over gloo (``python3 chip_smoke.py --moe-rank
+     DIR``), its references run here first (every MoE call's router gaps
+     recorded), each arch's params built once per process. (a)
+     deepseek-v2-lite-16b at full width, its first 3 of 27 layers (fp32
+     params): the prefill of 1 × 512 at data 1 × model 4 (16 experts and 4
+     heads per rank) in fp32; decodes of 8 + 8 through the placed step, fed
+     the one process's tokens, at 1 × 4 batch 4 in fp32 and bf16 and at 2 × 2
+     batch 1 in fp32 (``c_kv``'s sequence over model, ``pos`` over data). (b)
+     dbrx-132b at full width, 1 of its 40 layers, bf16 params, at 1 × 4 (4
+     experts, 12 query and 2 KV heads per rank): the prefill of 1 × 1024
+     through the flash kernel in fp32 and bf16, one launch per layer in
+     every rank on ``[1, 1024, 12, 128]``, layer 0's bf16 attention within
+     5e-2 of one process; a decode of 8 + 8 at batch 4 in fp32 (KV heads over
+     model). fp32 logits within 1e-4 relative of one process on every row
+     whose tokens' router gap is at least 1e-6, the rows under it printed
+     with their errors (those past 1e-4 fewer than 1 % of the rows); bf16
+     printed. Local cache shapes held to ``steps.shard_shape`` of their
+     specs; TPOT and peak memory per rank. (c) deepseek at full width, 2
+     layers, fp32, trained by ``launch.train.main --data-parallel 2`` with
+     ``xla`` and ``lumorph4``, 4 × 128, 2 steps: each final loss within 1e-5
+     relative of the same flags on 2 virtual ranks (1e-4 where that run has
+     a token under the 1e-6 gap); ``step_s``, communication seconds and peak
+     memory per rank.
 
 Phase 2 also holds the RMSNorm kernel against its plain version (fp32
 within 1e-5, bf16 within 2e-2, the limits of tests/test_kernels.py, or one
@@ -242,7 +266,7 @@ mode (phase 7), deepseek (phase 8), dbrx (phase 9), the dense trio (phase
 10, per model), the SSM models (phase 11, per model) and whisper and
 paligemma (phase 12, per model), the ``--comm auto`` runs and the KIVI
 decodes (phase 13), the roofline's danube prefills and the example
-twins (phase 14), and each run of phases 15, 16 and 17 in each rank's process. Each
+twins (phase 14), and each run of phases 15–18 in each rank's process. Each
 phase prints its seconds. The last lines are the ``{"kernels": [...]}`` record, the run
 record, and ``{"ok": true, "device": {...}}``.
 """
@@ -415,6 +439,48 @@ DEC_REF_DIR = ROOT / "build" / "chip_smoke_decode_refs"  # gitignored; the refer
 # (b) bert-large as phase 16 under a ZeRO-3 policy (make_policy(..., zero3=True)): each
 # final loss within Z3_RTOL of phase 16's run of the same flags
 Z3_RTOL = 1e-6
+# phase 18: the MoE and MLA block kinds on the model axis, a fourth 4-rank world on this
+# card over gloo. (a) deepseek-v2-lite-16b at full width, its first 3 of 27 layers
+# (mla_dense, mla_moe, mla_moe: 64 experts, 16 per rank at model 4; 16 heads, 4 per rank),
+# fp32 params (6.7 GB whole, built in every rank before it keeps its shards); (b)
+# dbrx-132b at full width, 1 of its 40 layers, bf16 params (9 GB whole): 4 experts, 12
+# heads and 2 KV heads per rank. name -> (arch, layers, data, batch, prompt, generated,
+# compute dtype); each decode fed the one-process reference's tokens
+MOE_DS, MOE_DBRX = "deepseek-v2-lite-16b", "dbrx-132b"
+MOE_LAYERS = {MOE_DS: 3, MOE_DBRX: 1}
+MOE_PREFILL = {MOE_DS: (1, 512), MOE_DBRX: (1, 1024)}  # at data 1 x model 4
+MOE_DEC_RUNS = {
+    "deepseek_1x4_fp32": (MOE_DS, 1, 4, 8, 8, "float32"),
+    "deepseek_1x4_bf16": (MOE_DS, 1, 4, 8, 8, "bfloat16"),
+    "deepseek_2x2_b1_fp32": (MOE_DS, 2, 1, 8, 8, "float32"),
+    "dbrx_1x4_fp32": (MOE_DBRX, 1, 4, 8, 8, "float32"),
+}
+# every local cache leaf of layer 0 (c_kv's sequence over model, pos over data at 2 x 2
+# batch 1; dbrx's 8 KV heads over model), as steps.shard_shape gives it
+MOE_CACHE_LOCAL = {
+    "deepseek_1x4": {"c_kv": [4, 4, 512], "k_pe": [4, 16, 64], "pos": [4, 16]},
+    "deepseek_2x2_b1": {"c_kv": [1, 8, 512], "k_pe": [1, 16, 64], "pos": [1, 8]},
+    "dbrx_1x4": {"k": [4, 16, 2, 128], "v": [4, 16, 2, 128], "pos": [4, 16]},
+}
+MOE_DBRX_LOCAL = [[1, 1024, 12, 128], [1, 1024, 2, 128]]  # each rank's flash q and k
+# fp32 logits, relative to the largest: held on every row whose tokens' router gaps (the
+# k-th against the (k+1)-th probability, smallest over the MoE layers) are at least
+# MOE_MIN_GAP; the rows under it (a TP partial sum may move such a token to another
+# expert) are counted and printed with their error, and must stay under MOE_NEAR_TIE_MAX
+MOE_TOL, MOE_MIN_GAP, MOE_NEAR_TIE_MAX = 1e-4, 1e-6, 0.01
+MOE_ATTN_BF16_TOL = PREFILL_TOL["bfloat16"]  # layer 0's attention in bf16, as phase 9
+# (c) deepseek at full width, 2 layers (mla_dense, mla_moe), data 2 x model 2, fp32: each
+# final loss within MOE_TRAIN_RTOL of the same flags at model 1 (2 virtual ranks), or
+# MOE_NEAR_TIE_RTOL where a token of the model-1 run has a router gap under MOE_MIN_GAP
+MOE_TRAIN_LAYERS = 2
+MOE_TRAIN = ["--arch", MOE_DS, "--data-parallel", "2", "--batch", "4", "--seq", "128",
+             "--steps", "2", "--log-every", "100"]
+MOE_TRAIN_RUNS = [("xla", ["--comm", "xla", "--wire-dtype", "float32"]),
+                  ("lumorph4", ["--comm", "lumorph4", "--wire-dtype", "float32"])]
+MOE_TRAIN_RTOL, MOE_NEAR_TIE_RTOL = 1e-5, 1e-4
+MOE_TIMEOUT_S = 480
+MOE_DIR = ROOT / "build" / "chip_smoke_moe"  # gitignored; the ranks' results
+MOE_REF_DIR = ROOT / "build" / "chip_smoke_moe_refs"  # gitignored; the references
 # overlap mode (phase 7): the JAX package's overlap benchmark (OVERLAP_SCRIPT and
 # CLAIM_BYTES of benchmarks/bench_collective_exec.py) on 8 virtual ranks
 OVL_P, OVL_D, OVL_CHUNKS = 8, 128, (2, 4, 8)
@@ -1153,26 +1219,11 @@ def phase_decode_zero3(get_config, tf, steps_lib, tp) -> dict:
         for name in names:
             _, _, _, b, prompt, n_gen, dtype, kv = DEC_RUNS[name]
             c = cfg.replace(compute_dtype=dtype, kv_cache_dtype=kv)
-            gen = torch.Generator(device=dev).manual_seed(1)
-            tokens = torch.randint(0, c.vocab_size, (b, prompt + n_gen), generator=gen,
-                                   device=dev)
-            step, n = steps_lib.make_decode_step(c, dev), prompt + n_gen
-            caches, logits, step_s = tf.init_caches(c, b, n, dev), [], []
-            for t in range(n):
-                torch.cuda.synchronize()
-                t0 = time.perf_counter()
-                out, caches = step(params, caches, tokens[:, t:t + 1], t)
-                torch.cuda.synchronize()
-                step_s.append(time.perf_counter() - t0)
-                logits.append(out[:, -1])
-                if prompt - 1 <= t < n - 1:  # greedy from the prompt's last token on
-                    tokens[:, t + 1] = out[:, -1].argmax(-1)
-            logits = torch.stack(logits[prompt - 1:])
-            assert torch.isfinite(logits).all(), name
+            tokens, logits, tpot, _ = _decode_ref(steps_lib, tf, c, params, b, prompt, n_gen)
             torch.save({"tokens": tokens.cpu(), "logits": logits.cpu()},
                        DEC_REF_DIR / f"{name}.pt")
-            refs[name] = {"tpot_s_one_process": statistics.median(step_s[prompt:])}
-            del caches, logits, tokens
+            refs[name] = {"tpot_s_one_process": tpot}
+            del logits, tokens
         del params
         torch.cuda.empty_cache()
     ranks = run_ranks("--decode-rank", DEC_DIR, DEC_TIMEOUT_S)
@@ -1246,11 +1297,10 @@ def decode_rank(out_dir: str) -> None:
     from repro_torch.bridge import flatten_with_paths
     from repro_torch.configs import get_config
     from repro_torch.kernels import ops
-    from repro_torch.launch import serve, train
-    from repro_torch.launch import steps as steps_lib
+    from repro_torch.launch import train
     from repro_torch.launch.mesh import init_process_mesh, split_model_axis
     from repro_torch.models import transformer as tf
-    from repro_torch.sharding.policy import distribute_tree, gather_tree, make_policy
+    from repro_torch.sharding.policy import distribute_tree, make_policy
 
     torch.backends.cuda.matmul.allow_tf32 = False  # as the references' runs
     torch.backends.cudnn.allow_tf32 = False
@@ -1268,40 +1318,12 @@ def decode_rank(out_dir: str) -> None:
         for name in names:
             _, _, _, b, prompt, n_gen, dtype, kv = DEC_RUNS[name]
             c = cfg.replace(compute_dtype=dtype, kv_cache_dtype=kv)
-            ref = torch.load(DEC_REF_DIR / f"{name}.pt")
-            tokens, n = ref["tokens"].to(dev), prompt + n_gen
-            policy = make_policy(c, mesh)
-            step = steps_lib.make_decode_step(c, dev, policy, mesh, b, n)
             for k in ops.LAUNCHES:
                 ops.LAUNCHES[k] = 0
-            torch.cuda.reset_peak_memory_stats()
-            dist.barrier()
-            logits, caches = serve.prefill_with_caches(params, {"tokens": tokens[:, :prompt]},
-                                                       c, n, dev, policy, mesh)
-            got, step_s = [gather_tree(logits)[:, -1]], []
-            for t in range(prompt, n):
-                torch.cuda.synchronize()
-                t0 = time.perf_counter()
-                logits, caches = step(params, caches, tokens[:, t:t + 1], t)
-                torch.cuda.synchronize()
-                step_s.append(time.perf_counter() - t0)
-                got.append(gather_tree(logits)[:, -1])  # collective; not timed
-            expect = ref["logits"].to(dev)
-            rel = max(_rel(g, e) for g, e in zip(got, expect))
-            agree = float(torch.stack([(g.argmax(-1) == tokens[:, prompt + i]).float().mean()
-                                       for i, g in enumerate(got[:-1])]).mean())
-            specs = policy.cache_specs(steps_lib.cache_shapes(c, b, n))
-            shapes_ok = all(  # each layer's cache is a flat dict of leaves
-                tuple(leaf.to_local().shape) == steps_lib.shard_shape(tuple(leaf.shape),
-                                                                      spec[k], mesh)
-                for layer, spec in zip(caches, specs) for k, leaf in layer.items())
-            out["decode"][name] = {
-                "steps": len(got), "rel": rel, "agree": agree,
-                "finite": all(bool(torch.isfinite(g).all()) for g in got),
-                "k_local": list(caches[0]["k"].to_local().shape), "shapes_ok": shapes_ok,
-                "launches": dict(ops.LAUNCHES), "tpot_s": statistics.median(step_s),
-                "peak_gb": torch.cuda.max_memory_allocated() / 1e9}
-            del caches, logits, got, expect
+            res = _placed_decode_run(c, params, make_policy(c, mesh), mesh,
+                                     torch.load(DEC_REF_DIR / f"{name}.pt"), b, prompt, n_gen)
+            out["decode"][name] = {**res, "k_local": res["local"]["k"],
+                                   "launches": dict(ops.LAUNCHES)}
             torch.cuda.empty_cache()
         del params
         torch.cuda.empty_cache()
@@ -1319,6 +1341,371 @@ def decode_rank(out_dir: str) -> None:
             "local_numel": sum(math.prod(v) for v in local["shapes"].values()),
             "numel": sum(math.prod(v) for v in shapes.values()),
             "embed": local["shapes"]["embed"]}
+    dist.barrier()
+    dist.destroy_process_group()
+    pathlib.Path(out_dir, f"rank{world.rank}.json").write_text(json.dumps(out))
+
+
+@contextlib.contextmanager
+def router_gaps(moe_lib, gaps: list):
+    """While the block runs, every MoE call's gap between each token's k-th and
+    (k+1)-th router probability, ``[B, S]``, appended to ``gaps``."""
+    pick = moe_lib.top_k_lowest_index_first
+
+    def recorded(probs, k):
+        top = torch.topk(probs.detach().float(), k + 1, dim=-1).values
+        gaps.append(top[..., k - 1] - top[..., k])
+        return pick(probs, k)
+    moe_lib.top_k_lowest_index_first = recorded
+    try:
+        yield
+    finally:
+        moe_lib.top_k_lowest_index_first = pick
+
+
+def _decode_ref(steps_lib, tf, c, params, b: int, prompt: int, n_gen: int, moe_lib=None):
+    """A decode in this one process through ``make_decode_step``: a prompt from
+    seed 1 replayed, then greedy tokens. Returns the tokens, the logits of the
+    prompt's last step and after ``[n_gen + 1, b, V]``, the median TPOT and,
+    given ``moe_lib``, each of those steps' smallest router gap per row ``[n_gen
+    + 1, b]`` (over the MoE layers)."""
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(1)
+    tokens = torch.randint(0, c.vocab_size, (b, prompt + n_gen), generator=gen, device=dev)
+    step, n = steps_lib.make_decode_step(c, dev), prompt + n_gen
+    caches, logits, step_s, gaps = tf.init_caches(c, b, n, dev), [], [], []
+    for t in range(n):
+        calls: list = []
+        with router_gaps(moe_lib, calls) if moe_lib else contextlib.nullcontext():
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out, caches = step(params, caches, tokens[:, t:t + 1], t)
+            torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - t0)
+        if calls:
+            gaps.append(torch.stack(calls).amin(0)[:, 0])
+        logits.append(out[:, -1])
+        if prompt - 1 <= t < n - 1:  # greedy from the prompt's last token on
+            tokens[:, t + 1] = out[:, -1].argmax(-1)
+    logits = torch.stack(logits[prompt - 1:])
+    assert torch.isfinite(logits).all()
+    return (tokens, logits, statistics.median(step_s[prompt:]),
+            torch.stack(gaps[prompt - 1:]) if gaps else None)
+
+
+def _placed_decode_run(c, params, policy, mesh, ref: dict, b: int, prompt: int,
+                       n_gen: int) -> dict:
+    """In a rank: the decode of ``ref`` (``_decode_ref``'s tokens and logits)
+    through the placed step, the prompt replayed by ``serve.prefill_with_caches``
+    with the policy and the mesh, then its tokens fed. Every step's gathered
+    logits against the reference's: the error of each row relative to the
+    step's largest logit, the greedy agreement, the local cache shapes against
+    ``steps.shard_shape`` of their specs, TPOT and peak memory."""
+    import torch.distributed as dist
+    from repro_torch.launch import serve
+    from repro_torch.launch import steps as steps_lib
+    from repro_torch.sharding.policy import gather_tree
+    dev = mesh.device
+    tokens, n = ref["tokens"].to(dev), prompt + n_gen
+    step = steps_lib.make_decode_step(c, dev, policy, mesh, b, n)
+    torch.cuda.reset_peak_memory_stats()
+    dist.barrier()
+    logits, caches = serve.prefill_with_caches(params, {"tokens": tokens[:, :prompt]}, c, n,
+                                               dev, policy, mesh)
+    got, step_s = [gather_tree(logits)[:, -1]], []
+    for t in range(prompt, n):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits, caches = step(params, caches, tokens[:, t:t + 1], t)
+        torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - t0)
+        got.append(gather_tree(logits)[:, -1])  # collective; not timed
+    expect = ref["logits"].to(dev)
+    rows = [((g.float() - e.float()).abs().amax(-1) / e.float().abs().max()).tolist()
+            for g, e in zip(got, expect)]
+    agree = float(torch.stack([(g.argmax(-1) == tokens[:, prompt + i]).float().mean()
+                               for i, g in enumerate(got[:-1])]).mean())
+    specs = policy.cache_specs(steps_lib.cache_shapes(c, b, n))
+    shapes_ok = all(  # each layer's cache is a flat dict of leaves
+        tuple(leaf.to_local().shape) == steps_lib.shard_shape(tuple(leaf.shape), spec[k], mesh)
+        for layer, spec in zip(caches, specs) for k, leaf in layer.items())
+    return {"steps": len(got), "rows": rows, "rel": max(max(r) for r in rows), "agree": agree,
+            "finite": all(bool(torch.isfinite(g).all()) for g in got),
+            "local": {k: list(leaf.to_local().shape) for k, leaf in caches[0].items()},
+            "shapes_ok": shapes_ok, "tpot_s": statistics.median(step_s),
+            "peak_gb": torch.cuda.max_memory_allocated() / 1e9}
+
+
+def _held_rows(rows, gaps: torch.Tensor, tol: float) -> dict:
+    """``rows``' errors held to ``tol`` where the rows' router gaps are at least
+    ``MOE_MIN_GAP``; the rows under it counted and printed with their errors,
+    those of them past ``tol`` (a token that took another expert) fewer than
+    ``MOE_NEAR_TIE_MAX`` of the rows."""
+    rows, gaps = torch.tensor(rows).flatten(), gaps.flatten().cpu()
+    near = gaps < MOE_MIN_GAP
+    held = float(rows[~near].max())
+    moved = int((rows[near] > tol).sum())
+    return {"rel_max_err_held_rows": held, "tol": tol, "rows": rows.numel(),
+            "smallest_router_gap": float(gaps.min()), "near_tie_rows": int(near.sum()),
+            "near_tie_rows_past_tol": moved, "near_tie_row_errs": rows[near].tolist(),
+            "ok": held <= tol and moved < MOE_NEAR_TIE_MAX * rows.numel()}
+
+
+def _layer0_attention(tf, attn, apply_norm, c, embed, segment, tokens):
+    """Layer 0's attention through the kernel on its own normed input: the
+    first layer of the stacked ``segment``, after ``embed``'s rows of ``tokens``."""
+    layer0 = tf._layers(segment, 1)[0]
+    positions = torch.arange(tokens.shape[1], dtype=torch.int32, device=tokens.device)[None]
+    h = apply_norm(c.norm, layer0["ln1"], tf._lookup(embed, tokens).to(c.cdtype))
+    return attn.attention_forward(layer0["attn"], h, positions, c, use_pallas=True)
+
+
+def _moe_train_config(get_config, arch: str):
+    """Phase 18(c)'s config: ``arch`` at full width, its first
+    ``MOE_TRAIN_LAYERS`` layers, computing in fp32."""
+    return _dec_config(get_config, arch, MOE_TRAIN_LAYERS).replace(compute_dtype="float32")
+
+
+def phase_moe_mla(get_config, tf, steps_lib, train, moe_lib, attn, apply_norm) -> dict:
+    """Phase 18: the MoE and MLA block kinds on the model axis. The references run
+    here first, each arch's params freed before the next: (a) deepseek's fp32
+    prefill and its decodes, (b) dbrx's kernel-path prefills in fp32 and bf16,
+    layer 0's bf16 attention and its fp32 decode, every MoE call's router gaps
+    recorded; (c) deepseek's 2-layer training at model 1 (2 virtual ranks). Then
+    one 4-rank gloo world (``python3 chip_smoke.py --moe-rank DIR``), under a
+    timeout, any rank's failure failing the phase, runs each placed and is held
+    to them here."""
+    dev = torch.device("cuda")
+    shutil.rmtree(MOE_REF_DIR, ignore_errors=True)
+    MOE_REF_DIR.mkdir(parents=True)
+    refs: dict = {"prefill": {}, "decode": {}, "gaps": {}}
+    for arch in (MOE_DS, MOE_DBRX):  # (a), (b)
+        cfg = _dec_config(get_config, arch, MOE_LAYERS[arch])
+        params = tf.init_params(torch.Generator(device=dev).manual_seed(0), cfg)
+        tokens = torch.randint(0, cfg.vocab_size, MOE_PREFILL[arch], device=dev,
+                               generator=torch.Generator(device=dev).manual_seed(1))
+        saved = {"tokens": tokens.cpu()}
+        for dtype in ("float32",) if arch == MOE_DS else ("float32", "bfloat16"):
+            c = cfg.replace(compute_dtype=dtype, use_pallas=arch == MOE_DBRX)
+            calls: list = []
+            with router_gaps(moe_lib, calls):
+                logits, s = _timed(steps_lib.make_prefill(c, dev), params, {"tokens": tokens})
+            assert torch.isfinite(logits).all(), (arch, dtype)
+            saved[dtype] = logits.cpu()
+            refs["gaps"][f"{arch}_{dtype}"] = torch.stack(calls).amin(0)[0].cpu()
+            refs["prefill"][f"{arch}_{dtype}"] = {"prefill_s_one_process": s}
+            del logits
+        if arch == MOE_DBRX:  # layer 0's attention in bf16 through the kernel (phase 9)
+            with torch.inference_mode():
+                saved["layer0_attention"] = _layer0_attention(
+                    tf, attn, apply_norm, cfg.replace(compute_dtype="bfloat16"),
+                    params["embed"], params["segments"][0], tokens).cpu()
+        torch.save(saved, MOE_REF_DIR / f"{arch}_prefill.pt")
+        del saved
+        for name, (a, _, b, prompt, n_gen, dtype) in MOE_DEC_RUNS.items():
+            if a == arch:
+                tokens, logits, tpot, gaps = _decode_ref(
+                    steps_lib, tf, cfg.replace(compute_dtype=dtype), params, b, prompt, n_gen,
+                    moe_lib)
+                torch.save({"tokens": tokens.cpu(), "logits": logits.cpu()},
+                           MOE_REF_DIR / f"{name}.pt")
+                refs["decode"][name] = {"tpot_s_one_process": tpot}
+                refs["gaps"][name] = gaps.cpu()
+                del logits, tokens
+        del params
+        torch.cuda.empty_cache()
+    get = train.get_config  # (c): the first 2 layers, in fp32
+    train.get_config = functools.partial(_moe_train_config, get)
+    model1 = {}
+    try:
+        for name, flags in MOE_TRAIN_RUNS:
+            calls = []
+            with router_gaps(moe_lib, calls):
+                model1[name] = train.main(MOE_TRAIN + flags)
+            g = torch.cat([x.flatten() for x in calls])
+            model1[name]["router_gap"] = {"smallest": float(g.min()),
+                                          "near_tie_tokens": int((g < MOE_MIN_GAP).sum())}
+            del calls, g
+            torch.cuda.empty_cache()
+    finally:
+        train.get_config = get
+    torch.cuda.empty_cache()
+    print(json.dumps({"moe_mla_parent_gb_before_ranks": {
+        "allocated": torch.cuda.memory_allocated() / 1e9,
+        "reserved": torch.cuda.memory_reserved() / 1e9}}), flush=True)
+    ranks = run_ranks("--moe-rank", MOE_DIR, MOE_TIMEOUT_S)
+    shutil.rmtree(MOE_REF_DIR)
+    out = {"wire": HOST_STAGED, "prefill": {}, "decode": {}, "train": {}}
+    failed = []  # every result is printed before any is held
+
+    def hold(ok: bool, what: str) -> None:
+        if not ok:
+            failed.append(what)
+    for key, ref in refs["prefill"].items():  # (a), (b): the prefills at data 1 x model 4
+        arch, dtype = key.rsplit("_", 1)
+        per = [rk["prefill"][key] for rk in ranks]
+        res = {"arch": arch, "layers": MOE_LAYERS[arch], "tokens": list(MOE_PREFILL[arch]),
+               "compute_dtype": dtype, "mesh": {"data": 1, "model": DIST_WORLD},
+               "rel_max_err": per[0]["rel"], "argmax_agree": per[0]["agree"],
+               "flash_launches_per_rank": [x["launches"]["flash_attention"] for x in per],
+               "flash_shapes_per_rank": [x["shapes"] for x in per],
+               "prefill_s_per_rank_gloo_host_staged": [x["s"] for x in per],
+               "peak_gb_per_rank": [x["peak_gb"] for x in per], **ref}
+        if dtype == "float32":
+            res.update(_held_rows(per[0]["rows"], refs["gaps"][key], MOE_TOL))
+            hold(res["ok"], f"prefill {key}")
+        else:
+            res["tol"] = "printed only (top-k routing)"
+            res["layer0_attention"] = {"rel_max_err_per_rank": [x["layer0_rel"] for x in per],
+                                       "tol": MOE_ATTN_BF16_TOL}
+            hold(max(res["layer0_attention"]["rel_max_err_per_rank"]) <= MOE_ATTN_BF16_TOL,
+                 f"layer 0's attention {key}")
+        out["prefill"][key] = res
+        print(json.dumps({"moe_mla_prefill": key, **res}), flush=True)
+        hold(all(x["finite"] for x in per), f"prefill {key} finite")
+        hold(all(x["rows"] == per[0]["rows"] for x in per), f"prefill {key}: one answer")
+        if arch == MOE_DBRX:  # one launch per layer, on each rank's own heads
+            hold(res["flash_launches_per_rank"] == [MOE_LAYERS[arch]] * DIST_WORLD
+                 and all(sh == [MOE_DBRX_LOCAL] for sh in res["flash_shapes_per_rank"]),
+                 f"prefill {key}: flash launches")
+        else:  # MLA takes the dense path
+            hold(res["flash_launches_per_rank"] == [0] * DIST_WORLD, f"prefill {key}: launches")
+    for name, (arch, data, b, prompt, n_gen, dtype) in MOE_DEC_RUNS.items():
+        per = [rk["decode"][name] for rk in ranks]
+        res = {"arch": arch, "layers": MOE_LAYERS[arch],
+               "mesh": {"data": data, "model": DIST_WORLD // data}, "batch": b,
+               "prompt": prompt, "generated": n_gen, "compute_dtype": dtype,
+               "steps_compared": per[0]["steps"], "rel_max_err_per_rank": [x["rel"] for x in per],
+               "greedy_agree_per_rank": [x["agree"] for x in per],
+               "cache_local_per_rank": [x["local"] for x in per],
+               "cache_shapes_as_spec_per_rank": [x["shapes_ok"] for x in per],
+               "tpot_s_per_rank_gloo_host_staged": [x["tpot_s"] for x in per],
+               "peak_gb_per_rank": [x["peak_gb"] for x in per], **refs["decode"][name]}
+        if dtype == "float32":
+            res.update(_held_rows(per[0]["rows"], refs["gaps"][name], MOE_TOL))
+            hold(res["ok"], f"decode {name}")
+        else:
+            res["tol"] = "printed only (top-k routing)"
+        out["decode"][name] = res
+        print(json.dumps({"moe_mla_decode": name, **res}), flush=True)
+        hold(all(x["steps"] == n_gen + 1 and x["finite"] for x in per), f"decode {name} finite")
+        hold(all(x["rows"] == per[0]["rows"] for x in per), f"decode {name}: one answer")
+        hold(all(res["cache_shapes_as_spec_per_rank"]), f"decode {name}: cache shapes")
+        hold(all(loc == MOE_CACHE_LOCAL[name.rsplit("_", 1)[0]]
+                 for loc in res["cache_local_per_rank"]), f"decode {name}: local caches")
+    for name, flags in MOE_TRAIN_RUNS:  # (c)
+        per = [rk["train"][name] for rk in ranks]
+        ref, gap = model1[name], model1[name]["router_gap"]
+        tol = MOE_NEAR_TIE_RTOL if gap["near_tie_tokens"] else MOE_TRAIN_RTOL
+        res = {**{k: per[0][k] for k in ("final_loss", "first_loss", "steps", "world",
+                                           "dist_backend", "data", "model")},
+               "layers": MOE_TRAIN_LAYERS, "model1_final_loss": ref["final_loss"],
+               "rel_to_model1": abs(per[0]["final_loss"] - ref["final_loss"]) /
+               abs(ref["final_loss"]), "tol": tol, "model1_router_gap": gap,
+               "model1_step_s_virtual": ref["step_s"],
+               "experts_local_shape": per[0]["experts_local"],
+               "step_s_gloo_host_staged": [x["step_s"] for x in per],
+               "grad_comm_s_gloo_host_staged": [x["grad_comm_s"] for x in per],
+               "peak_gb_per_rank_gloo_host_staged": [x["peak_gb"] for x in per]}
+        out["train"][name] = res
+        print(json.dumps({"moe_mla_train": name, **res}), flush=True)
+        hold(all(x["final_loss"] == per[0]["final_loss"] for x in per)
+             and math.isfinite(per[0]["final_loss"]), f"train {name}: one finite loss")
+        hold((res["data"], res["model"], res["steps"]) == (2, 2, 2), f"train {name}: mesh")
+        hold(res["rel_to_model1"] <= tol, f"train {name}: against model 1")
+    assert not failed, failed
+    return out
+
+
+def moe_rank(out_dir: str) -> None:
+    """One rank of phase 18's world: its runs, written to ``out_dir/rank<r>.json``."""
+    sys.path.insert(0, str(ROOT / "src"))
+    import torch.distributed as dist
+    from torch.distributed.tensor.experimental import implicit_replication
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.launch import train
+    from repro_torch.launch import steps as steps_lib
+    from repro_torch.launch.mesh import init_process_mesh, split_model_axis
+    from repro_torch.models import attention as attn
+    from repro_torch.models import transformer as tf
+    from repro_torch.models.layers import apply_norm
+    from repro_torch.sharding.policy import distribute_tree, gather_tree, make_policy
+
+    # 4 ranks share the card: whole 9 GB leaves are built and freed, the trainer's
+    # AdamW makes and drops leaf-sized temporaries
+    os.environ.setdefault("PYTORCH_CUDA_ALLOC_CONF", "expandable_segments:True")
+    torch.backends.cuda.matmul.allow_tf32 = False  # as the references' runs
+    torch.backends.cudnn.allow_tf32 = False
+    world = init_process_mesh("cuda", "gloo")  # kept for the phase: each run reuses it
+    dev = world.device
+    meshes = {d: split_model_axis(world, d) for d in (1, 2)}
+    out = {"prefill": {}, "decode": {}}
+    shapes, counted = [], ops.flash_attention
+
+    def seen(q, k, v, **kw):
+        shapes.append([list(q.shape), list(k.shape)])
+        return counted(q, k, v, **kw)
+    ops.flash_attention = seen
+    for arch in (MOE_DS, MOE_DBRX):  # (a), (b)
+        cfg = _dec_config(get_config, arch, MOE_LAYERS[arch])
+        full = tf.init_params(torch.Generator(device=dev).manual_seed(0), cfg)
+        datas = sorted({1} | {r[1] for r in MOE_DEC_RUNS.values() if r[0] == arch})
+        placed = {d: distribute_tree(full, make_policy(cfg, meshes[d]).param_specs(
+            tf.param_shapes(cfg)), meshes[d].device_mesh) for d in datas}
+        del full  # the rank keeps its shards alone
+        torch.cuda.empty_cache()
+        ref = torch.load(MOE_REF_DIR / f"{arch}_prefill.pt")
+        tokens, mesh = ref["tokens"].to(dev), meshes[1]
+        for dtype in ("float32",) if arch == MOE_DS else ("float32", "bfloat16"):
+            c = cfg.replace(compute_dtype=dtype, use_pallas=arch == MOE_DBRX)
+            prefill = steps_lib.make_prefill(c, dev, make_policy(c, mesh), mesh)
+            for k in ops.LAUNCHES:
+                ops.LAUNCHES[k] = 0
+            shapes.clear()
+            torch.cuda.reset_peak_memory_stats()
+            dist.barrier()
+            logits, s = _timed(prefill, placed[1], {"tokens": tokens})
+            launches = dict(ops.LAUNCHES)
+            got, expect = gather_tree(logits), ref[dtype].to(dev)  # collective
+            res = {"s": s, "launches": launches,
+                   "shapes": [json.loads(sh) for sh in dict.fromkeys(map(json.dumps, shapes))],
+                   "rel": _rel(got, expect), "agree": _agree(got, expect),
+                   "rows": ((got.float() - expect.float()).abs().amax(-1)
+                            / expect.float().abs().max())[0].tolist(),
+                   "finite": bool(torch.isfinite(got).all()),
+                   "peak_gb": torch.cuda.max_memory_allocated() / 1e9}
+            del logits, got, expect
+            if dtype == "bfloat16":  # layer 0's attention, the kernel on the rank's heads
+                with torch.no_grad(), implicit_replication():
+                    a = _layer0_attention(tf, attn, apply_norm, c,
+                                          steps_lib.param_on_model(placed[1]["embed"]),
+                                          _map(steps_lib.param_on_model,
+                                               placed[1]["segments"][0]), tokens)
+                res["layer0_rel"] = _rel(a.to_local(), ref["layer0_attention"].to(dev))
+                del a
+            out["prefill"][f"{arch}_{dtype}"] = res
+            torch.cuda.empty_cache()
+        del ref
+        for name, (a, data, b, prompt, n_gen, dtype) in MOE_DEC_RUNS.items():
+            if a == arch:
+                c = cfg.replace(compute_dtype=dtype)
+                for k in ops.LAUNCHES:
+                    ops.LAUNCHES[k] = 0
+                out["decode"][name] = {**_placed_decode_run(
+                    c, placed[data], make_policy(c, meshes[data]), meshes[data],
+                    torch.load(MOE_REF_DIR / f"{name}.pt"), b, prompt, n_gen),
+                    "launches": dict(ops.LAUNCHES)}
+                torch.cuda.empty_cache()
+        del placed
+        torch.cuda.empty_cache()
+    ops.flash_attention = counted
+    get = train.get_config  # (c): the first 2 layers in fp32, as the reference's
+    train.get_config = functools.partial(_moe_train_config, get)
+    out["train"] = rank_train(train, ops, MOE_TRAIN_RUNS, MOE_TRAIN)
+    train.get_config = get
+    for res in out["train"].values():
+        res["experts_local"] = res.pop("local_params")["shapes"]["segments/1/moe/wi"]
     dist.barrier()
     dist.destroy_process_group()
     pathlib.Path(out_dir, f"rank{world.rank}.json").write_text(json.dumps(out))
@@ -2228,6 +2615,7 @@ def main() -> None:
     from repro_torch.optim.adamw import AdamWConfig
     from repro_torch.launch.steps import make_prefill
     from repro_torch.models import attention as attn
+    from repro_torch.models import moe as moe_lib
     from repro_torch.models import transformer as tf
     from repro_torch.models.layers import apply_norm
 
@@ -2497,6 +2885,12 @@ def main() -> None:
     rest = phase_decode_zero3(get_config, tf, steps_lib, tp)
     done("17_decode_zero3", t_phase)
 
+    # -- phase 18: the MoE and MLA block kinds on the model axis, over gloo -------
+    t_phase = time.perf_counter()
+    torch.cuda.empty_cache()
+    moe_mla = phase_moe_mla(get_config, tf, steps_lib, train, moe_lib, attn, apply_norm)
+    done("18_moe_mla_model_axis", t_phase)
+
     bf, f32 = kern["timed"]["danube"][torch.bfloat16], kern["timed"]["danube"][torch.float32]
     for dt, t in ((torch.bfloat16, bf), (torch.float32, f32)):  # the entries danube's D runs
         t["entry"] = FLASH_ENTRY[dt]
@@ -2542,7 +2936,10 @@ def main() -> None:
                              "paligemma-3b": paligemma["launches"]["flash_attention"],
                              "roofline_danube": roofline_launches["flash_attention"],
                              "tp_prefill_per_rank": {
-                                 dt: r["launches_per_rank"] for dt, r in tp["prefill"].items()}},
+                                 dt: r["launches_per_rank"] for dt, r in tp["prefill"].items()},
+                             "moe_mla_tp_prefill_per_rank": {
+                                 k: r["flash_launches_per_rank"]
+                                 for k, r in moe_mla["prefill"].items()}},
     }]
     for name, body in (("quantize_int8", 18), ("dequantize_int8", 27)):
         t = int8["timed"][name]
@@ -2585,7 +2982,7 @@ def main() -> None:
                       "policies": policies, "kivi": kivi, "dryrun": dry, "roofline": roof,
                       "examples": {k: v for k, v in examples.items() if k != "serve_decode"},
                       "cross_process": dist_runs, "model_axis": tp,
-                      "decode_zero3": rest,
+                      "decode_zero3": rest, "moe_mla_model_axis": moe_mla,
                       "phase_s": phase_s,
                       "card": smi, "total_s": time.perf_counter() - t_start}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
@@ -2600,5 +2997,7 @@ if __name__ == "__main__":
         tp_rank(sys.argv[2])
     elif sys.argv[1:2] == ["--decode-rank"]:
         decode_rank(sys.argv[2])
+    elif sys.argv[1:2] == ["--moe-rank"]:
+        moe_rank(sys.argv[2])
     else:
         main()

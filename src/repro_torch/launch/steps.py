@@ -15,7 +15,11 @@ propagation inserts the tensor-parallel collectives,
 :func:`repro_torch.models.attention.head_local` keeps the attention on each
 rank's own heads), and the gradients are reduced over its data group. The
 prefill and the decode run the same way, the decode on caches placed by the
-policy's cache specs.
+policy's cache specs. The train step and the decode place the blocks of
+:data:`PLACED_KINDS` (dense, MoE with its experts over model, MLA with its
+heads over model and its latent cache's sequence over model); a config with
+SSM, cross-attention or shared blocks raises ``NotImplementedError`` there,
+while its prefill runs placed (held to JAX's on the smoke configs).
 
 The train step runs ``dp`` data-parallel ranks as a leading axis of every
 parameter and optimizer tensor (the virtual-rank executor,
@@ -61,11 +65,12 @@ from torch.profiler import record_function
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core import collectives_dist
 from repro_torch.device import resolve_device
+from repro_torch.models import moe as moe_lib
 from repro_torch.models import transformer as tf
 from repro_torch.optim import grad_comm
 from repro_torch.optim.adamw import AdamWConfig, adamw_update, init_opt_state
 from repro_torch.sharding.policy import (distribute_tree, gather_data, local_offsets, place,
-                                        place_filled, redistribute)
+                                        place_filled, place_like, redistribute, replicated)
 from repro_torch.tree import leaves, tree_map, unflatten
 
 Tree = Any
@@ -248,7 +253,16 @@ def make_train_step(cfg: ModelConfig, opt_cfg: Optional[AdamWConfig] = None,
     and moments sharded over data (AdamW keeps each rank's data shard of the
     reduced gradient), while the LUMORPH comms gather the whole state at the
     first step and return it replicated over data, as JAX's ``shard_map``
-    takes and gives it (``rep``).
+    takes and gives it (``rep``); under ``compress`` each rank reduces its
+    model group's whole leaves, so that the int8 blocks are JAX's, and keeps
+    its shards. Only the blocks of :data:`PLACED_KINDS` train on the model
+    axis: a config with any other raises ``NotImplementedError``.
+
+    Under ``xla`` with ``dp > 1`` a model's MoE balance loss counts every
+    data rank's rows, as JAX's one program over the global batch does
+    (``models.moe.balance_over``; the virtual ranks run rank 0's equal
+    replica over the global batch); the LUMORPH comms' per-rank program
+    counts each rank's own.
     """
     if comm not in COMMS:
         raise ValueError(f"unknown comm {comm!r}; have {COMMS}")
@@ -258,6 +272,13 @@ def make_train_step(cfg: ModelConfig, opt_cfg: Optional[AdamWConfig] = None,
     dev = resolve_device(device)
 
     model_axis = _model_axis(mesh)
+    if model_axis:
+        _placed_kinds_only(cfg, "train step")
+    # JAX's xla step is one program over the global batch, whose MoE balance loss counts
+    # every data rank's rows; the LUMORPH comms' per-rank program counts each rank's own
+    global_balance = comm == "xla" and dp > 1 and any(k in ("moe", "mla_moe")
+                                                      for k in cfg.block_pattern)
+    balance = group if global_balance else None
 
     def grad_fn(params, batch) -> tuple[torch.Tensor, list[torch.Tensor]]:
         plist = leaves(params)
@@ -317,6 +338,10 @@ def make_train_step(cfg: ModelConfig, opt_cfg: Optional[AdamWConfig] = None,
         plist = leaves(params)
         if plist[0].shape[0] != dp:
             raise ValueError(f"params carry {plist[0].shape[0]} ranks, the step {dp}")
+        if global_balance:  # the replicas are equal under xla: rank 0's over the global rows
+            loss, g = grad_fn(unflatten(params, [t[0].detach().requires_grad_()
+                                                 for t in plist]), batch)
+            return loss, [t.expand(dp, *t.shape).clone() for t in g]
         losses, grads = [], None
         for r in range(dp):
             p_r = unflatten(params, [t[r].detach().requires_grad_() for t in plist])
@@ -334,7 +359,9 @@ def make_train_step(cfg: ModelConfig, opt_cfg: Optional[AdamWConfig] = None,
     def local_grads(params, batch, rows):
         r = dist.get_rank(group)
         p_r = tree_map(lambda t: t.detach().requires_grad_(), params)
-        loss_r, grads = grad_fn(p_r, {k: v[r * rows:(r + 1) * rows] for k, v in batch.items()})
+        with moe_lib.balance_over(balance):
+            loss_r, grads = grad_fn(p_r, {k: v[r * rows:(r + 1) * rows]
+                                          for k, v in batch.items()})
         # pmean over the group: every rank's loss, summed in rank order as above
         losses = collectives_dist.Wire(group).all_gather(loss_r)
         return torch.stack(losses).sum() / dp, grads
@@ -349,7 +376,8 @@ def make_train_step(cfg: ModelConfig, opt_cfg: Optional[AdamWConfig] = None,
             # manual over data: this data rank's rows, and every leaf on the model group
             p_m = unflatten(params, [param_on_model(p).detach().requires_grad_()
                                      for p in plist])
-            with implicit_replication():  # the positions, masks and constants the model makes
+            # the positions, masks and constants the model makes enter replicated
+            with implicit_replication(), moe_lib.balance_over(balance):
                 loss_r, grads = grad_fn(p_m, {k: on_model(v) for k, v in batch.items()})
             grads = [redistribute(g, [p.placements[1]]).to_local() for g, p in zip(grads, plist)]
             losses = collectives_dist.Wire(group).all_gather(loss_r.to_local())
@@ -360,12 +388,25 @@ def make_train_step(cfg: ModelConfig, opt_cfg: Optional[AdamWConfig] = None,
                 grads = [collectives_dist.all_reduce(g, "psum", group) / dp for g in grads]
             else:
                 ef = opt_state.get("ef")
+                ef = None if ef is None else [e.to_local() for e in leaves(ef)]
+                shards = [_shard_of(p) for p in plist]
+                if compress:
+                    # JAX's shard_map body quantizes the global leaves' 256-element blocks:
+                    # each rank reduces its model group's whole leaves, as at model 1
+                    grads, shards = [_whole_over_model(g, p) for g, p in zip(grads, plist)], None
+                    ef = None if ef is None else [_whole_over_model(e, p)
+                                                  for e, p in zip(ef, plist)]
                 red, new_ef, step.bucket_log = grad_comm.all_reduce_grads(
                     unflatten(params, grads), algo=comm, bucket_bytes=bucket_bytes,
                     compress=compress, wire_dtype=wire_dtype, overlap_chunks=overlap_chunks,
-                    error_feedback=None if ef is None else tree_map(lambda e: e.to_local(), ef),
-                    group=group, shards=[_shard_of(p) for p in plist])
+                    error_feedback=None if ef is None else unflatten(params, ef),
+                    group=group, shards=shards)
                 grads = leaves(red)
+                if compress:  # this rank's shards of the whole leaves
+                    grads = [place_like(g, p).to_local() for g, p in zip(grads, plist)]
+                    if new_ef is not None:
+                        new_ef = unflatten(params, [place_like(e, p).to_local() for e, p in
+                                                    zip(leaves(new_ef), plist)])
         # whole over data: adamw_update takes the norm as without ZeRO-3, then keeps
         # this rank's data shard of each (the moments' placement), a local slice
         grads = unflatten(params, [DTensor.from_local(g, dm, [Replicate(), p.placements[1]],
@@ -395,6 +436,14 @@ def param_on_model(t: DTensor) -> DTensor:
     """A param on this rank's model group, whole over data: a ZeRO-3 leaf is
     gathered over the data group first (``sharding.policy.gather_data``)."""
     return on_model(gather_data(t))
+
+
+def _whole_over_model(local: torch.Tensor, like: DTensor) -> torch.Tensor:
+    """The whole leaf over the model group of ``local``, this rank's model
+    shard of a leaf placed as ``like`` (whole over data)."""
+    dm = like.device_mesh
+    return replicated(DTensor.from_local(local, dm["model"], [like.placements[1]],
+                                         run_check=False)).to_local()
 
 
 def _shard_of(t: DTensor) -> grad_comm.Shard:
@@ -468,8 +517,9 @@ def make_decode_step(cfg: ModelConfig, device: Optional[torch.device] = None,
     attention on its own heads and slots
     (:func:`repro_torch.models.attention.placed_decode_attention`). The
     caches come back placed, the logits as a DTensor on the mesh
-    (vocab-sharded where ``lm_head`` is). Only dense blocks are placed: a
-    config with any other raises ``NotImplementedError``."""
+    (vocab-sharded where ``lm_head`` is). Only the blocks of
+    :data:`PLACED_KINDS` are placed: a config with any other raises
+    ``NotImplementedError``."""
     dev = resolve_device(device)
     if _model_axis(mesh):
         return _placed_decode(cfg, policy, mesh, batch, max_len)
@@ -490,9 +540,10 @@ def cache_shapes(cfg: ModelConfig, batch: int, max_len: int) -> list:
 def init_placed_caches(cfg: ModelConfig, policy, mesh, batch: int, max_len: int) -> list:
     """Empty decode caches placed by ``policy``'s cache specs on ``mesh``,
     filled as ``tf.init_caches`` fills them: each rank makes its own shard
-    of every leaf, and no rank the whole cache. Only dense blocks are
-    placed: a config with any other raises ``NotImplementedError``."""
-    _dense_only(cfg)
+    of every leaf, and no rank the whole cache. Only the blocks of
+    :data:`PLACED_KINDS` are placed: a config with any other raises
+    ``NotImplementedError``."""
+    _placed_kinds_only(cfg, "decode")
     shapes = cache_shapes(cfg, batch, max_len)
     specs = policy.cache_specs(shapes)
     # every leaf of a fresh cache is one constant (the positions -1, the rest 0)
@@ -502,18 +553,22 @@ def init_placed_caches(cfg: ModelConfig, policy, mesh, batch: int, max_len: int)
             for layer, fill, spec in zip(shapes, fills, specs)]
 
 
-def _dense_only(cfg: ModelConfig) -> None:
-    other = sorted(set(tf.cache_layout(cfg)) - {"dense"})
+#: the block kinds whose params and caches the model axis places
+PLACED_KINDS = ("dense", "moe", "mla_dense", "mla_moe")
+
+
+def _placed_kinds_only(cfg: ModelConfig, what: str) -> None:
+    other = sorted(set(tf.cache_layout(cfg)) - set(PLACED_KINDS))
     if other:
         raise NotImplementedError(
-            f"{cfg.name} has {other} blocks: the placed decode runs dense blocks only "
-            "(MoE, MLA, SSM, cross and shared blocks on DTensor params are ROADMAP Queue 1 "
-            "item 4(d))")
+            f"{cfg.name} has {other} blocks: the placed {what} runs {', '.join(PLACED_KINDS)} "
+            "blocks only (SSM, cross and shared blocks on DTensor params are ROADMAP Queue 1 "
+            "item 4(d)(ii))")
 
 
 def _placed_decode(cfg: ModelConfig, policy, mesh, batch: Optional[int],
                    max_len: Optional[int]) -> Callable:
-    _dense_only(cfg)
+    _placed_kinds_only(cfg, "decode")
     if batch is None or max_len is None:
         raise ValueError("a placed decode step needs the caches' batch and max_len")
     dm = mesh.device_mesh

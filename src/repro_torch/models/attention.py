@@ -21,7 +21,9 @@ Under tensor parallelism (DTensor params, the heads sharded over the model
 axis) the standard block's attention core runs on each rank's own heads
 (:func:`head_local`), and its decode runs on a KV cache placed by the
 sharding policy's cache specs, each rank on its own heads and slots
-(:func:`placed_decode_attention`).
+(:func:`placed_decode_attention`). MLA's core runs on each rank's heads too
+(:func:`mla_forward`), and its decode on a latent cache whose sequence is
+split over model, in the latent space (:func:`placed_mla_decode`).
 """
 
 from __future__ import annotations
@@ -436,13 +438,13 @@ def _write_slot(leaf: DTensor, slot: int, new: Tensor, first: int) -> None:
     local[:, at] = new[:, 0].to(local.dtype)
 
 
-def _local_like(leaf: DTensor, like: DTensor) -> Tensor:
-    """The part of ``leaf`` (``pos`` or the int8 scales) beside ``like``'s
-    local keys on dims 1 (slots) and 2 (heads, where ``leaf`` has them).
-    ``leaf`` is first gathered over any mesh dim that splits one of those
-    dims and does not split ``like``'s the same way (``pos`` over data where
-    the keys' sequence is split over model)."""
-    dims = range(1, min(leaf.dim(), 3))
+def _local_like(leaf: DTensor, like: DTensor, dims: Optional[tuple[int, ...]] = None) -> Tensor:
+    """The part of ``leaf`` (``pos``, the int8 scales or MLA's ``k_pe``) beside
+    ``like``'s local keys on ``dims``: by default dims 1 (slots) and 2 (heads,
+    where ``leaf`` has them). ``leaf`` is first gathered over any mesh dim
+    that splits one of those dims and does not split ``like``'s the same way
+    (``pos`` over data where the keys' sequence is split over model)."""
+    dims = range(1, min(leaf.dim(), 3)) if dims is None else dims
     if any(pl.is_shard() and pl.dim in dims and pl != like.placements[i]
            for i, pl in enumerate(leaf.placements)):
         leaf = redistribute(leaf, [Replicate() if pl.is_shard() and pl.dim in dims
@@ -454,7 +456,8 @@ def _local_like(leaf: DTensor, like: DTensor) -> Tensor:
     return out
 
 
-def _seq_split_attention(q: Tensor, k: Tensor, v: Tensor, mask: Tensor, group) -> Tensor:
+def _seq_split_attention(q: Tensor, k: Tensor, v: Tensor, mask: Tensor, group,
+                         scale: Optional[float] = None) -> Tensor:
     """:func:`dense_attention` of local ``q`` over keys whose sequence is split
     over ``group``, each rank holding its own slots, in two all-reduces: the
     softmax's max per (row, head), then, in one call, the sum of the
@@ -462,9 +465,10 @@ def _seq_split_attention(q: Tensor, k: Tensor, v: Tensor, mask: Tensor, group) -
     quotient is the attention, cast to ``q``'s dtype."""
     b, sq, h, dk = q.shape
     kv, dv = k.shape[2], v.shape[-1]
+    scale = scale if scale is not None else 1.0 / math.sqrt(dk)
     wire = collectives_dist.Wire(group)
     qg = q.reshape(b, sq, kv, h // kv, dk)
-    s = torch.einsum("bqhrd,bkhd->bhrqk", qg, k).float() * (1.0 / math.sqrt(dk))
+    s = torch.einsum("bqhrd,bkhd->bhrqk", qg, k).float() * scale
     s = torch.where(mask[:, None, None, :, :], s, NEG_INF)
     e = torch.exp(s - wire.all_reduce(s.amax(dim=-1, keepdim=True), op=dist.ReduceOp.MAX))
     acc = torch.einsum("bhrqk,bkhd->bhrqd", e, v.float())
@@ -526,20 +530,41 @@ def _mla_scale(cfg) -> float:
 def mla_forward(p: dict, x: Tensor, positions: Tensor, cfg,
                 use_chunked: Optional[bool] = None) -> Tensor:
     """Full-sequence MLA. The latent c_kv (rank 512) + shared k_pe (64) are
-    what a server caches: 576 values per token against 2·H·D = 4096."""
+    what a server caches: 576 values per token against 2·H·D = 4096.
+
+    With DTensor params on the model axis (``wq``, ``w_uk``, ``w_uv`` and
+    ``wo`` split over heads, ``w_dkv`` and ``w_kpe`` whole), the latent pair
+    is made whole on every rank and the decompression and the attention run
+    on each rank's own heads inside ``local_map``, ``k_pe`` broadcast to
+    those heads only; the latent pair's gradient is then a partial sum over
+    the ranks that split the heads."""
+    x = whole_grad(x)
     q = _mla_query(p, x, positions, cfg)
     c_kv, k_pe = _mla_latent(p, x, positions, cfg)
-    k, v = _mla_keys_values(p, c_kv, k_pe, cfg)
     s = x.shape[1]
     if use_chunked is None:
         use_chunked = s * s > cfg.dense_attn_limit
-    if use_chunked:
-        out = chunked_attention(q, k, v, positions, positions, "causal", None, 0,
-                                chunk=cfg.attn_chunk, scale=_mla_scale(cfg))
-    else:
+
+    def core(q, c_kv, k_pe, w_uk, w_uv):
+        k, v = _mla_keys_values({"w_uk": w_uk, "w_uv": w_uv}, c_kv, k_pe, cfg)
+        if use_chunked:
+            return chunked_attention(q, k, v, positions, positions, "causal", None, 0,
+                                     chunk=cfg.attn_chunk, scale=_mla_scale(cfg))
         mask = build_mask(positions, positions, "causal")
-        out = dense_attention(q, k, v, mask, scale=_mla_scale(cfg))
-    return torch.einsum("bshk,hkd->bsd", out, p["wo"].to(x.dtype))
+        return dense_attention(q, k, v, mask, scale=_mla_scale(cfg))
+
+    if isinstance(q, DTensor):
+        heads = [Partial() if pl.is_shard(2) else pl for pl in q.placements]
+        ups = (p["w_uk"], p["w_uv"])
+        out = local_map(core, out_placements=list(q.placements),
+                        in_placements=(q.placements, c_kv.placements, k_pe.placements,
+                                       *(w.placements for w in ups)),
+                        in_grad_placements=(q.placements, heads, heads,
+                                            *(w.placements for w in ups)))(
+                                                q, c_kv, k_pe, *ups)
+    else:
+        out = core(q, c_kv, k_pe, p["w_uk"], p["w_uv"])
+    return reduced(torch.einsum("bshk,hkd->bsd", out, p["wo"].to(x.dtype)))
 
 
 def init_mla_cache(batch: int, max_len: int, kv_lora_rank: int, rope_dim: int,
@@ -555,7 +580,10 @@ def mla_decode(p: dict, x: Tensor, cache: dict, position: int, cfg) -> tuple[Ten
     """One-token MLA decode against the latent cache, written in place at
     slot ``position % max_len``. K and V are decompressed from the whole
     cache every step, as the JAX package does (``w_uk`` is not absorbed
-    into the query)."""
+    into the query). A cache of DTensors placed by the policy's cache
+    specs takes :func:`placed_mla_decode`."""
+    if isinstance(cache["c_kv"], DTensor):
+        return placed_mla_decode(p, x, cache, position, cfg)
     b = x.shape[0]
     pos_b = torch.full((b, 1), position, dtype=torch.int32, device=x.device)
     q = _mla_query(p, x, pos_b, cfg)
@@ -568,3 +596,72 @@ def mla_decode(p: dict, x: Tensor, cache: dict, position: int, cfg) -> tuple[Ten
     mask = build_mask(pos_b, cache["pos"], "causal")
     out = dense_attention(q, k, v, mask, scale=_mla_scale(cfg))
     return torch.einsum("bshk,hkd->bsd", out, p["wo"].to(x.dtype)), cache
+
+
+def placed_mla_decode(p: dict, x: Tensor, cache: dict, position: int,
+                      cfg) -> tuple[Tensor, dict]:
+    """:func:`mla_decode` on a latent cache whose leaves are DTensors on the
+    ``(data, model)`` mesh, placed by ``ShardingPolicy.cache_spec`` (``c_kv``
+    with its sequence over model where it divides, ``k_pe`` split only by its
+    batch, ``pos`` by its batch or else its sequence over data), with ``p``
+    and ``x`` DTensors on this data rank's model group. Every rank works on
+    its local tensors, and no cache leaf crosses the wire but ``pos``, where
+    it is split over data beside a ``c_kv`` split over model:
+
+      * the new token's latent pair goes into the local tensor of each leaf
+        whose shard holds slot ``position % L``: ``c_kv``'s owner alone where
+        its sequence is split, every rank for ``k_pe`` and a whole ``pos``;
+      * the attention runs in the latent space (``w_uk`` absorbed into the
+        query, ``w_uv`` applied after the sum): each rank forms
+        ``q_nope·w_ukᵀ`` [B, H/tp, r] for its heads and, where the model
+        group splits ``c_kv``'s slots, gathers these small rows and the rope
+        lanes of every head; it scores them over its own slots,
+        ``q_lat·c_kv + q_pe·k_pe``, masked by the slice of ``pos`` beside
+        them, and the softmax's max, then its sum and the weighted latent
+        rows ``Σ p·c_kv`` [B, H, r], are added over the group that splits
+        the slots (:func:`_seq_split_attention`, one key head read by every
+        query head, the latent rows its values). Each
+        rank keeps its heads, applies its ``w_uv``, then the row-parallel
+        ``wo``. The function JAX computes, its products in another order.
+    """
+    if any(not pl.is_replicate() for pl in x.placements):
+        raise ValueError("decode attention takes a whole x: reduce the layer's input first")
+    model = x.device_mesh  # this data rank's model group
+    xl, dt = x.to_local(), x.dtype
+    b = xl.shape[0]
+    pos_b = torch.full((b, 1), position, dtype=torch.int32, device=xl.device)
+    local = {k: t.to_local() for k, t in p.items()}
+    q = _mla_query(local, xl, pos_b, cfg)  # [b, 1, H_l, nope + rope]
+    c_new, kpe_new = _mla_latent(local, xl, pos_b, cfg)
+    c_kv = cache["c_kv"]
+    slot = position % c_kv.shape[1]
+    for name, value in (("c_kv", c_new), ("k_pe", kpe_new), ("pos", pos_b)):
+        _write_slot(cache[name], slot, value, 0)
+
+    nope, r = cfg.mla_qk_nope_dim, cfg.mla_kv_lora_rank
+    q_lat = torch.einsum("bqhn,rhn->bqhr", q[..., :nope], local["w_uk"].to(dt))
+    q_both = torch.cat([q_lat, q[..., nope:]], dim=-1)  # [b, 1, H_l, r + rope]
+    q_split = p["wq"].placements[0].is_shard()
+    split = [i for i, pl in enumerate(c_kv.placements) if pl.is_shard(1)]
+    own = None
+    if split and c_kv.device_mesh.mesh_dim_names[split[0]] == "model" and q_split:
+        # the model group splits the slots: every rank scores every head
+        first = local_offsets(p["wq"])[1]
+        own = slice(first, first + q_both.shape[2])
+        q_both = torch.cat(collectives_dist.Wire(model.get_group()).all_gather(q_both), dim=2)
+    # this rank's slots [b, L_l, 1, r + rope]: one key head that every query head reads,
+    # and the latent rows its values
+    keys = torch.cat([c_kv.to_local(), _local_like(cache["k_pe"], c_kv, dims=(1,))],
+                     dim=-1).to(dt)[:, :, None]
+    mask = build_mask(pos_b, _local_like(cache["pos"], c_kv), "causal")
+    if split:
+        out = _seq_split_attention(q_both, keys, keys[..., :r], mask,
+                                   c_kv.device_mesh.get_group(split[0]), _mla_scale(cfg))
+    else:
+        out = dense_attention(q_both, keys, keys[..., :r], mask, scale=_mla_scale(cfg))
+    if own is not None:  # [b, 1, H, r]
+        out = out[:, :, own]
+    out = torch.einsum("bqhr,rhv->bqhv", out, local["w_uv"].to(dt))
+    out = DTensor.from_local(out, model, [Shard(2) if q_split else Replicate()],
+                             run_check=False)
+    return reduced(torch.einsum("bshk,hkd->bsd", out, p["wo"].to(dt))), cache

@@ -23,15 +23,17 @@ JAX. PaliGemma (``kind="vlm"``) puts stub image embeddings in front of the
 scaled token embeddings under a prefix-LM mask, which the kernel cannot
 take, so it runs dense.
 
-The dense decoder runs tensor-parallel on DTensor params placed by the
-sharding policy (``launch.steps`` on a process mesh with a model axis):
-the tensors it makes for itself (positions, masks, rope tables, zeros)
-enter as replicated DTensors under ``implicit_replication``, and the
-attention core makes its own inside ``local_map``. A vocab-sharded
-embedding is looked up by DTensor's masked rule (:func:`_lookup`). Its
-decode step takes caches placed by the policy's cache specs
-(``attention.placed_decode_attention``); ``launch.steps`` places a decode
-of dense blocks only.
+The decoder runs tensor-parallel on DTensor params placed by the sharding
+policy (``launch.steps`` on a process mesh with a model axis): the tensors
+it makes for itself (positions, masks, rope tables, zeros) enter as
+replicated DTensors under ``implicit_replication``, and the attention core
+makes its own inside ``local_map``. A vocab-sharded embedding is looked up by
+DTensor's masked rule (:func:`_lookup`). The MoE blocks run expert-parallel
+(``moe.apply_moe``) and the MLA blocks on each rank's heads
+(``attention.mla_forward``). Its decode step takes caches placed by the
+policy's cache specs (``attention.placed_decode_attention``,
+``attention.placed_mla_decode``); ``launch.steps`` places the train step and
+the decode of dense, MoE and MLA blocks only.
 """
 
 from __future__ import annotations

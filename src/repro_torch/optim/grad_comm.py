@@ -276,7 +276,10 @@ def all_reduce_grads(grads: Tree, algo: str = "auto",
                            [b.start for b in buckets] + [buckets[-1].end])
 
     log: list[tuple[int, str]] = []
-    parts = []
+    # each bucket's sum goes into one fp32 vector as it comes: the flat vector itself
+    # when it is fp32, so that a rank never holds its gradient more than twice
+    reduced = flat if flat.dtype == torch.float32 else torch.empty(
+        flat.shape, dtype=torch.float32, device=flat.device)
     for b, lo, hi in zip(buckets, cuts, cuts[1:]):
         piece = flat[:, lo:hi]
         n_bytes = b.n_elems * flat.element_size()
@@ -284,19 +287,18 @@ def all_reduce_grads(grads: Tree, algo: str = "auto",
         log.append((n_bytes, chosen + ("+int8" if compress else "")
                     + (f"+ovl{overlap_chunks}" if overlap_chunks > 1 else "")))
         if hi == lo:  # none of this bucket is this rank's, nor its data group's
-            parts.append(piece)
-        elif group is not None:
-            parts.append(_reduce_local(piece[0], chosen, compress, overlap_chunks, group)[None])
+            continue
+        if group is not None:
+            part = _reduce_local(piece[0], chosen, compress, overlap_chunks, group)[None]
         elif compress:
-            parts.append(compressed_all_reduce(piece, n_chunks=overlap_chunks))
+            part = compressed_all_reduce(piece, n_chunks=overlap_chunks)
         elif overlap_chunks > 1:
-            parts.append(collectives.overlapped_all_reduce(piece, chosen,
-                                                           n_chunks=overlap_chunks))
+            part = collectives.overlapped_all_reduce(piece, chosen, n_chunks=overlap_chunks)
         else:
-            parts.append(collectives.all_reduce(piece, chosen))
+            part = collectives.all_reduce(piece, chosen)
+        reduced[:, lo:hi] = part
+        del part
     del flat
-    reduced = torch.cat(parts, dim=1).float()
-    del parts
     reduced.div_(p)  # in place: the same IEEE division as ``reduced / p``
     out, off = [], 0
     for g in orig:

@@ -444,8 +444,54 @@ dist.destroy_process_group()
 def test_placed_decode_on_card_equals_one_process(card, tmp_path):
     """2 ranks as a (1, 2) mesh over gloo (host-staged) on one card, under a
     timeout: a hang fails."""
-    code = TP_DECODE_RANK.format(src=str(pathlib.Path(__file__).resolve().parents[1] / "src"),
-                                 rdzv=str(tmp_path / "rdzv"))
+    _two_ranks(TP_DECODE_RANK, tmp_path)
+
+
+# one rank of a (1, 2) mesh on the card over gloo: deepseek-v2-lite's smoke decode (MLA
+# with c_kv's sequence over model, experts over model), fp32, every step's logits
+# against one process's decode of the same params and tokens
+MLA_MOE_DECODE_RANK = r"""
+import sys
+import torch
+import torch.distributed as dist
+sys.path.insert(0, {src!r})
+from repro_torch.configs import get_smoke_config
+from repro_torch.launch import steps
+from repro_torch.launch.mesh import init_process_mesh, split_model_axis
+from repro_torch.models import transformer as tf
+from repro_torch.sharding.policy import gather_tree, make_policy
+rank = int(sys.argv[1])
+mesh = split_model_axis(init_process_mesh("cuda", "gloo", init_method="file://" + {rdzv!r},
+                                          rank=rank, world_size=2), 1)
+gen = torch.Generator(device=mesh.device).manual_seed(0)
+cfg = get_smoke_config("deepseek-v2-lite-16b").replace(compute_dtype="float32")
+params = tf.init_params(gen, cfg)
+b, n = 2, 16
+tokens = torch.randint(0, cfg.vocab_size, (b, n), generator=gen, device=mesh.device)
+one, caches = steps.make_decode_step(cfg, mesh.device), tf.init_caches(cfg, b, n, mesh.device)
+policy = make_policy(cfg, mesh)
+placed = steps.make_decode_step(cfg, mesh.device, policy, mesh, b, n)
+pcaches = steps.init_placed_caches(cfg, policy, mesh, b, n)
+for t in range(n):
+    expect, caches = one(params, caches, tokens[:, t:t + 1], t)
+    got, pcaches = placed(params, pcaches, tokens[:, t:t + 1], t)
+    got = gather_tree(got).float()
+    rel = float((got - expect.float()).abs().max() / expect.float().abs().max())
+    assert rel <= 1e-4, (t, rel)
+assert pcaches[0]["c_kv"].to_local().shape == (b, n // 2, cfg.mla_kv_lora_rank)
+dist.destroy_process_group()
+"""
+
+
+def test_placed_mla_moe_decode_on_card_equals_one_process(card, tmp_path):
+    """deepseek's smoke decode by 2 ranks as a (1, 2) mesh over gloo on one
+    card, under a timeout: a hang fails."""
+    _two_ranks(MLA_MOE_DECODE_RANK, tmp_path)
+
+
+def _two_ranks(rank_code: str, tmp_path) -> None:
+    code = rank_code.format(src=str(pathlib.Path(__file__).resolve().parents[1] / "src"),
+                            rdzv=str(tmp_path / "rdzv"))
     procs = [subprocess.Popen([sys.executable, "-c", code, str(r)], stderr=subprocess.PIPE,
                               text=True, env={**os.environ, "OMP_NUM_THREADS": "1"})
              for r in range(2)]

@@ -22,7 +22,8 @@ tests read both:
     steps) with ``xla``, ``lumorph4``, ``lumorph2``, ``lumorph4 --overlap
     4``, ``auto`` and ``lumorph2 --compress``: losses within 2e-5 relative
     of JAX's trainer on its ``(2, 2)`` mesh from the same params (1e-5 under
-    ``--compress``, where each rank quantizes its own shard), rank 0's final
+    ``--compress``, where each rank reduces its model group's whole leaves, so
+    that the int8 blocks are JAX's), rank 0's final
     params and moments (its step-4 checkpoint) within 2e-5 of JAX's (under
     ``--compress`` the params within 5e-2 of each leaf's largest entry, JAX's
     own limit), the bucket log JAX's, and every run
@@ -65,10 +66,11 @@ WORLD, DATA = 4, 2
 TIMEOUT_S = 300
 LOSS_RTOL = 2e-5  # fp32, the same params and batches as JAX's trainer
 PARAM_ATOL = 2e-5
-# under --compress each rank quantizes its own shard in 256-blocks where JAX blocks the
-# global leaf: losses measured 8.6e-8 apart after 4 steps; params, relative to each
-# leaf's largest entry, 2.7e-2 apart, within JAX's own limit
-# (tests/test_train_integration.py:48); the error-feedback residuals are not compared
+# under --compress each rank reduces its model group's whole leaves, so that the int8
+# blocks are JAX's global ones: losses measured 8.6e-8 apart after 4 steps; params,
+# relative to each leaf's largest entry, 7.6e-5 apart (2.7e-2 when each rank blocked its
+# own shard), within JAX's own limit (tests/test_train_integration.py:48); the
+# error-feedback residuals are not compared
 INT8_LOSS_RTOL = 1e-5
 INT8_PARAM_RTOL = 5e-2
 MODEL1_RTOL = 1e-5  # against the same flags at model 1: the TP partial sums' order
