@@ -244,7 +244,28 @@ JAX or of the JAX package. No phase's failure is caught.
      ``xla`` and ``lumorph4``, 4 × 128, 2 steps: each final loss within 1e-5
      relative of the same flags on 2 virtual ranks (1e-4 where that run has
      a token under the 1e-6 gap); ``step_s``, communication seconds and peak
-     memory per rank.
+     memory per rank. Then, in the same world, the SSM, hybrid,
+     encoder-decoder and VLM kinds, fp32 params from seed 0, each held to
+     this one process's run of the same inputs: (d) zamba2-1.2b whole (38
+     layers; 16 of its 64 SSM heads and 8 of its 32 attention heads per
+     rank at model 4): the prefill of 1 × 1024 through the flash kernel, 6
+     launches per rank (one per shared-block site) on ``[1, 1024, 8, 64]``,
+     within 1e-4; decodes of 8 + 8 at 1 × 4, batch 4, in fp32 (within 1e-4)
+     and bf16 (within 5e-2, or within its plain-vs-plain control, the
+     one-process bf16 decode against the one-process fp32 decode fed the
+     same tokens, where that is larger), every rank's ``h`` ``[4, 16, 64,
+     64]``; (e) xlstm-125m whole decoded at 1 × 4 and whisper-tiny whole at
+     1 × 4 (its 6 heads replicated, the self cache's sequence over model)
+     and 2 × 2 (3 heads per rank), 8 + 8 in fp32, whisper's encoder placed
+     through the kernel over 4 × 1500 frames (4 launches per rank, all 6
+     heads at 1 × 4 and 3 at 2 × 2) and its cross caches filled placed;
+     (f) paligemma-3b at full width, 2 of 18 layers: the prefill of 2 ×
+     (256 image + 32 text) on the dense path and a decode of 8 + 8 at 1 ×
+     4, fp32, within 1e-4; (g) zamba2 at full width, its first 7 layers
+     (one shared-block site), trained at data 2 × model 2 with ``xla`` and
+     ``lumorph4``, 4 × 128, 2 steps, fp32: each final loss within 1e-5
+     relative of the same flags on 2 virtual ranks. TPOT, ``step_s``, peak
+     memory and local shapes per rank, labelled host-staged.
 
 Phase 2 also holds the RMSNorm kernel against its plain version (fp32
 within 1e-5, bf16 within 2e-2, the limits of tests/test_kernels.py, or one
@@ -478,7 +499,55 @@ MOE_TRAIN = ["--arch", MOE_DS, "--data-parallel", "2", "--batch", "4", "--seq", 
 MOE_TRAIN_RUNS = [("xla", ["--comm", "xla", "--wire-dtype", "float32"]),
                   ("lumorph4", ["--comm", "lumorph4", "--wire-dtype", "float32"])]
 MOE_TRAIN_RTOL, MOE_NEAR_TIE_RTOL = 1e-5, 1e-4
-MOE_TIMEOUT_S = 480
+# (d)-(g): the SSM, hybrid, encoder-decoder and VLM kinds on the model axis, in the same
+# world after (a)-(c), fp32 params from seed 0. (d) zamba2-1.2b whole (38 mamba2 layers,
+# the shared block at 6 sites; 64 SSM heads and 32 attention heads, 16 and 8 per rank at
+# model 4): the prefill of 1 x 1024 through the flash kernel, one launch per site in
+# every rank on its own heads; (e) xlstm-125m and whisper-tiny whole (whisper's 6 heads
+# replicated at model 4, split 3 + 3 at model 2; its encoder placed through the kernel
+# over 4 x 1500 frames); (f) paligemma-3b at full width, 2 of its 18 layers, the prefill
+# of 2 x (256 image + 32 text). name -> (arch, data, batch, prompt, generated, dtype);
+# each decode fed the one-process reference's tokens
+HYB_Z, HYB_X, HYB_W, HYB_P = "zamba2-1.2b", "xlstm-125m", "whisper-tiny", "paligemma-3b"
+HYB_LAYERS = {HYB_Z: None, HYB_X: None, HYB_W: None, HYB_P: 2}
+HYB_PREFILL = {HYB_Z: (1, 1024), HYB_P: (2, 32)}  # at data 1 x model 4
+HYB_DEC_RUNS = {
+    "zamba2_1x4_fp32": (HYB_Z, 1, 4, 8, 8, "float32"),
+    "zamba2_1x4_bf16": (HYB_Z, 1, 4, 8, 8, "bfloat16"),
+    "xlstm_1x4_fp32": (HYB_X, 1, 4, 8, 8, "float32"),
+    "whisper_1x4_fp32": (HYB_W, 1, 4, 8, 8, "float32"),
+    "whisper_2x2_fp32": (HYB_W, 2, 4, 8, 8, "float32"),
+    "paligemma_1x4_fp32": (HYB_P, 1, 4, 8, 8, "float32"),
+}
+# relative to the largest logit: fp32 and bf16 (phase 3's). A bf16 decode past it is
+# held to its plain-vs-plain control instead: the one-process bf16 decode against the
+# one-process fp32 decode fed the same tokens (the SSM drift of PERF.md section 2)
+HYB_TOL = {"float32": 1e-4, "bfloat16": PREFILL_TOL["bfloat16"]}
+# every local cache leaf of layer 0, as steps.shard_shape gives it: mamba2's h over its 64
+# heads; mLSTM's C over its 4; whisper's cross pair whole and its self cache's sequence
+# over model at 1 x 4, both over heads at 2 x 2; paligemma's one KV head: the sequence
+HYB_CACHE_LOCAL = {
+    "zamba2_1x4": {"h": [4, 16, 64, 64], "conv": [4, 3, 4224]},
+    "xlstm_1x4": {"C": [4, 1, 384, 384], "n": [4, 4, 384], "m": [4, 4], "conv": [4, 3, 1536]},
+    "whisper_1x4": {"self/k": [4, 4, 6, 64], "self/v": [4, 4, 6, 64], "self/pos": [4, 16],
+                    "cross_k": [4, 1500, 6, 64], "cross_v": [4, 1500, 6, 64]},
+    "whisper_2x2": {"self/k": [2, 16, 3, 64], "self/v": [2, 16, 3, 64], "self/pos": [2, 16],
+                    "cross_k": [2, 1500, 3, 64], "cross_v": [2, 1500, 3, 64]},
+    "paligemma_1x4": {"k": [4, 4, 1, 256], "v": [4, 4, 1, 256], "pos": [4, 16]},
+}
+# each rank's flash q and k, and the launches per call: zamba2's prefill (8 of 32 heads
+# of 64, one per site), whisper's encode (all 6 heads at model 4, 3 at model 2, one per
+# encoder layer)
+HYB_FLASH = {"zamba2_prefill": ([[1, 1024, 8, 64], [1, 1024, 8, 64]], 6),
+             "whisper_1x4": ([[4, 1500, 6, 64], [4, 1500, 6, 64]], 4),
+             "whisper_2x2": ([[2, 1500, 3, 64], [2, 1500, 3, 64]], 4)}
+# (g) zamba2 at full width, its first 7 layers (one shared-block site), fp32, trained at
+# data 2 x model 2 against the same flags on 2 virtual ranks (model 1)
+HYB_TRAIN_LAYERS = 7
+HYB_TRAIN = ["--arch", HYB_Z, "--data-parallel", "2", "--batch", "4", "--seq", "128",
+             "--steps", "2", "--log-every", "100"]
+HYB_TRAIN_RTOL = 1e-5
+MOE_TIMEOUT_S = 720
 MOE_DIR = ROOT / "build" / "chip_smoke_moe"  # gitignored; the ranks' results
 MOE_REF_DIR = ROOT / "build" / "chip_smoke_moe_refs"  # gitignored; the references
 # overlap mode (phase 7): the JAX package's overlap benchmark (OVERLAP_SCRIPT and
@@ -1363,17 +1432,24 @@ def router_gaps(moe_lib, gaps: list):
         moe_lib.top_k_lowest_index_first = pick
 
 
-def _decode_ref(steps_lib, tf, c, params, b: int, prompt: int, n_gen: int, moe_lib=None):
+def _decode_ref(steps_lib, tf, c, params, b: int, prompt: int, n_gen: int, moe_lib=None,
+                enc_out=None, fed=None):
     """A decode in this one process through ``make_decode_step``: a prompt from
-    seed 1 replayed, then greedy tokens. Returns the tokens, the logits of the
-    prompt's last step and after ``[n_gen + 1, b, V]``, the median TPOT and,
-    given ``moe_lib``, each of those steps' smallest router gap per row ``[n_gen
-    + 1, b]`` (over the MoE layers)."""
+    seed 1 replayed, then greedy tokens (or, given ``fed``, those tokens
+    throughout). Given whisper's encoder output ``enc_out``, the cross caches
+    are filled from it first. Returns the
+    tokens, the logits of the prompt's last step and after ``[n_gen + 1, b,
+    V]``, the median TPOT and, given ``moe_lib``, each of those steps'
+    smallest router gap per row ``[n_gen + 1, b]`` (over the MoE layers)."""
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(1)
     tokens = torch.randint(0, c.vocab_size, (b, prompt + n_gen), generator=gen, device=dev)
+    if fed is not None:
+        tokens = fed.to(dev).clone()
     step, n = steps_lib.make_decode_step(c, dev), prompt + n_gen
     caches, logits, step_s, gaps = tf.init_caches(c, b, n, dev), [], [], []
+    if enc_out is not None:
+        tf.fill_cross_caches(params, enc_out, caches, c)
     for t in range(n):
         calls: list = []
         with router_gaps(moe_lib, calls) if moe_lib else contextlib.nullcontext():
@@ -1385,7 +1461,7 @@ def _decode_ref(steps_lib, tf, c, params, b: int, prompt: int, n_gen: int, moe_l
         if calls:
             gaps.append(torch.stack(calls).amin(0)[:, 0])
         logits.append(out[:, -1])
-        if prompt - 1 <= t < n - 1:  # greedy from the prompt's last token on
+        if prompt - 1 <= t < n - 1 and fed is None:  # greedy from the prompt's last token on
             tokens[:, t + 1] = out[:, -1].argmax(-1)
     logits = torch.stack(logits[prompt - 1:])
     assert torch.isfinite(logits).all()
@@ -1394,24 +1470,34 @@ def _decode_ref(steps_lib, tf, c, params, b: int, prompt: int, n_gen: int, moe_l
 
 
 def _placed_decode_run(c, params, policy, mesh, ref: dict, b: int, prompt: int,
-                       n_gen: int) -> dict:
+                       n_gen: int, enc_out=None) -> dict:
     """In a rank: the decode of ``ref`` (``_decode_ref``'s tokens and logits)
     through the placed step, the prompt replayed by ``serve.prefill_with_caches``
-    with the policy and the mesh, then its tokens fed. Every step's gathered
+    with the policy and the mesh, then its tokens fed. Given whisper's placed
+    encoder output ``enc_out``, each rank's shard of the cross caches is
+    filled from it first, and the prompt is replayed through the step on
+    them. Every step's gathered
     logits against the reference's: the error of each row relative to the
     step's largest logit, the greedy agreement, the local cache shapes against
     ``steps.shard_shape`` of their specs, TPOT and peak memory."""
     import torch.distributed as dist
     from repro_torch.launch import serve
     from repro_torch.launch import steps as steps_lib
+    from repro_torch.models import transformer as tf
     from repro_torch.sharding.policy import gather_tree
     dev = mesh.device
     tokens, n = ref["tokens"].to(dev), prompt + n_gen
     step = steps_lib.make_decode_step(c, dev, policy, mesh, b, n)
     torch.cuda.reset_peak_memory_stats()
     dist.barrier()
-    logits, caches = serve.prefill_with_caches(params, {"tokens": tokens[:, :prompt]}, c, n,
-                                               dev, policy, mesh)
+    if enc_out is None:
+        logits, caches = serve.prefill_with_caches(params, {"tokens": tokens[:, :prompt]}, c,
+                                                   n, dev, policy, mesh)
+    else:
+        caches = steps_lib.init_placed_caches(c, policy, mesh, b, n)
+        tf.fill_cross_caches(params, enc_out, caches, c)
+        for t in range(prompt):
+            logits, caches = step(params, caches, tokens[:, t:t + 1], t)
     got, step_s = [gather_tree(logits)[:, -1]], []
     for t in range(prompt, n):
         torch.cuda.synchronize()
@@ -1426,14 +1512,27 @@ def _placed_decode_run(c, params, policy, mesh, ref: dict, b: int, prompt: int,
     agree = float(torch.stack([(g.argmax(-1) == tokens[:, prompt + i]).float().mean()
                                for i, g in enumerate(got[:-1])]).mean())
     specs = policy.cache_specs(steps_lib.cache_shapes(c, b, n))
-    shapes_ok = all(  # each layer's cache is a flat dict of leaves
-        tuple(leaf.to_local().shape) == steps_lib.shard_shape(tuple(leaf.shape), spec[k], mesh)
-        for layer, spec in zip(caches, specs) for k, leaf in layer.items())
+    shapes_ok = all(
+        tuple(leaf.to_local().shape) == steps_lib.shard_shape(tuple(leaf.shape), spec, mesh)
+        for layer, specs_l in zip(caches, specs) for leaf, spec in _cache_leaves(layer, specs_l))
     return {"steps": len(got), "rows": rows, "rel": max(max(r) for r in rows), "agree": agree,
             "finite": all(bool(torch.isfinite(g).all()) for g in got),
-            "local": {k: list(leaf.to_local().shape) for k, leaf in caches[0].items()},
+            "local": {k: list(leaf.to_local().shape) for k, (leaf, _) in zip(
+                _cache_keys(caches[0]), _cache_leaves(caches[0], specs[0]))},
             "shapes_ok": shapes_ok, "tpot_s": statistics.median(step_s),
             "peak_gb": torch.cuda.max_memory_allocated() / 1e9}
+
+
+def _cache_keys(layer: dict, prefix: str = "") -> list:
+    """The ``/``-joined keys of a layer's cache leaves (whisper nests ``self``)."""
+    return [p for k, v in layer.items()
+            for p in (_cache_keys(v, f"{prefix}{k}/") if isinstance(v, dict) else [prefix + k])]
+
+
+def _cache_leaves(layer: dict, spec: dict) -> list:
+    """(leaf, spec) pairs of a layer's cache, in ``_cache_keys``' order."""
+    return [pair for k, v in layer.items()
+            for pair in (_cache_leaves(v, spec[k]) if isinstance(v, dict) else [(v, spec[k])])]
 
 
 def _held_rows(rows, gaps: torch.Tensor, tol: float) -> dict:
@@ -1464,6 +1563,222 @@ def _moe_train_config(get_config, arch: str):
     """Phase 18(c)'s config: ``arch`` at full width, its first
     ``MOE_TRAIN_LAYERS`` layers, computing in fp32."""
     return _dec_config(get_config, arch, MOE_TRAIN_LAYERS).replace(compute_dtype="float32")
+
+
+def _hybrid_train_config(get_config, arch: str):
+    """Phase 18(g)'s config: ``arch`` at full width, its first
+    ``HYB_TRAIN_LAYERS`` layers, computing in fp32."""
+    return _dec_config(get_config, arch, HYB_TRAIN_LAYERS).replace(compute_dtype="float32")
+
+
+def _hybrid_inputs(cfg, arch: str, dev) -> dict:
+    """Phase 18(d)-(f)'s inputs from seed 1: the prefill's batch (paligemma's with
+    its image embeds) and whisper's frames."""
+    gen = torch.Generator(device=dev).manual_seed(1)
+    out = {}
+    if arch in HYB_PREFILL:
+        b, s = HYB_PREFILL[arch]
+        out["prefill"] = {"tokens": torch.randint(0, cfg.vocab_size, (b, s), generator=gen,
+                                                  device=dev)}
+        if cfg.kind == "vlm":
+            out["prefill"]["image_embeds"] = torch.randn(
+                (b, cfg.num_image_tokens, cfg.d_model), generator=gen, device=dev)
+    if cfg.kind == "encdec":
+        out["frames"] = torch.randn((4, cfg.enc_seq_len, cfg.d_model), generator=gen,
+                                    device=dev)
+    return out
+
+
+def _hybrid_refs(get_config, tf, steps_lib, train) -> dict:
+    """Phase 18(d)-(g)'s references in this one process, each arch's params freed
+    before the next: the kernel-path prefills, whisper's kernel encode, the
+    decodes (and zamba2's bf16 control: the one-process fp32 decode fed the bf16
+    decode's tokens), then (g)'s training at model 1 on 2 virtual ranks. Saved
+    under ``MOE_REF_DIR`` for the ranks; returns the timings."""
+    dev = torch.device("cuda")
+    refs: dict = {"prefill": {}, "decode": {}, "control": {}}
+    for arch, layers in HYB_LAYERS.items():
+        cfg = _dec_config(get_config, arch, layers).replace(compute_dtype="float32",
+                                                            use_pallas=arch == HYB_Z)
+        params = tf.init_params(torch.Generator(device=dev).manual_seed(0), cfg)
+        inp = _hybrid_inputs(cfg, arch, dev)
+        saved = {k: (v.cpu() if torch.is_tensor(v) else {n: t.cpu() for n, t in v.items()})
+                 for k, v in inp.items()}
+        if arch in HYB_PREFILL:
+            logits, s = _timed(steps_lib.make_prefill(cfg, dev), params, inp["prefill"])
+            assert torch.isfinite(logits).all(), arch
+            saved["logits"] = logits.cpu()
+            refs["prefill"][arch] = {"prefill_s_one_process": s}
+            del logits
+        enc = None
+        if "frames" in inp:  # whisper's encoder through the kernel, once for its decodes
+            enc, s = _timed(steps_lib.make_encode(cfg.replace(use_pallas=True), dev), params,
+                            inp["frames"])
+            saved["enc_out"] = enc.cpu()
+            refs["prefill"][arch] = {"encode_s_one_process": s}
+        torch.save(saved, MOE_REF_DIR / f"{arch}_hybrid.pt")
+        for name, (a, _, b, prompt, n_gen, dtype) in HYB_DEC_RUNS.items():
+            if a != arch:
+                continue
+            c = cfg.replace(compute_dtype=dtype, use_pallas=False)
+            tokens, logits, tpot, _ = _decode_ref(steps_lib, tf, c, params, b, prompt, n_gen,
+                                                  enc_out=enc)
+            torch.save({"tokens": tokens.cpu(), "logits": logits.cpu()},
+                       MOE_REF_DIR / f"{name}.pt")
+            refs["decode"][name] = {"tpot_s_one_process": tpot}
+            if dtype == "bfloat16":  # the plain-vs-plain control, fed the same tokens
+                _, logits32, _, _ = _decode_ref(steps_lib, tf, c.replace(compute_dtype="float32"),
+                                                params, b, prompt, n_gen, fed=tokens)
+                refs["control"][name] = max(_rel(g, e) for g, e in zip(logits, logits32))
+            del logits, tokens
+        del params, inp, enc
+        torch.cuda.empty_cache()
+    get = train.get_config  # (g): the first 7 layers, in fp32, at model 1
+    train.get_config = functools.partial(_hybrid_train_config, get)
+    try:
+        refs["train"] = {name: train.main(HYB_TRAIN + flags) for name, flags in MOE_TRAIN_RUNS}
+    finally:
+        train.get_config = get
+    torch.cuda.empty_cache()
+    return refs
+
+
+def _hybrid_rank(get_config, tf, steps_lib, train, ops, meshes, dev, shapes: list) -> dict:
+    """Phase 18(d)-(g) in a rank of the world: the placed prefills and zamba2's
+    launches of the flash kernel, whisper's placed encode, each decode of
+    ``HYB_DEC_RUNS`` through the placed step, then (g)'s training."""
+    import torch.distributed as dist
+    from repro_torch.sharding.policy import distribute_tree, gather_tree, make_policy
+    out: dict = {"prefill": {}, "decode": {}}
+
+    def counted(fn, *args):
+        for k in ops.LAUNCHES:
+            ops.LAUNCHES[k] = 0
+        shapes.clear()
+        torch.cuda.reset_peak_memory_stats()
+        dist.barrier()
+        y, s = _timed(fn, *args)
+        return y, {"s": s, "launches": ops.LAUNCHES["flash_attention"],
+                   "shapes": [json.loads(sh) for sh in dict.fromkeys(map(json.dumps, shapes))],
+                   "peak_gb": torch.cuda.max_memory_allocated() / 1e9}
+    for arch, layers in HYB_LAYERS.items():
+        cfg = _dec_config(get_config, arch, layers).replace(compute_dtype="float32",
+                                                            use_pallas=arch == HYB_Z)
+        full = tf.init_params(torch.Generator(device=dev).manual_seed(0), cfg)
+        datas = sorted({r[1] for r in HYB_DEC_RUNS.values() if r[0] == arch})
+        placed = {d: distribute_tree(full, make_policy(cfg, meshes[d]).param_specs(
+            tf.param_shapes(cfg)), meshes[d].device_mesh) for d in datas}
+        del full  # the rank keeps its shards alone (the mixers whole: the policy's)
+        torch.cuda.empty_cache()
+        ref = torch.load(MOE_REF_DIR / f"{arch}_hybrid.pt")
+        if arch in HYB_PREFILL:  # (d), (f): at data 1 x model 4
+            mesh = meshes[1]
+            prefill = steps_lib.make_prefill(cfg, dev, make_policy(cfg, mesh), mesh)
+            logits, res = counted(prefill, placed[1], {k: v.to(dev) for k, v in
+                                                       ref["prefill"].items()})
+            got, expect = gather_tree(logits), ref["logits"].to(dev)  # collective
+            res.update(rel=_rel(got, expect), agree=_agree(got, expect),
+                       finite=bool(torch.isfinite(got).all()))
+            out["prefill"][arch] = res
+            del logits, got, expect
+        for name, (a, data, b, prompt, n_gen, dtype) in HYB_DEC_RUNS.items():
+            if a != arch:
+                continue
+            c, mesh = cfg.replace(compute_dtype=dtype, use_pallas=False), meshes[data]
+            policy = make_policy(c, mesh)
+            enc = None
+            if "frames" in ref:  # whisper's encode, placed through the kernel, timed alone
+                enc, res = counted(steps_lib.make_encode(c.replace(use_pallas=True), dev,
+                                                         policy, mesh), placed[data],
+                                   ref["frames"].to(dev))
+                res["rel"] = _rel(gather_tree(enc), ref["enc_out"].to(dev))
+                out["prefill"][name] = res
+            for k in ops.LAUNCHES:
+                ops.LAUNCHES[k] = 0
+            out["decode"][name] = {**_placed_decode_run(
+                c, placed[data], policy, mesh, torch.load(MOE_REF_DIR / f"{name}.pt"), b,
+                prompt, n_gen, enc), "launches": dict(ops.LAUNCHES)}
+            del enc
+            torch.cuda.empty_cache()
+        del placed, ref
+        torch.cuda.empty_cache()
+    get = train.get_config  # (g): the first 7 layers in fp32, as the reference's
+    train.get_config = functools.partial(_hybrid_train_config, get)
+    out["train"] = rank_train(train, ops, MOE_TRAIN_RUNS, HYB_TRAIN)
+    train.get_config = get
+    for res in out["train"].values():
+        res["mixer_local"] = res.pop("local_params")["shapes"]["segments/0/mix/w_in"]
+    return out
+
+
+def _hybrid_hold(refs: dict, ranks: list, hold) -> dict:
+    """Phase 18(d)-(g)'s results, printed, each check handed to ``hold``."""
+    out: dict = {"prefill": {}, "decode": {}, "train": {}}
+    for key, ref in refs["prefill"].items():  # (d), (f) and whisper's encodes
+        for name in ([key] if key in HYB_PREFILL else
+                     [n for n, r in HYB_DEC_RUNS.items() if r[0] == key]):
+            per = [rk["hybrid"]["prefill"][name] for rk in ranks]
+            res = {"what": "prefill" if key in HYB_PREFILL else "encode",
+                   "rel_max_err": per[0]["rel"], "tol": HYB_TOL["float32"],
+                   "flash_launches_per_rank": [x["launches"] for x in per],
+                   "flash_shapes_per_rank": [x["shapes"] for x in per],
+                   "s_per_rank_gloo_host_staged": [x["s"] for x in per],
+                   "peak_gb_per_rank": [x["peak_gb"] for x in per], **ref}
+            if key in HYB_PREFILL:
+                res.update(tokens=list(HYB_PREFILL[key]), argmax_agree=per[0]["agree"],
+                           finite=all(x["finite"] for x in per))
+                hold(res["finite"], f"prefill {name} finite")
+            out["prefill"][name] = res
+            print(json.dumps({"hybrid_prefill": name, **res}), flush=True)
+            hold(all(x["rel"] <= HYB_TOL["float32"] for x in per), f"prefill {name}")
+            flash = HYB_FLASH.get("zamba2_prefill" if key == HYB_Z else name.rsplit("_", 1)[0])
+            if flash is None:  # paligemma's prefix mask takes the dense path
+                hold(res["flash_launches_per_rank"] == [0] * DIST_WORLD, f"{name}: launches")
+            else:
+                hold(res["flash_launches_per_rank"] == [flash[1]] * DIST_WORLD
+                     and all(sh == [flash[0]] for sh in res["flash_shapes_per_rank"]),
+                     f"{name}: flash launches")
+    for name, (arch, data, b, prompt, n_gen, dtype) in HYB_DEC_RUNS.items():
+        per = [rk["hybrid"]["decode"][name] for rk in ranks]
+        tol = max(HYB_TOL[dtype], refs["control"].get(name, 0.0))
+        res = {"arch": arch, "layers": HYB_LAYERS[arch] or "all",
+               "mesh": {"data": data, "model": DIST_WORLD // data}, "batch": b,
+               "prompt": prompt, "generated": n_gen, "compute_dtype": dtype,
+               "steps_compared": per[0]["steps"], "rel_max_err_per_rank": [x["rel"] for x in per],
+               "tol": tol, "plain_vs_plain_control": refs["control"].get(name),
+               "greedy_agree_per_rank": [x["agree"] for x in per],
+               "cache_local_per_rank": [x["local"] for x in per],
+               "cache_shapes_as_spec_per_rank": [x["shapes_ok"] for x in per],
+               "tpot_s_per_rank_gloo_host_staged": [x["tpot_s"] for x in per],
+               "peak_gb_per_rank": [x["peak_gb"] for x in per], **refs["decode"][name]}
+        out["decode"][name] = res
+        print(json.dumps({"hybrid_decode": name, **res}), flush=True)
+        hold(max(res["rel_max_err_per_rank"]) <= tol, f"decode {name}")
+        hold(all(x["steps"] == n_gen + 1 and x["finite"] for x in per), f"decode {name} finite")
+        hold(all(x["rows"] == per[0]["rows"] for x in per), f"decode {name}: one answer")
+        hold(all(res["cache_shapes_as_spec_per_rank"]), f"decode {name}: cache shapes")
+        hold(all(loc == HYB_CACHE_LOCAL[name.rsplit("_", 1)[0]]
+                 for loc in res["cache_local_per_rank"]), f"decode {name}: local caches")
+    for name, _ in MOE_TRAIN_RUNS:  # (g)
+        per = [rk["hybrid"]["train"][name] for rk in ranks]
+        ref = refs["train"][name]
+        res = {**{k: per[0][k] for k in ("final_loss", "first_loss", "steps", "world",
+                                           "dist_backend", "data", "model")},
+               "layers": HYB_TRAIN_LAYERS, "model1_final_loss": ref["final_loss"],
+               "rel_to_model1": abs(per[0]["final_loss"] - ref["final_loss"]) /
+               abs(ref["final_loss"]), "tol": HYB_TRAIN_RTOL,
+               "model1_step_s_virtual": ref["step_s"],
+               "mixer_local_shape": per[0]["mixer_local"],
+               "step_s_gloo_host_staged": [x["step_s"] for x in per],
+               "grad_comm_s_gloo_host_staged": [x["grad_comm_s"] for x in per],
+               "peak_gb_per_rank_gloo_host_staged": [x["peak_gb"] for x in per]}
+        out["train"][name] = res
+        print(json.dumps({"hybrid_train": name, **res}), flush=True)
+        hold(all(x["final_loss"] == per[0]["final_loss"] for x in per)
+             and math.isfinite(per[0]["final_loss"]), f"hybrid train {name}: one finite loss")
+        hold((res["data"], res["model"], res["steps"]) == (2, 2, 2), f"hybrid train {name}")
+        hold(res["rel_to_model1"] <= HYB_TRAIN_RTOL, f"hybrid train {name}: against model 1")
+    return out
 
 
 def phase_moe_mla(get_config, tf, steps_lib, train, moe_lib, attn, apply_norm) -> dict:
@@ -1530,6 +1845,7 @@ def phase_moe_mla(get_config, tf, steps_lib, train, moe_lib, attn, apply_norm) -
     finally:
         train.get_config = get
     torch.cuda.empty_cache()
+    hybrid_refs = _hybrid_refs(get_config, tf, steps_lib, train)  # (d)-(g)
     print(json.dumps({"moe_mla_parent_gb_before_ranks": {
         "allocated": torch.cuda.memory_allocated() / 1e9,
         "reserved": torch.cuda.memory_reserved() / 1e9}}), flush=True)
@@ -1613,6 +1929,7 @@ def phase_moe_mla(get_config, tf, steps_lib, train, moe_lib, attn, apply_norm) -
              and math.isfinite(per[0]["final_loss"]), f"train {name}: one finite loss")
         hold((res["data"], res["model"], res["steps"]) == (2, 2, 2), f"train {name}: mesh")
         hold(res["rel_to_model1"] <= tol, f"train {name}: against model 1")
+    out["hybrid"] = _hybrid_hold(hybrid_refs, ranks, hold)
     assert not failed, failed
     return out
 
@@ -1706,6 +2023,9 @@ def moe_rank(out_dir: str) -> None:
     train.get_config = get
     for res in out["train"].values():
         res["experts_local"] = res.pop("local_params")["shapes"]["segments/1/moe/wi"]
+    ops.flash_attention = seen  # (d)-(g)
+    out["hybrid"] = _hybrid_rank(get_config, tf, steps_lib, train, ops, meshes, dev, shapes)
+    ops.flash_attention = counted
     dist.barrier()
     dist.destroy_process_group()
     pathlib.Path(out_dir, f"rank{world.rank}.json").write_text(json.dumps(out))
@@ -2939,7 +3259,10 @@ def main() -> None:
                                  dt: r["launches_per_rank"] for dt, r in tp["prefill"].items()},
                              "moe_mla_tp_prefill_per_rank": {
                                  k: r["flash_launches_per_rank"]
-                                 for k, r in moe_mla["prefill"].items()}},
+                                 for k, r in moe_mla["prefill"].items()},
+                             "hybrid_tp_prefill_encode_per_rank": {
+                                 k: r["flash_launches_per_rank"]
+                                 for k, r in moe_mla["hybrid"]["prefill"].items()}},
     }]
     for name, body in (("quantize_int8", 18), ("dequantize_int8", 27)):
         t = int8["timed"][name]

@@ -15,11 +15,11 @@ propagation inserts the tensor-parallel collectives,
 :func:`repro_torch.models.attention.head_local` keeps the attention on each
 rank's own heads), and the gradients are reduced over its data group. The
 prefill and the decode run the same way, the decode on caches placed by the
-policy's cache specs. The train step and the decode place the blocks of
-:data:`PLACED_KINDS` (dense, MoE with its experts over model, MLA with its
-heads over model and its latent cache's sequence over model); a config with
-SSM, cross-attention or shared blocks raises ``NotImplementedError`` there,
-while its prefill runs placed (held to JAX's on the smoke configs).
+policy's cache specs. Every block kind runs placed: dense and zamba2's
+shared block on their heads, MoE with its experts over model, MLA with its
+heads over model and its latent cache's sequence over model, the SSM mixers
+replicated over model beside decode states split over their heads, and
+whisper's cross-attention on its heads of the encoder's keys and values.
 
 The train step runs ``dp`` data-parallel ranks as a leading axis of every
 parameter and optimizer tensor (the virtual-rank executor,
@@ -237,7 +237,11 @@ def make_train_step(cfg: ModelConfig, opt_cfg: Optional[AdamWConfig] = None,
     axis, and every rank of the group calls the step with the global batch;
     the loss is meaned over the group (``jax.lax.pmean``'s twin).
     ``microbatches > 1`` accumulates fp32 gradients over that many slices of
-    each rank's rows.
+    each rank's rows. Under ``xla`` with one process per rank, rank ``r``'s
+    slice ``i`` is its ``1/dp`` share of the global batch's slice ``i``
+    (:func:`microbatch_order`), as JAX's one program splits the global batch;
+    a virtual rank or a LUMORPH comm's rank splits its own contiguous rows,
+    as JAX's ``shard_map`` body does.
     ``overlap_chunks > 1`` (LUMORPH comms; ignored by ``xla``) runs every
     bucket's collective as that many chunked waves (overlap mode).
     After each call ``step.bucket_log`` holds the last (bytes, algo) log.
@@ -255,8 +259,7 @@ def make_train_step(cfg: ModelConfig, opt_cfg: Optional[AdamWConfig] = None,
     first step and return it replicated over data, as JAX's ``shard_map``
     takes and gives it (``rep``); under ``compress`` each rank reduces its
     model group's whole leaves, so that the int8 blocks are JAX's, and keeps
-    its shards. Only the blocks of :data:`PLACED_KINDS` train on the model
-    axis: a config with any other raises ``NotImplementedError``.
+    its shards.
 
     Under ``xla`` with ``dp > 1`` a model's MoE balance loss counts every
     data rank's rows, as JAX's one program over the global batch does
@@ -272,13 +275,14 @@ def make_train_step(cfg: ModelConfig, opt_cfg: Optional[AdamWConfig] = None,
     dev = resolve_device(device)
 
     model_axis = _model_axis(mesh)
-    if model_axis:
-        _placed_kinds_only(cfg, "train step")
     # JAX's xla step is one program over the global batch, whose MoE balance loss counts
     # every data rank's rows; the LUMORPH comms' per-rank program counts each rank's own
     global_balance = comm == "xla" and dp > 1 and any(k in ("moe", "mla_moe")
                                                       for k in cfg.block_pattern)
     balance = group if global_balance else None
+    # JAX's xla step splits the global batch into microbatches; a process per rank
+    # re-lays the rows so that its contiguous share holds its part of each
+    relay = comm == "xla" and group is not None and dp > 1 and microbatches > 1
 
     def grad_fn(params, batch) -> tuple[torch.Tensor, list[torch.Tensor]]:
         plist = leaves(params)
@@ -306,6 +310,9 @@ def make_train_step(cfg: ModelConfig, opt_cfg: Optional[AdamWConfig] = None,
         if b % dp:
             raise ValueError(f"global batch {b} does not split over {dp} ranks")
         rows = b // dp
+        if relay:
+            order = microbatch_order(b, dp, microbatches).to(dev)
+            batch = {k: v[order] for k, v in batch.items()}
         if model_axis:
             return placed_step(params, opt_state, batch)
         with record_function("train/forward_backward"):
@@ -424,6 +431,17 @@ def make_train_step(cfg: ModelConfig, opt_cfg: Optional[AdamWConfig] = None,
     return step
 
 
+def microbatch_order(b: int, dp: int, microbatches: int) -> torch.Tensor:
+    """The global batch's rows re-laid so that rank ``r``'s contiguous rows
+    ``[r·b/dp, (r+1)·b/dp)``, split into ``microbatches`` slices, give slice
+    ``i`` as the global rows ``[i·b/m + r·b/(m·dp), i·b/m + (r+1)·b/(m·dp))``:
+    rank ``r``'s share of JAX's global microbatch ``i``."""
+    if b % (dp * microbatches):
+        raise ValueError(f"a global batch of {b} does not split into {microbatches} "
+                         f"microbatches over {dp} ranks")
+    return torch.arange(b).reshape(microbatches, dp, -1).transpose(0, 1).flatten()
+
+
 def on_model(t: DTensor) -> DTensor:
     """A leaf of the ``(data, model)`` mesh as a DTensor on this rank's model
     group, its local tensor unchanged: this data rank's own copy (a param
@@ -501,6 +519,40 @@ def _placed_prefill(cfg: ModelConfig, policy, mesh) -> Callable:
     return prefill
 
 
+def make_encode(cfg: ModelConfig, device: Optional[torch.device] = None,
+                policy=None, mesh=None) -> Callable:
+    """``encode(params, frames [B, S_enc, D]) -> enc_out [B, S_enc, D]``:
+    whisper's encoder, once per request, for ``tf.fill_cross_caches``.
+
+    On a process ``mesh`` with a model axis, placed as :func:`make_prefill`
+    places the prefill (with ``cfg.use_pallas``, the flash kernel on each
+    rank's heads, or on all of them where the policy replicates the
+    attention); ``enc_out`` comes back a DTensor on the mesh, its rows over
+    data as the frames' batch spec splits them and whole over model."""
+    dev = resolve_device(device)
+    if not _model_axis(mesh):
+        @torch.inference_mode()
+        def encode(params, frames):
+            return tf.encoder_forward(params["encoder"], frames.to(dev), cfg)
+        return encode
+    dm = mesh.device_mesh
+    p_specs = policy.param_specs(tf.param_shapes(cfg))
+
+    @torch.no_grad()
+    def encode(params, frames):
+        if not isinstance(leaves(params)[0], DTensor):
+            params = distribute_tree(params, p_specs, dm)
+        frames = place(frames.to(mesh.device), policy.batch_spec("frames", tuple(frames.shape)),
+                       dm)
+        with implicit_replication():
+            out = tf.encoder_forward(tree_map(param_on_model, params["encoder"]),
+                                     on_model(frames), cfg)
+        return DTensor.from_local(out.to_local(), dm, [frames.placements[0], out.placements[0]],
+                                  run_check=False)
+
+    return encode
+
+
 def make_decode_step(cfg: ModelConfig, device: Optional[torch.device] = None,
                      policy=None, mesh=None, batch: Optional[int] = None,
                      max_len: Optional[int] = None) -> Callable:
@@ -517,9 +569,7 @@ def make_decode_step(cfg: ModelConfig, device: Optional[torch.device] = None,
     attention on its own heads and slots
     (:func:`repro_torch.models.attention.placed_decode_attention`). The
     caches come back placed, the logits as a DTensor on the mesh
-    (vocab-sharded where ``lm_head`` is). Only the blocks of
-    :data:`PLACED_KINDS` are placed: a config with any other raises
-    ``NotImplementedError``."""
+    (vocab-sharded where ``lm_head`` is)."""
     dev = resolve_device(device)
     if _model_axis(mesh):
         return _placed_decode(cfg, policy, mesh, batch, max_len)
@@ -540,35 +590,23 @@ def cache_shapes(cfg: ModelConfig, batch: int, max_len: int) -> list:
 def init_placed_caches(cfg: ModelConfig, policy, mesh, batch: int, max_len: int) -> list:
     """Empty decode caches placed by ``policy``'s cache specs on ``mesh``,
     filled as ``tf.init_caches`` fills them: each rank makes its own shard
-    of every leaf, and no rank the whole cache. Only the blocks of
-    :data:`PLACED_KINDS` are placed: a config with any other raises
-    ``NotImplementedError``."""
-    _placed_kinds_only(cfg, "decode")
+    of every leaf, and no rank the whole cache (a whisper cross pair stays
+    zero until ``tf.fill_cross_caches`` writes each rank's heads)."""
     shapes = cache_shapes(cfg, batch, max_len)
     specs = policy.cache_specs(shapes)
-    # every leaf of a fresh cache is one constant (the positions -1, the rest 0)
+    # every leaf of a fresh cache is one constant (the positions -1, mLSTM's m -inf,
+    # sLSTM's n 1, the rest 0)
     fills = tree_map(lambda t: t.flatten()[0].item(), tf.init_caches(cfg, 1, 1, "cpu"))
-    return [{k: place_filled(tuple(t.shape), fill[k], t.dtype, spec[k], mesh.device_mesh,
-                             mesh.device) for k, t in layer.items()}
-            for layer, fill, spec in zip(shapes, fills, specs)]
 
-
-#: the block kinds whose params and caches the model axis places
-PLACED_KINDS = ("dense", "moe", "mla_dense", "mla_moe")
-
-
-def _placed_kinds_only(cfg: ModelConfig, what: str) -> None:
-    other = sorted(set(tf.cache_layout(cfg)) - set(PLACED_KINDS))
-    if other:
-        raise NotImplementedError(
-            f"{cfg.name} has {other} blocks: the placed {what} runs {', '.join(PLACED_KINDS)} "
-            "blocks only (SSM, cross and shared blocks on DTensor params are ROADMAP Queue 1 "
-            "item 4(d)(ii))")
+    def placed(t, fill, spec):
+        if isinstance(t, dict):  # a whisper layer nests its self-attention cache
+            return {k: placed(t[k], fill[k], spec[k]) for k in t}
+        return place_filled(tuple(t.shape), fill, t.dtype, spec, mesh.device_mesh, mesh.device)
+    return [placed(*layer) for layer in zip(shapes, fills, specs)]
 
 
 def _placed_decode(cfg: ModelConfig, policy, mesh, batch: Optional[int],
                    max_len: Optional[int]) -> Callable:
-    _placed_kinds_only(cfg, "decode")
     if batch is None or max_len is None:
         raise ValueError("a placed decode step needs the caches' batch and max_len")
     dm = mesh.device_mesh

@@ -425,6 +425,39 @@ def placed_decode_attention(p: dict, x: Tensor, cache: dict, position: int,
     return reduced(torch.einsum("bshk,hkd->bsd", out, p["wo"].to(x.dtype))), cache
 
 
+def cross_decode_attention(p: dict, x: Tensor, cross_k: Tensor, cross_v: Tensor,
+                           position: int) -> Tensor:
+    """One token's cross-attention (whisper's decoder): ``q`` of ``x`` [B, 1,
+    D] (``wq``, no bias, no RoPE) over the fixed encoder keys and values
+    ``cross_k``/``cross_v`` [B, S_enc, H, D], every frame attended, then
+    ``wo``. With the pair placed by the policy's cache specs (DTensors on the
+    ``(data, model)`` mesh: the heads over model where they divide, as
+    ``wq``'s) and ``p`` and ``x`` on this data rank's model group, each rank
+    attends its own query heads over its own heads of the pair, and ``wo``'s
+    row-parallel product is summed over model."""
+    if isinstance(cross_k, DTensor):
+        if any(not pl.is_replicate() for pl in x.placements):
+            raise ValueError("decode attention takes a whole x: reduce the layer's input first")
+        xl, wq = x.to_local(), p["wq"]
+        q = torch.einsum("bsd,dhk->bshk", xl, wq.to_local().to(xl.dtype))
+        out = DTensor.from_local(_cross_core(q, cross_k.to_local(), cross_v.to_local(),
+                                             position), x.device_mesh,
+                                 [Shard(2) if wq.placements[0].is_shard() else Replicate()],
+                                 run_check=False)
+        return reduced(torch.einsum("bshk,hkd->bsd", out, p["wo"].to(x.dtype)))
+    q = torch.einsum("bsd,dhk->bshk", x, p["wq"].to(x.dtype))
+    return torch.einsum("bshk,hkd->bsd", _cross_core(q, cross_k, cross_v, position),
+                        p["wo"].to(x.dtype))
+
+
+def _cross_core(q: Tensor, k: Tensor, v: Tensor, position: int) -> Tensor:
+    b, enc_len = q.shape[0], k.shape[1]
+    mask = build_mask(torch.full((b, 1), position, dtype=torch.int32, device=q.device),
+                      torch.arange(enc_len, dtype=torch.int32, device=q.device)[None]
+                      .expand(b, enc_len), "bidirectional")
+    return dense_attention(q, k.to(q.dtype), v.to(q.dtype), mask)
+
+
 def _write_slot(leaf: DTensor, slot: int, new: Tensor, first: int) -> None:
     """``new`` [b, 1, ...] (its dim 2, if any, the heads from ``first``) at
     global slot ``slot`` of ``leaf``'s dim 1, written through the local tensor

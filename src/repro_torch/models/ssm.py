@@ -17,17 +17,31 @@ package has no Pallas kernel for any of these, so neither has the port.
 
 ``init_*`` take an explicit ``torch.Generator`` and stack independent draws
 along ``lead`` (a segment's layer axis), as ``layers.init_mlp`` does.
+
+On the model axis (DTensor params, ``launch.steps`` on a process mesh) the
+sharding policy replicates every mixer over model, as JAX's does: a mixer
+runs whole on every rank's local tensors inside ``local_map``
+(:func:`replicated_mixer`), its gradients whole on every rank. In decode the
+cache specs split mamba2's ``h`` and mLSTM's ``C`` over their heads where the
+heads divide: each rank updates its own heads of that state, and the heads'
+output is gathered over model before the gated norm (:func:`placed_step`).
 """
 
 from __future__ import annotations
 
 import math
 
+from typing import Callable
+
 import torch
 import torch.nn.functional as F
+from torch.distributed.tensor import DTensor
+from torch.distributed.tensor.experimental import local_map
 
+from repro_torch.core import collectives_dist
 from repro_torch.models import loop_fold
 from repro_torch.models.layers import dense_init, rmsnorm
+from repro_torch.sharding.policy import local_offsets
 
 Tensor = torch.Tensor
 
@@ -171,9 +185,16 @@ def init_mamba2_state(batch: int, d: int, d_state: int, headdim: int = 64,
     }
 
 
+def _all_heads(y: Tensor) -> Tensor:
+    return y
+
+
 def mamba2_step(p: dict, x: Tensor, state: dict, d_state: int, headdim: int = 64,
-                expand: int = 2) -> tuple[Tensor, dict]:
-    """O(1) decode step. x [B,1,D] → ([B,1,D], new state)."""
+                expand: int = 2, heads: slice = slice(None),
+                whole: Callable[[Tensor], Tensor] = _all_heads) -> tuple[Tensor, dict]:
+    """O(1) decode step. x [B,1,D] → ([B,1,D], new state). ``state["h"]``
+    may hold the ``heads`` alone (a rank's own); ``whole`` then makes the
+    output ``[B, heads, P]`` of every head (:func:`placed_step`)."""
     b, _, d = x.shape
     dt_in = x.dtype
     z, xBC, dt, d_inner, nheads = _mamba2_split(p, x[:, 0], d, d_state, headdim, expand)
@@ -186,8 +207,9 @@ def mamba2_step(p: dict, x: Tensor, state: dict, d_state: int, headdim: int = 64
     dt = F.softplus(dt.float() + p["dt_bias"])  # [B,H]
     A = -torch.exp(p["A_log"])
     dec = torch.exp(dt * A)  # [B,H]
-    h = state["h"] * dec[:, :, None, None] + torch.einsum("bh,bn,bhp->bhpn", dt, B, xs)
-    y = torch.einsum("bn,bhpn->bhp", C, h) + xs * p["D"][None, :, None]
+    dt, dec, xs_h = dt[:, heads], dec[:, heads], xs[:, heads]
+    h = state["h"] * dec[:, :, None, None] + torch.einsum("bh,bn,bhp->bhpn", dt, B, xs_h)
+    y = whole(torch.einsum("bn,bhpn->bhp", C, h) + xs_h * p["D"][heads][None, :, None])
     y = y.reshape(b, d_inner).to(dt_in)
     y = y * F.silu(z)
     y = rmsnorm(y, p["norm_w"])
@@ -266,10 +288,14 @@ def init_mlstm_state(batch: int, d: int, n_heads: int, expand: int = 2,
     }
 
 
-def mlstm_step(p: dict, x: Tensor, state: dict, n_heads: int, expand: int = 2
-               ) -> tuple[Tensor, dict]:
+def mlstm_step(p: dict, x: Tensor, state: dict, n_heads: int, expand: int = 2,
+               heads: slice = slice(None),
+               whole: Callable[[Tensor], Tensor] = _all_heads) -> tuple[Tensor, dict]:
     """Recurrent mLSTM step. x [B,1,D]. The first step's ``m`` is −inf, so
-    its forget term is exp(logf − inf − m_new) = 0 (never −inf − (−inf))."""
+    its forget term is exp(logf − inf − m_new) = 0 (never −inf − (−inf)).
+    ``state["C"]`` may hold the ``heads`` alone (a rank's own), beside ``n``
+    and ``m`` of every head; ``whole`` then makes the output ``[B, heads,
+    hd]`` of every head (:func:`placed_step`)."""
     b, _, d = x.shape
     dt_in = x.dtype
     d_inner = expand * d
@@ -288,13 +314,13 @@ def mlstm_step(p: dict, x: Tensor, state: dict, n_heads: int, expand: int = 2
     m_new = torch.maximum(logf + state["m"], i_raw)  # [B,H]
     f_s = torch.exp(logf + state["m"] - m_new)
     i_s = torch.exp(i_raw - m_new)
-    C = state["C"] * f_s[..., None, None] + i_s[..., None, None] * torch.einsum(
-        "bhk,bhn->bhkn", v, k)
+    C = state["C"] * f_s[:, heads, None, None] + i_s[:, heads, None, None] * torch.einsum(
+        "bhk,bhn->bhkn", v[:, heads], k[:, heads])
     n = state["n"] * f_s[..., None] + i_s[..., None] * k
-    num = torch.einsum("bhkn,bhn->bhk", C, q / math.sqrt(hd))
+    num = torch.einsum("bhkn,bhn->bhk", C, q[:, heads] / math.sqrt(hd))
     den = torch.maximum(torch.abs(torch.einsum("bhn,bhn->bh", n, q / math.sqrt(hd))),
                         torch.exp(-m_new))
-    h = (num / den[..., None]).reshape(b, d_inner)
+    h = whole(num / den[:, heads, None]).reshape(b, d_inner)
     h = rmsnorm(h.to(dt_in), p["norm_w"])
     h = h * F.silu(z)
     out = (h @ p["w_down"].to(dt_in))[:, None, :]
@@ -392,3 +418,54 @@ def slstm_step(p: dict, x: Tensor, state: dict, n_heads: int) -> tuple[Tensor, d
     xt = x[:, 0] @ p["w_x"].to(dt_in)
     st = _slstm_cell(p, xt, state, n_heads)
     return _slstm_out(p, st["h"].to(dt_in), d)[:, None, :], st
+
+
+# ---------------------------------------------------------------------------
+# the model axis: replicated mixers, head-split decode states
+# ---------------------------------------------------------------------------
+
+def replicated_mixer(fn: Callable, p: dict, x: Tensor) -> Tensor:
+    """``fn(p, x)`` for DTensor ``p`` and ``x`` replicated over their mesh (a
+    data rank's model group), run on the local tensors inside ``local_map``:
+    every rank computes the whole mixer, as JAX computes it replicated, with
+    none of its ops (cumsum, tril, the causal conv, sLSTM's time loop) going
+    through DTensor's dispatch. The output is replicated, and so are the
+    gradients of ``x`` and of every param: each rank's is the whole one."""
+    keys = list(p)
+    args = (x, *p.values())
+    if any(not pl.is_replicate() for t in args for pl in t.placements):
+        raise ValueError("a mixer runs replicated over model: its params and input whole")
+
+    def local(x, *ws):
+        return fn(dict(zip(keys, ws)), x)
+    placements = tuple(t.placements for t in args)
+    return local_map(local, out_placements=list(x.placements), in_placements=placements,
+                     in_grad_placements=placements)(*args)
+
+
+def placed_step(step: Callable, p: dict, x: Tensor, state: dict, *args) -> tuple[Tensor, dict]:
+    """``step(p, x, state, *args)`` (:func:`mamba2_step`, :func:`mlstm_step`,
+    :func:`slstm_step`) on a state whose leaves are DTensors on the ``(data,
+    model)`` mesh placed by ``ShardingPolicy.cache_spec``, with ``p`` and
+    ``x`` DTensors replicated on this data rank's model group. Every rank
+    runs the mixer on its local tensors: where the spec splits a leaf over
+    model (mamba2's ``h`` or mLSTM's ``C``, over their heads), each rank
+    updates its own heads of it and the heads' output is gathered over model,
+    one all-gather a step, before the gated norm and the replicated output
+    projection; every other leaf is whole over model and updated alike on
+    every rank. The output comes back replicated, the state placed as it
+    came."""
+    if any(not pl.is_replicate() for pl in x.placements):
+        raise ValueError("a mixer's decode takes a whole x: reduce the layer's input first")
+    kw = {}
+    split = [t for t in state.values() if t.placements[-1].is_shard(1)]  # mesh dim -1: model
+    if split:
+        first, n = local_offsets(split[0])[1], split[0].to_local().shape[1]
+        wire = collectives_dist.Wire(x.device_mesh.get_group())
+        kw = {"heads": slice(first, first + n),
+              "whole": lambda y: torch.cat(wire.all_gather(y), dim=1)}
+    y, new = step({k: t.to_local() for k, t in p.items()}, x.to_local(),
+                  {k: t.to_local() for k, t in state.items()}, *args, **kw)
+    return (DTensor.from_local(y, x.device_mesh, x.placements, run_check=False),
+            {k: DTensor.from_local(t, state[k].device_mesh, state[k].placements,
+                                   run_check=False) for k, t in new.items()})

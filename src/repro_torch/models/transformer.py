@@ -29,11 +29,12 @@ it makes for itself (positions, masks, rope tables, zeros) enter as
 replicated DTensors under ``implicit_replication``, and the attention core
 makes its own inside ``local_map``. A vocab-sharded embedding is looked up by
 DTensor's masked rule (:func:`_lookup`). The MoE blocks run expert-parallel
-(``moe.apply_moe``) and the MLA blocks on each rank's heads
-(``attention.mla_forward``). Its decode step takes caches placed by the
+(``moe.apply_moe``), the MLA blocks on each rank's heads
+(``attention.mla_forward``) and the SSM mixers whole on every rank
+(``ssm.replicated_mixer``). Its decode step takes caches placed by the
 policy's cache specs (``attention.placed_decode_attention``,
-``attention.placed_mla_decode``); ``launch.steps`` places the train step and
-the decode of dense, MoE and MLA blocks only.
+``attention.placed_mla_decode``, ``attention.cross_decode_attention`` and
+``ssm.placed_step``, each rank on its own heads of a split state).
 """
 
 from __future__ import annotations
@@ -51,6 +52,7 @@ from repro_torch.models import ssm
 from repro_torch.models.layers import (apply_mlp, apply_norm, cross_entropy, dense_init,
                                        embed_init, init_mlp, init_norm, reduced, whole_grad,
                                        sinusoidal_positions)
+from repro_torch.sharding.policy import gather_data
 
 Tensor = torch.Tensor
 Params = Any  # nested dict/list of tensors, shaped like the JAX pytree
@@ -205,7 +207,10 @@ def _ffn(kind: str, p: dict, h: Tensor, cfg: ModelConfig,
 
 
 def _mix_forward(kind: str, p: dict, h: Tensor, cfg: ModelConfig) -> Tensor:
-    """An SSM block's mixer over the normed input."""
+    """An SSM block's mixer over the normed input; on the model axis, whole
+    on every rank's local tensors (``ssm.replicated_mixer``)."""
+    if isinstance(h, DTensor):
+        return ssm.replicated_mixer(lambda p, h: _mix_forward(kind, p, h, cfg), p, h)
     if kind == "mamba2":
         return ssm.mamba2_forward(p, h, cfg.ssm_state, cfg.ssm_headdim, cfg.ssm_expand,
                                   cfg.ssm_chunk)
@@ -432,12 +437,24 @@ def init_caches(cfg: ModelConfig, batch: int, max_len: int, device=None) -> list
 def fill_cross_caches(params: Params, enc_out: Tensor, caches: list, cfg: ModelConfig) -> None:
     """Each whisper decoder layer's cross-attention K/V of the encoder output,
     written into its ``cross_k``/``cross_v`` (once per request), by the two
-    einsums of ``examples/whisper_serve.py``."""
+    einsums of ``examples/whisper_serve.py``.
+
+    On caches placed by the policy's cache specs (DTensors), ``params`` are
+    placed by its param specs and ``enc_out`` holds the rows of this rank's
+    cache shard (a DTensor of a placed encoder, or its local tensor): each
+    rank writes its own heads from its own heads of ``wk``/``wv`` (the policy
+    splits both where the heads divide), and no rank makes the whole pair
+    where the spec splits its heads."""
     xattn = params["segments"][0]["xattn"]  # stacked over the decoder layers
+    if isinstance(caches[0]["cross_k"], DTensor):
+        xattn = {k: gather_data(xattn[k]).to_local() for k in ("wk", "wv")}  # ZeRO-3's
+        enc_out = enc_out.to_local() if isinstance(enc_out, DTensor) else enc_out
     for i in range(cfg.n_layers):
         for name, w in (("cross_k", xattn["wk"][i]), ("cross_v", xattn["wv"][i])):
+            leaf = caches[i][name]
+            local = leaf.to_local() if isinstance(leaf, DTensor) else leaf
             kv = torch.einsum("bsd,dhk->bshk", enc_out, w.to(enc_out.dtype))
-            caches[i][name].copy_(kv.to(caches[i][name].dtype))
+            local.copy_(kv.to(local.dtype))
 
 
 def _flatten_layer_params(params: Params, cfg: ModelConfig) -> list[tuple[str, dict]]:
@@ -448,18 +465,24 @@ def _flatten_layer_params(params: Params, cfg: ModelConfig) -> list[tuple[str, d
             for layer in _layers(seg_params, count)]
 
 
+def _mix_step(kind: str, cfg: ModelConfig) -> tuple[Any, tuple]:
+    """An SSM block's decode step and its arguments after (p, x, state)."""
+    if kind == "mamba2":
+        return ssm.mamba2_step, (cfg.ssm_state, cfg.ssm_headdim, cfg.ssm_expand)
+    if kind == "mlstm":
+        return ssm.mlstm_step, (cfg.n_heads, cfg.xlstm_expand)
+    return ssm.slstm_step, (cfg.n_heads,)
+
+
 def _decode_block(kind: str, p: dict, x: Tensor, cache: dict, position: int,
                   cfg: ModelConfig) -> tuple[Tensor, dict]:
     h = apply_norm(cfg.norm, p["ln1"], x)
-    if kind == "mamba2":
-        y, cache = ssm.mamba2_step(p["mix"], h, cache, cfg.ssm_state, cfg.ssm_headdim,
-                                   cfg.ssm_expand)
-        return x + y, cache
-    if kind == "mlstm":
-        y, cache = ssm.mlstm_step(p["mix"], h, cache, cfg.n_heads, cfg.xlstm_expand)
-        return x + y, cache
-    if kind == "slstm":
-        y, cache = ssm.slstm_step(p["mix"], h, cache, cfg.n_heads)
+    if kind in _SSM_KINDS:
+        step, args = _mix_step(kind, cfg)
+        if isinstance(next(iter(cache.values())), DTensor):  # placed by the cache specs
+            y, cache = ssm.placed_step(step, p["mix"], h, cache, *args)
+        else:
+            y, cache = step(p["mix"], h, cache, *args)
         return x + y, cache
     if kind == "cross_dense":
         return _decode_cross(p, x, h, cache, position, cfg), cache
@@ -481,12 +504,8 @@ def _decode_cross(p: dict, x: Tensor, h: Tensor, cache: dict, position: int,
     a, _ = attn.decode_attention(p["attn"], h, cache["self"], position, cfg)
     x = x + a
     h = apply_norm(cfg.norm, p["ln_x"], x)
-    b, enc_len = x.shape[0], cache["cross_k"].shape[1]
-    q = torch.einsum("bsd,dhk->bshk", h, p["xattn"]["wq"].to(h.dtype))
-    mask = attn.build_mask(torch.full((b, 1), position, dtype=torch.int32, device=x.device),
-                           _positions(b, enc_len, x.device), "bidirectional")
-    o = attn.dense_attention(q, cache["cross_k"].to(h.dtype), cache["cross_v"].to(h.dtype), mask)
-    x = x + torch.einsum("bshk,hkd->bsd", o, p["xattn"]["wo"].to(h.dtype))
+    x = x + attn.cross_decode_attention(p["xattn"], h, cache["cross_k"], cache["cross_v"],
+                                        position)
     return x + apply_mlp(p["mlp"], apply_norm(cfg.norm, p["ln2"], x), cfg.mlp_style)
 
 

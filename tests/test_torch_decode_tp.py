@@ -39,9 +39,9 @@ start together. The tests read both:
     JAX ``make_prefill`` and ``make_decode_step`` with that policy;
   * ``launch.serve.prefill_with_caches`` with a policy and a mesh replays
     through the placed step on caches that each rank makes as its own
-    shard (``steps.init_placed_caches``), equal to the whole caches placed;
-  * a placed decode of a config with other blocks (zamba2) raises
-    ``NotImplementedError`` naming ROADMAP item 4(d).
+    shard (``steps.init_placed_caches``), equal to the whole caches placed.
+The other block kinds' placed decode: ``tests/test_torch_moe_mla_tp.py`` and
+``tests/test_torch_hybrid_tp.py``.
 """
 
 import os
@@ -260,15 +260,6 @@ for name, (arch, data, model, batch) in T.DECODE_CASES.items():
             "logits": gather_tree(logits).numpy(),
             "pos": {{p: c.numpy() for p, c in flatten_with_paths(gather_tree(caches))
                      if p.endswith("pos")}}}}
-
-# a placed decode of other blocks raises
-zcfg = T.smoke("zamba2-1.2b")
-for make in (lambda: steps.make_decode_step(zcfg, "cpu", make_policy(zcfg, mesh), mesh, 2, 8),
-             lambda: steps.init_placed_caches(zcfg, make_policy(zcfg, mesh), mesh, 2, 8)):
-    try:
-        make()
-    except NotImplementedError as e:
-        out.setdefault("non_dense", []).append(str(e))
 dist.destroy_process_group()
 with open(os.path.join(out_dir, f"rank{{rank}}.pkl"), "wb") as f:
     pickle.dump(out, f)
@@ -684,8 +675,3 @@ def test_serve_replay_on_placed_caches(world, name, cache):
                 slots[t % pos.shape[1]] = t
             assert pos.shape[1] in (16, n) and (pos == slots).all()
 
-
-def test_placed_decode_of_other_blocks_raises(world):
-    for out in world:
-        assert len(out["non_dense"]) == 2  # make_decode_step and init_placed_caches
-        assert all("ROADMAP Queue 1 item 4(d)" in e for e in out["non_dense"])
