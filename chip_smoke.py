@@ -194,6 +194,26 @@ JAX or of the JAX package. No phase's failure is caught.
      its local ``[1, 4608, 16, 80]``; the logits gathered on rank 0 against
      phase 3's kernel-path logits within ``PREFILL_TOL``, the argmax
      agreement printed, and each rank's prefill seconds beside phase 3's.
+     (c) The production meshes' layout in the same world: the multi-pod mesh
+     cut to 4 ranks (``launch.mesh.lay_out_mesh``, a ``DeviceMesh`` with dims
+     ``("pod", "data", "model")`` whose gradient group is ``("pod", "data")``
+     flattened) and ``flat_dp`` (the whole mesh data parallel). (c1)
+     bert-large as (a) through ``launch.train.main --mesh multi``, its
+     ``make_production_mesh`` cut to ``(pod 2, data 1, model 2)`` with
+     ``xla``, ``lumorph4`` and ``lumorph2 --compress`` (each final loss held
+     within 1e-6 relative of (a)'s run of the same flags, bit-equality
+     printed), to ``(2, 2, 1)`` with ``xla`` and ``lumorph4`` (within 1e-6 of
+     the same flags on 4 virtual ranks, phase 15's layout, run here first),
+     and under ``flat_dp`` on ``(data 2, model 2)`` with ``xla`` and
+     ``lumorph4`` (within 1e-4 of the same); per rank the final loss,
+     ``step_s``, the communication's seconds, the peak memory and the local
+     shape of one moment leaf (a quarter of it under ``xla``); the int8
+     kernels launched in every rank under ``--compress``. (c2) danube as (b)
+     at ``(2, 1, 2)``, its batch over pod (24 launches per prefill in every
+     rank on ``[1, 4608, 16, 80]``, the logits within ``PREFILL_TOL`` of phase
+     3's), and its placed decode at ``(2, 2, 1)``, batch 1, 8 + 8 in fp32, the
+     KV sequence over ``("pod", "data")``, fed the tokens of the same decode in
+     this one process and held to its logits within 1e-4 at every step.
  17. The rest of the model axis for the dense decoder: a third world of 4
      rank processes on this card over gloo (``python3 chip_smoke.py
      --decode-rank DIR``), after phase 16's. (a) The decode with every cache
@@ -423,7 +443,7 @@ HOST_STAGED = ("gloo, host-staged: each payload goes card -> host -> gloo -> hos
 # phase 16: the model axis, 4 ranks on this card over gloo as data 2 x model 2; its
 # training runs held to the same flags on 2 virtual ranks (model 1), its prefills to
 # phase 3's kernel-path logits
-TP_DATA, TP_STEPS, TP_TIMEOUT_S = 2, 4, 420
+TP_DATA, TP_STEPS, TP_TIMEOUT_S = 2, 2, 480
 TP_TRAIN = ["--arch", "bert-large", "--data-parallel", str(TP_DATA), "--batch", "8",
             "--seq", "128", "--steps", str(TP_STEPS), "--log-every", "100"]
 TP_TRAIN_RUNS = [("xla", ["--comm", "xla", "--wire-dtype", "float32"], 1e-4),
@@ -434,6 +454,30 @@ TP_LAYERS = 24  # flash launches per prefill in each rank: one per layer
 TP_LOCAL_Q, TP_LOCAL_KV = [1, 4608, 16, 80], [1, 4608, 4, 80]  # each rank's heads
 TP_DIR = ROOT / "build" / "chip_smoke_tp"  # gitignored; the ranks' results and logits
 PHASE3_LOGITS: dict = {}  # phase 3's kernel-path logits, on the host, for phase 16
+# phase 16(c): the production meshes' layout in phase 16's world. (c1) bert-large as
+# phase 16(a) on the multi-pod mesh cut to 4 ranks (launch.train.main --mesh multi, its
+# make_production_mesh cut so) and under flat_dp ((data 2, model 2), the data entry
+# ("data", "model")): name -> (mesh, comm of TP_TRAIN_RUNS, reference, relative limit).
+# "tp": phase 16(a)'s run of the same flags (data 2 x model 2, this world); "dp4": the
+# same flags on 4 virtual ranks, phase 15's layout, run here first at TP_STEPS
+POD_AXES = ("pod", "data", "model")
+POD_TRAIN_RUNS = {"212/xla": ((2, 1, 2), "xla", "tp", 1e-6),
+                  "212/lumorph4": ((2, 1, 2), "lumorph4", "tp", 1e-6),
+                  "212/lumorph2+int8": ((2, 1, 2), "lumorph2+int8", "tp", 1e-6),
+                  "221/xla": ((2, 2, 1), "xla", "dp4", 1e-6),
+                  "221/lumorph4": ((2, 2, 1), "lumorph4", "dp4", 1e-6),
+                  "flat/xla": ("flat", "xla", "dp4", 1e-4),
+                  "flat/lumorph4": ("flat", "lumorph4", "dp4", 1e-4)}
+_DP = TP_TRAIN.index("--data-parallel")
+POD_TRAIN = TP_TRAIN[:_DP] + TP_TRAIN[_DP + 2:]  # TP_TRAIN without its --data-parallel
+POD_MOMENT = ("segments", 0, "mlp", "wi")  # the moment leaf whose local shape is printed
+# (c2) danube: the TP prefill as (b) at (pod 2, data 1, model 2), the batch over pod;
+# the placed decode at (pod 2, data 2, model 1), batch 1, 8 + 8 in fp32 (bf16 cache, as
+# phase 17's fp32 runs), the 16 slots over ("pod", "data") and the 8 KV heads whole
+POD_PREFILL_MESH, POD_DECODE_MESH = (2, 1, 2), (2, 2, 1)
+POD_DECODE = dict(batch=1, prompt=8, gen=8)
+POD_K_LOCAL = [1, 4, 8, 80]
+POD_REF_DIR = ROOT / "build" / "chip_smoke_pod_refs"  # gitignored; the decode reference
 # phase 17: the rest of the model axis for the dense decoder, a third 4-rank world on
 # this card over gloo. (a) decodes with every cache leaf placed by the policy's cache
 # specs, fed the one-process reference's tokens; name -> (arch, layers (None: all), data,
@@ -1063,11 +1107,11 @@ def timed_grad_comm(steps_lib, comm_s: list):
         steps_lib.record_function = span
 
 
-def rank_train(train, ops, runs, extra: list, zero3=None) -> dict:
+def rank_train(train, ops, runs, extra: list, zero3=None, flat_dp=False) -> dict:
     """Each of ``runs`` (name, flags, ...) through ``train.main`` in this rank's
-    process, under ``make_policy``'s ``zero3``: its result, the kernel
-    launches, the gradient communication's seconds per step and the peak
-    memory."""
+    process, under ``make_policy``'s ``zero3`` and ``flat_dp``: its result, the
+    kernel launches, the gradient communication's seconds per step and the
+    peak memory."""
     from repro_torch.launch import steps as steps_lib
     out, comm_s = {}, []
     with timed_grad_comm(steps_lib, comm_s):
@@ -1076,7 +1120,8 @@ def rank_train(train, ops, runs, extra: list, zero3=None) -> dict:
             for k in ops.LAUNCHES:
                 ops.LAUNCHES[k] = 0
             torch.cuda.reset_peak_memory_stats()
-            res = train.main(extra + flags + ["--dist-backend", "gloo"], zero3=zero3)
+            res = train.main(extra + flags + ["--dist-backend", "gloo"], zero3=zero3,
+                             flat_dp=flat_dp)
             torch.cuda.synchronize()
             out[name] = {**res, "launches": dict(ops.LAUNCHES),
                          "grad_comm_s": sum(comm_s) / res["steps"],
@@ -1131,18 +1176,35 @@ def dist_rank(out_dir: str) -> None:
     pathlib.Path(out_dir, f"rank{mesh.rank}.json").write_text(json.dumps(out))
 
 
-def phase_tp(train) -> dict:
+def phase_tp(train, get_config, tf, steps_lib) -> dict:
     """Phase 16: the model axis. (a)'s references, the same flags on 2 virtual
-    ranks with a model axis of 1, run here first; then one 4-rank gloo world
-    as data 2 × model 2 (``python3 chip_smoke.py --tp-rank DIR``), under a
-    timeout, any rank's failure failing the phase: (a) bert-large trained by
+    ranks with a model axis of 1, (c1)'s on 4 virtual ranks and (c2)'s decode
+    in this one process, run here first; then one 4-rank gloo world as data 2
+    × model 2 (``python3 chip_smoke.py --tp-rank DIR``), under a timeout, any
+    rank's failure failing the phase: (a) bert-large trained by
     ``launch.train.main`` with each of ``TP_TRAIN_RUNS``; (b) danube's TP
-    prefills, rank 0's gathered logits held against phase 3's."""
-    refs = {}
+    prefills, rank 0's gathered logits held against phase 3's; (c) the
+    production meshes' layout (``phase_pod``)."""
+    refs, dp4 = {}, {}
     for name, flags, _ in TP_TRAIN_RUNS:
         refs[name] = train.main(TP_TRAIN + flags)
         torch.cuda.empty_cache()
+    for name in sorted({comm for _, comm, kind, _ in POD_TRAIN_RUNS.values() if kind == "dp4"}):
+        dp4[name] = train.main(POD_TRAIN + dict((n, f) for n, f, _ in TP_TRAIN_RUNS)[name]
+                               + ["--data-parallel", str(DIST_WORLD)])
+        torch.cuda.empty_cache()
+    dev = torch.device("cuda")
+    shutil.rmtree(POD_REF_DIR, ignore_errors=True)
+    POD_REF_DIR.mkdir(parents=True)
+    cfg = get_config("h2o-danube-1.8b").replace(compute_dtype="float32")
+    params = tf.init_params(torch.Generator(device=dev).manual_seed(0), cfg)
+    tokens, logits, tpot, _ = _decode_ref(steps_lib, tf, cfg, params, POD_DECODE["batch"],
+                                          POD_DECODE["prompt"], POD_DECODE["gen"])
+    torch.save({"tokens": tokens.cpu(), "logits": logits.cpu()}, POD_REF_DIR / "decode.pt")
+    del params, tokens, logits
+    torch.cuda.empty_cache()
     ranks = run_ranks("--tp-rank", TP_DIR, TP_TIMEOUT_S)
+    shutil.rmtree(POD_REF_DIR)
     out = {"wire": HOST_STAGED, "mesh": {"data": TP_DATA, "model": DIST_WORLD // TP_DATA},
            "train": {}, "prefill": {}}
     for name, flags, tol in TP_TRAIN_RUNS:  # (a)
@@ -1190,7 +1252,95 @@ def phase_tp(train) -> dict:
             assert x["shapes"] == [[TP_LOCAL_Q, TP_LOCAL_KV]], x
         del got, expect
         torch.cuda.empty_cache()
+    out["pod"] = phase_pod(ranks, out, dp4, tpot)
     shutil.rmtree(TP_DIR)
+    return out
+
+
+def phase_pod(ranks: list, tp: dict, dp4: dict, tpot_one_process: float) -> dict:
+    """Phase 16(c), held here from the ranks' results: (c1) each run of
+    ``POD_TRAIN_RUNS`` against its reference, the int8 kernels launched in
+    every rank under ``--compress``, the moment leaf's local shape (a quarter
+    of it under ``xla``); (c2) danube's prefill at ``(2, 1, 2)`` against phase
+    3's kernel-path logits, one flash launch per layer on each rank's own heads,
+    and the decode at ``(2, 2, 1)`` against this process's, every step."""
+    out = {"wire": HOST_STAGED, "train": {}, "prefill": {}}
+    flags_of = {n: f for n, f, _ in TP_TRAIN_RUNS}
+    for name, (mesh, comm, kind, tol) in POD_TRAIN_RUNS.items():  # (c1)
+        per = [rk["pod"]["train"][name] for rk in ranks]
+        ref = (tp["train"][comm] if kind == "tp" else dp4[comm])["final_loss"]
+        res = {"mesh": {"pod": 2, "data": mesh[1], "model": mesh[2]} if mesh != "flat" else
+               {"data": 2, "model": 2, "flat_dp": True}, "comm": comm,
+               **{k: per[0][k] for k in ("final_loss", "first_loss", "steps", "world",
+                                           "dist_backend", "data", "model")},
+               "reference": "phase 16(a), data 2 x model 2" if kind == "tp" else
+               "4 virtual ranks, phase 15's layout", "reference_final_loss": ref,
+               "rel_to_reference": abs(per[0]["final_loss"] - ref) / abs(ref),
+               "bit_equal_to_reference": per[0]["final_loss"] == ref, "tol": tol,
+               "final_loss_per_rank": [x["final_loss"] for x in per],
+               "step_s_gloo_host_staged": [x["step_s"] for x in per],
+               "grad_comm_s_gloo_host_staged": [x["grad_comm_s"] for x in per],
+               "peak_gb_per_rank_gloo_host_staged": [x["peak_gb"] for x in per],
+               "moment_local_shape_per_rank": [x["moment_local"] for x in per],
+               "launches_per_rank": [x["launches"] for x in per]}
+        out["train"][name] = res
+        print(json.dumps({"pod_train": name, **res}), flush=True)
+        assert all(x["final_loss"] == per[0]["final_loss"] for x in per), name
+        assert math.isfinite(per[0]["final_loss"]), name
+        assert res["steps"] == TP_STEPS and res["world"] == DIST_WORLD, res
+        assert res["dist_backend"] == "gloo", res
+        assert (res["data"], res["model"]) == ((4, 2) if mesh == "flat" else
+                                               (2 * mesh[1], mesh[2])), res
+        assert all(x.get("pod", 1) == (1 if mesh == "flat" else 2) for x in per), res
+        assert res["rel_to_reference"] <= tol, res
+        if comm == "xla":  # ZeRO-1: the moments split over the data axes, a quarter each
+            assert all(4 * math.prod(x["moment_local"]) == x["moment_numel"] for x in per), res
+        if "--compress" in flags_of[comm]:
+            for x in per:  # the int8 kernels ran in every rank's process
+                assert x["launches"]["quantize_int8"] > 0, x
+                assert x["launches"]["dequantize_int8"] > 0, x
+    dev = torch.device("cuda")
+    for dtype in ("float32", "bfloat16"):  # (c2) the prefill
+        per = [rk["pod"]["prefill"][dtype] for rk in ranks]
+        got = torch.load(TP_DIR / f"pod_logits_{dtype}.pt").to(dev)
+        expect = PHASE3_LOGITS[dtype].to(dev)
+        assert got.shape == expect.shape and got.dtype == expect.dtype, (got.shape, expect.shape)
+        assert torch.isfinite(got).all()
+        res = {"mesh": dict(zip(POD_AXES, POD_PREFILL_MESH)),
+               "rel_max_err_to_phase3_kernel": _rel(got, expect), "tol": PREFILL_TOL[dtype],
+               "argmax_agree_to_phase3_kernel": _agree(got, expect),
+               "launches_per_rank": [x["launches"] for x in per],
+               "local_shapes_per_rank": [x["shapes"] for x in per],
+               "prefill_s_per_rank_gloo_host_staged": [x["s"] for x in per]}
+        out["prefill"][dtype] = res
+        print(json.dumps({"pod_prefill": dtype, **res}), flush=True)
+        assert res["rel_max_err_to_phase3_kernel"] <= PREFILL_TOL[dtype], res
+        for x in per:  # one launch per layer, on the rank's rows and heads
+            assert x["launches"] == TP_LAYERS, x
+            assert x["shapes"] == [[TP_LOCAL_Q, TP_LOCAL_KV]], x
+        del got, expect
+        torch.cuda.empty_cache()
+    per = [rk["pod"]["decode"] for rk in ranks]  # (c2) the decode
+    res = {"mesh": dict(zip(POD_AXES, POD_DECODE_MESH)), **POD_DECODE,
+           "compute_dtype": "float32", "kv_cache": "bfloat16", "tol": DEC_TOL["float32"],
+           "steps_compared": per[0]["steps"], "rel_max_err_per_rank": [x["rel"] for x in per],
+           "greedy_agree_per_rank": [x["agree"] for x in per],
+           "k_local_per_rank": [x["local"]["k"] for x in per],
+           "k_placements_per_rank": [x["k_placements"] for x in per],
+           "cache_shapes_as_spec_per_rank": [x["shapes_ok"] for x in per],
+           "flash_launches_per_rank": [x["launches"]["flash_attention"] for x in per],
+           "tpot_s_per_rank_gloo_host_staged": [x["tpot_s"] for x in per],
+           "tpot_s_one_process": tpot_one_process,
+           "peak_gb_per_rank": [x["peak_gb"] for x in per]}
+    out["decode"] = res
+    print(json.dumps({"pod_decode": "danube_221_b1_fp32", **res}), flush=True)
+    assert all(x["steps"] == POD_DECODE["gen"] + 1 and x["finite"] for x in per), res
+    assert max(res["rel_max_err_per_rank"]) <= DEC_TOL["float32"], res
+    assert all(res["cache_shapes_as_spec_per_rank"]), res
+    assert all(k == POD_K_LOCAL for k in res["k_local_per_rank"]), res
+    assert all(p == "(Shard(dim=1), Shard(dim=1), Shard(dim=2))"
+               for p in res["k_placements_per_rank"]), res  # the slots over pod and data
+    assert res["flash_launches_per_rank"] == [0] * DIST_WORLD, res  # decode is dense
     return out
 
 
@@ -1247,9 +1397,102 @@ def tp_rank(out_dir: str) -> None:
         torch.cuda.empty_cache()
     ops.flash_attention = counted
     out["prefill_peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    del placed
+    torch.cuda.empty_cache()
+    out["pod"] = pod_rank(world, train, ops, cfg, tokens, out_dir)  # (c)
     dist.barrier()
     dist.destroy_process_group()
     pathlib.Path(out_dir, f"rank{mesh.rank}.json").write_text(json.dumps(out))
+
+
+def pod_rank(world, train, ops, cfg, tokens, out_dir: str) -> dict:
+    """Phase 16(c) in a rank of phase 16's world: (c1) bert-large with each of
+    ``POD_TRAIN_RUNS`` through ``launch.train.main`` (``--mesh multi`` with the
+    multi-pod mesh cut to 4 ranks, or ``flat_dp``), each run's moment leaf's
+    local shape recorded; (c2) danube's prefills at ``POD_PREFILL_MESH`` (rank
+    0's gathered logits written beside the results) and its placed decode at
+    ``POD_DECODE_MESH``, fed the reference's tokens."""
+    import torch.distributed as dist
+    from repro_torch.launch import steps as steps_lib
+    from repro_torch.launch.mesh import lay_out_mesh
+    from repro_torch.models import transformer as tf
+    from repro_torch.sharding.policy import MeshShape, distribute_tree, gather_tree, make_policy
+    out = {"train": {}, "prefill": {}}
+    flags_of = {n: f for n, f, _ in TP_TRAIN_RUNS}
+    init, made, moment = steps_lib.init_train_state, train.make_production_mesh, []
+
+    def recorded(*a, **k):  # the moment leaf's local shape, as the trainer places it
+        params, opt = init(*a, **k)
+        leaf = opt["m"]
+        for key in POD_MOMENT:
+            leaf = leaf[key]
+        moment.append([list(leaf.to_local().shape), math.prod(leaf.shape)])
+        return params, opt
+    steps_lib.init_train_state = recorded
+    try:
+        for name, (mesh, comm, _, _) in POD_TRAIN_RUNS.items():  # (c1)
+            if mesh == "flat":
+                extra = POD_TRAIN + ["--data-parallel", str(TP_DATA)]
+            else:
+                train.make_production_mesh = lambda multi_pod=False, m=mesh: MeshShape(POD_AXES,
+                                                                                       m)
+                extra = POD_TRAIN + ["--mesh", "multi"]
+            moment.clear()
+            res = rank_train(train, ops, [(name, flags_of[comm])], extra,
+                             flat_dp=mesh == "flat")[name]
+            train.make_production_mesh = made
+            out["train"][name] = {**res, "moment_local": moment[-1][0],
+                                  "moment_numel": moment[-1][1]}
+    finally:
+        steps_lib.init_train_state, train.make_production_mesh = init, made
+    dev = world.device
+    full = tf.init_params(torch.Generator(device=dev).manual_seed(0), cfg)  # (b)'s params
+    mesh = lay_out_mesh(world, MeshShape(POD_AXES, POD_PREFILL_MESH))
+    placed = distribute_tree(full, make_policy(cfg, mesh).param_specs(tf.param_shapes(cfg)),
+                             mesh.device_mesh)
+    shapes, counted = [], ops.flash_attention
+
+    def seen(q, k, v, **kw):
+        shapes.append([list(q.shape), list(k.shape)])
+        return counted(q, k, v, **kw)
+    ops.flash_attention = seen
+    for dtype in ("float32", "bfloat16"):  # (c2) the prefill, the batch over pod
+        c = cfg.replace(compute_dtype=dtype, use_pallas=True)
+        prefill = steps_lib.make_prefill(c, dev, make_policy(c, mesh), mesh)
+        ops.LAUNCHES["flash_attention"] = 0
+        shapes.clear()
+        dist.barrier()
+        logits, s = _timed(prefill, placed, {"tokens": tokens})
+        launches = ops.LAUNCHES["flash_attention"]
+        whole = gather_tree(logits)  # collective
+        if mesh.rank == 0:
+            torch.save(whole.cpu(), pathlib.Path(out_dir, f"pod_logits_{dtype}.pt"))
+        distinct = list(dict.fromkeys(json.dumps(sh) for sh in shapes))
+        out["prefill"][dtype] = {"s": s, "launches": launches,
+                                 "shapes": [json.loads(sh) for sh in distinct]}
+        del logits, whole
+        torch.cuda.empty_cache()
+    ops.flash_attention = counted
+    del placed
+    c = cfg.replace(compute_dtype="float32")  # (c2) the decode, the slots over pod and data
+    mesh = lay_out_mesh(world, MeshShape(POD_AXES, POD_DECODE_MESH))
+    policy = make_policy(c, mesh)
+    placed = distribute_tree(full, policy.param_specs(tf.param_shapes(c)), mesh.device_mesh)
+    del full  # whole over model 1: the rank keeps its own copy alone
+    torch.cuda.empty_cache()
+    for k in ops.LAUNCHES:
+        ops.LAUNCHES[k] = 0
+    ref = torch.load(POD_REF_DIR / "decode.pt")
+    res = _placed_decode_run(c, placed, policy, mesh, ref, POD_DECODE["batch"],
+                             POD_DECODE["prompt"], POD_DECODE["gen"])
+    caches = steps_lib.init_placed_caches(c, policy, mesh, POD_DECODE["batch"],
+                                          POD_DECODE["prompt"] + POD_DECODE["gen"])
+    out["decode"] = {**res, "launches": dict(ops.LAUNCHES),
+                     "k_placements": str(caches[0]["k"].placements)}
+    del placed, caches
+    torch.cuda.empty_cache()
+    return out
+
 
 
 def _dec_config(get_config, arch: str, layers):
@@ -3191,7 +3434,7 @@ def main() -> None:
     # -- phase 16: the model axis, data 2 x model 2 over gloo on this card -------
     t_phase = time.perf_counter()
     torch.cuda.empty_cache()
-    tp = phase_tp(train)
+    tp = phase_tp(train, get_config, tf, steps_lib)
     for dtype, res in tp["prefill"].items():
         res["phase3_kernel_prefill_s"] = prefill[dtype]["kernel_prefill_s"]
         print(json.dumps({"tp_prefill_s": dtype, "per_rank_gloo_host_staged":
@@ -3257,6 +3500,9 @@ def main() -> None:
                              "roofline_danube": roofline_launches["flash_attention"],
                              "tp_prefill_per_rank": {
                                  dt: r["launches_per_rank"] for dt, r in tp["prefill"].items()},
+                             "pod_mesh_prefill_per_rank": {
+                                 dt: r["launches_per_rank"]
+                                 for dt, r in tp["pod"]["prefill"].items()},
                              "moe_mla_tp_prefill_per_rank": {
                                  k: r["flash_launches_per_rank"]
                                  for k, r in moe_mla["prefill"].items()},
@@ -3280,6 +3526,9 @@ def main() -> None:
                                          "launches_per_rank"]],
                                  "zero3_per_rank": [
                                      x[name] for x in rest["zero3"]["lumorph2+int8"][
+                                         "launches_per_rank"]],
+                                 "pod_mesh_per_rank": [
+                                     x[name] for x in tp["pod"]["train"]["212/lumorph2+int8"][
                                          "launches_per_rank"]]},
             "max_abs_err": max(c["max_abs_err"] for c in int8["checks"]),
             "ms": t[BUCKET_N]["ms"], "plain_ms": t[BUCKET_N]["plain_ms"],

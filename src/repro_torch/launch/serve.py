@@ -37,12 +37,12 @@ def prefill_with_caches(params, batch, cfg, max_len: int, device: torch.device,
 
     (Production would fuse this; token replay is exact and reuses the
     decode path, as the JAX launcher does.) With a ``policy`` and a process
-    ``mesh`` with a model axis it replays through the placed decode step
+    ``mesh`` that places the leaves (``steps.placed``) it replays through the placed decode step
     (``steps.make_decode_step`` with them) on caches placed by the policy's
     cache specs, each rank making only its own shard
     (``steps.init_placed_caches``), and returns them placed."""
     b, s = batch["tokens"].shape
-    if getattr(mesh, "model", 1) > 1:
+    if steps_lib.placed(mesh):
         step = steps_lib.make_decode_step(cfg, device, policy, mesh, b, max_len)
         caches = steps_lib.init_placed_caches(cfg, policy, mesh, b, max_len)
     else:

@@ -3,12 +3,16 @@
 The twin of ``repro.launch.steps``. Every step runs eagerly. On virtual
 ranks and on a process mesh with a model axis of 1 the sharding policy
 (``sharding.policy``) is checked by the launchers but places nothing. On a
-process mesh with a model axis (``launch.mesh.split_model_axis``) every
-parameter, optimizer, batch and cache leaf is a DTensor placed by the
-policy's spec: TP over ``model``, ZeRO-1 moments over ``data`` under
-``comm="xla"``, and under a ZeRO-3 policy the params over ``data`` too.
-The step then runs as the JAX LUMORPH step's ``shard_map`` does, manual over
-the data axis and automatic over the model axis: each data rank runs the
+process mesh that holds a ``DeviceMesh`` (:func:`placed`: a model axis, a pod
+axis or ``flat_dp``, ``launch.mesh.lay_out_mesh``) every parameter,
+optimizer, batch and cache leaf is a DTensor placed by the policy's spec: TP
+over ``model``, ZeRO-1 moments over the data axes (``("pod", "data")`` on the
+multi-pod mesh, ``("data", "model")`` under ``flat_dp``) under
+``comm="xla"``, and under a ZeRO-3 policy the params over them too. Every
+placement is read by its mesh dim's name. The step then runs as the JAX
+LUMORPH step's ``shard_map`` does, manual over the data axes and automatic
+over the model axis (under ``flat_dp`` manual over both, TP 1), the
+gradients reduced over the data axes' flattened group: each data rank runs the
 forward and backward on its own rows with the params as DTensors on its
 model group, a ZeRO-3 param gathered over data first (DTensor's sharding
 propagation inserts the tensor-parallel collectives,
@@ -69,8 +73,9 @@ from repro_torch.models import moe as moe_lib
 from repro_torch.models import transformer as tf
 from repro_torch.optim import grad_comm
 from repro_torch.optim.adamw import AdamWConfig, adamw_update, init_opt_state
-from repro_torch.sharding.policy import (distribute_tree, gather_data, local_offsets, place,
-                                        place_filled, place_like, redistribute, replicated)
+from repro_torch.sharding.policy import (data_dims, distribute_tree, gather_data, local_offsets,
+                                        place, place_filled, place_like, redistribute,
+                                        replicated)
 from repro_torch.tree import leaves, tree_map, unflatten
 
 Tree = Any
@@ -160,7 +165,7 @@ def init_train_state(cfg: ModelConfig, dp: int, seed: int = 0,
     data; the error-feedback buffers follow the param specs."""
     dev = resolve_device(device)
     one = tf.init_params(torch.Generator(device=dev).manual_seed(seed), cfg)
-    if _model_axis(mesh):
+    if placed(mesh):
         return _placed_state(cfg, one, policy, mesh, init_ef, comm)
     if group is not None:
         _check_replicas(one, group)
@@ -175,8 +180,16 @@ def init_train_state(cfg: ModelConfig, dp: int, seed: int = 0,
     return params, opt
 
 
-def _model_axis(mesh) -> bool:
-    return getattr(mesh, "model", 1) > 1
+def placed(mesh) -> bool:
+    """Whether the steps run placed: on a process mesh that holds a
+    ``DeviceMesh`` (a model axis, a pod axis or ``flat_dp``)."""
+    return getattr(mesh, "device_mesh", None) is not None
+
+
+def _check_mesh(policy, mesh) -> None:
+    if policy is None or bool(policy.flat_dp) != bool(getattr(mesh, "flat_dp", False)):
+        raise ValueError("a placed step needs the policy of its mesh: flat_dp on both or "
+                         "on neither (launch.mesh.lay_out_mesh)")
 
 
 def _placed_state(cfg: ModelConfig, full: Tree, policy, mesh, init_ef: bool,
@@ -246,11 +259,12 @@ def make_train_step(cfg: ModelConfig, opt_cfg: Optional[AdamWConfig] = None,
     bucket's collective as that many chunked waves (overlap mode).
     After each call ``step.bucket_log`` holds the last (bytes, algo) log.
 
-    On a process ``mesh`` with a model axis (``group`` is then its data
-    group, of ``dp`` ranks), the state is :func:`init_train_state`'s placed
-    one and ``policy`` gives the batch specs: the batch is ``Shard(0)`` on
-    data and replicated on model. ``comm="xla"`` reduces the gradients over
-    the data group with ``dist.all_reduce``, as GSPMD's psum; the LUMORPH
+    On a process ``mesh`` that places the leaves (:func:`placed`; ``group``
+    is then its gradient group, the data axes flattened, of ``dp`` ranks),
+    the state is :func:`init_train_state`'s placed one and ``policy`` gives
+    the batch specs: the batch is ``Shard(0)`` on the data axes and
+    replicated on model. ``comm="xla"`` reduces the gradients over the data
+    group with ``dist.all_reduce``, as GSPMD's psum; the LUMORPH
     comms bucket the global gradient and reduce each rank's model shard of
     every bucket over its data group. Under a ZeRO-3 policy every param is
     gathered over its data group for the forward; ``xla`` keeps the params
@@ -274,7 +288,10 @@ def make_train_step(cfg: ModelConfig, opt_cfg: Optional[AdamWConfig] = None,
     opt_cfg = opt_cfg or AdamWConfig()
     dev = resolve_device(device)
 
-    model_axis = _model_axis(mesh)
+    on_mesh = placed(mesh)
+    if on_mesh:
+        _check_mesh(policy, mesh)
+        data_axes, flat = policy.axes.data, policy.flat_dp
     # JAX's xla step is one program over the global batch, whose MoE balance loss counts
     # every data rank's rows; the LUMORPH comms' per-rank program counts each rank's own
     global_balance = comm == "xla" and dp > 1 and any(k in ("moe", "mla_moe")
@@ -313,7 +330,7 @@ def make_train_step(cfg: ModelConfig, opt_cfg: Optional[AdamWConfig] = None,
         if relay:
             order = microbatch_order(b, dp, microbatches).to(dev)
             batch = {k: v[order] for k, v in batch.items()}
-        if model_axis:
+        if on_mesh:
             return placed_step(params, opt_state, batch)
         with record_function("train/forward_backward"):
             if group is not None:
@@ -377,16 +394,18 @@ def make_train_step(cfg: ModelConfig, opt_cfg: Optional[AdamWConfig] = None,
         dm = mesh.device_mesh
         batch = distribute_tree(batch, policy.batch_specs(batch), dm)
         if comm != "xla":  # JAX's shard_map takes the state replicated over data (rep)
-            params, opt_state = tree_map(gather_data, (params, opt_state))
+            params, opt_state = tree_map(lambda t: gather_data(t, data_axes),
+                                         (params, opt_state))
         plist = leaves(params)
         with record_function("train/forward_backward"):
             # manual over data: this data rank's rows, and every leaf on the model group
-            p_m = unflatten(params, [param_on_model(p).detach().requires_grad_()
-                                     for p in plist])
+            p_m = unflatten(params, [param_on_model(p, data_axes, flat).detach()
+                                     .requires_grad_() for p in plist])
             # the positions, masks and constants the model makes enter replicated
             with implicit_replication(), moe_lib.balance_over(balance):
-                loss_r, grads = grad_fn(p_m, {k: on_model(v) for k, v in batch.items()})
-            grads = [redistribute(g, [p.placements[1]]).to_local() for g, p in zip(grads, plist)]
+                loss_r, grads = grad_fn(p_m, {k: on_model(v, flat) for k, v in batch.items()})
+            grads = [redistribute(g, [model_placement(p, flat)]).to_local()
+                     for g, p in zip(grads, plist)]
             losses = collectives_dist.Wire(group).all_gather(loss_r.to_local())
             loss = torch.stack(losses).sum() / dp
         new_ef = None
@@ -400,8 +419,9 @@ def make_train_step(cfg: ModelConfig, opt_cfg: Optional[AdamWConfig] = None,
                 if compress:
                     # JAX's shard_map body quantizes the global leaves' 256-element blocks:
                     # each rank reduces its model group's whole leaves, as at model 1
-                    grads, shards = [_whole_over_model(g, p) for g, p in zip(grads, plist)], None
-                    ef = None if ef is None else [_whole_over_model(e, p)
+                    grads, shards = [_whole_over_model(g, p, flat)
+                                     for g, p in zip(grads, plist)], None
+                    ef = None if ef is None else [_whole_over_model(e, p, flat)
                                                   for e, p in zip(ef, plist)]
                 red, new_ef, step.bucket_log = grad_comm.all_reduce_grads(
                     unflatten(params, grads), algo=comm, bucket_bytes=bucket_bytes,
@@ -416,9 +436,10 @@ def make_train_step(cfg: ModelConfig, opt_cfg: Optional[AdamWConfig] = None,
                                                     zip(leaves(new_ef), plist)])
         # whole over data: adamw_update takes the norm as without ZeRO-3, then keeps
         # this rank's data shard of each (the moments' placement), a local slice
-        grads = unflatten(params, [DTensor.from_local(g, dm, [Replicate(), p.placements[1]],
-                                                      run_check=False)
-                                   for g, p in zip(grads, plist)])
+        data = data_dims(dm, data_axes)
+        grads = unflatten(params, [DTensor.from_local(
+            g, dm, [Replicate() if i in data else pl for i, pl in enumerate(p.placements)],
+            run_check=False) for g, p in zip(grads, plist)])
         core = {k: v for k, v in opt_state.items() if k != "ef"}
         with record_function("train/adamw"):
             params, core = adamw_update(params, grads, core, opt_cfg)
@@ -442,26 +463,52 @@ def microbatch_order(b: int, dp: int, microbatches: int) -> torch.Tensor:
     return torch.arange(b).reshape(microbatches, dp, -1).transpose(0, 1).flatten()
 
 
-def on_model(t: DTensor) -> DTensor:
-    """A leaf of the ``(data, model)`` mesh as a DTensor on this rank's model
-    group, its local tensor unchanged: this data rank's own copy (a param
-    replicated over data) or rows (a batch sharded over data)."""
-    dm = t.device_mesh
-    return DTensor.from_local(t.to_local(), dm["model"], [t.placements[1]], run_check=False)
+def model_placement(t: DTensor, flat_dp: bool = False):
+    """``t``'s placement on the ``"model"`` mesh dim, read by name: its
+    tensor-parallel split. Under ``flat_dp`` the model axis carries data and
+    TP is 1, so the step sees every leaf whole there: ``Replicate()``."""
+    if flat_dp:
+        return Replicate()
+    return t.placements[t.device_mesh.mesh_dim_names.index("model")]
 
 
-def param_on_model(t: DTensor) -> DTensor:
-    """A param on this rank's model group, whole over data: a ZeRO-3 leaf is
-    gathered over the data group first (``sharding.policy.gather_data``)."""
-    return on_model(gather_data(t))
+def on_model(t: DTensor, flat_dp: bool = False) -> DTensor:
+    """A leaf of the process mesh as a DTensor on this rank's model group, its
+    local tensor unchanged: this data rank's own copy (a param replicated
+    over the data axes) or rows (a batch sharded over them). Under
+    ``flat_dp`` the model group splits only data, so each rank's rows and
+    whole params are ``Replicate()`` there, and no op on it moves a byte:
+    the step is manual over every mesh dim, as JAX's ``shard_map`` over
+    ``("data", "model")``."""
+    return DTensor.from_local(t.to_local(), t.device_mesh["model"],
+                              [model_placement(t, flat_dp)], run_check=False)
 
 
-def _whole_over_model(local: torch.Tensor, like: DTensor) -> torch.Tensor:
+def param_on_model(t: DTensor, data_axes: Optional[tuple[str, ...]] = None,
+                   flat_dp: bool = False) -> DTensor:
+    """A param on this rank's model group, whole over the data axes: a ZeRO-3
+    leaf is gathered over them first (``sharding.policy.gather_data``)."""
+    return on_model(gather_data(t, data_axes), flat_dp)
+
+
+def _whole_over_model(local: torch.Tensor, like: DTensor, flat_dp: bool) -> torch.Tensor:
     """The whole leaf over the model group of ``local``, this rank's model
     shard of a leaf placed as ``like`` (whole over data)."""
-    dm = like.device_mesh
-    return replicated(DTensor.from_local(local, dm["model"], [like.placements[1]],
+    pl = model_placement(like, flat_dp)
+    if not pl.is_shard():
+        return local
+    return replicated(DTensor.from_local(local, like.device_mesh["model"], [pl],
                                          run_check=False)).to_local()
+
+
+def _over_mesh(local: torch.Tensor, data_like: DTensor, model_pl, data_axes) -> DTensor:
+    """``local`` as a DTensor on ``data_like``'s mesh: placed as ``data_like``
+    on the data axes (the rows of a batch) and as ``model_pl`` on the model
+    dim, where that is not a data axis."""
+    dm = data_like.device_mesh
+    return DTensor.from_local(local, dm, [pl if name in data_axes else model_pl for name, pl in
+                                          zip(dm.mesh_dim_names, data_like.placements)],
+                              run_check=False)
 
 
 def _shard_of(t: DTensor) -> grad_comm.Shard:
@@ -487,7 +534,7 @@ def make_prefill(cfg: ModelConfig, device: Optional[torch.device] = None,
     as a DTensor on the mesh (vocab-sharded where ``lm_head`` is);
     ``full_tensor()``, collective, gathers them."""
     dev = resolve_device(device)
-    if _model_axis(mesh):
+    if placed(mesh):
         return _placed_prefill(cfg, policy, mesh)
 
     @torch.inference_mode()
@@ -500,7 +547,8 @@ def make_prefill(cfg: ModelConfig, device: Optional[torch.device] = None,
 
 
 def _placed_prefill(cfg: ModelConfig, policy, mesh) -> Callable:
-    dm = mesh.device_mesh
+    _check_mesh(policy, mesh)
+    dm, axes, flat = mesh.device_mesh, policy.axes.data, policy.flat_dp
     p_specs = policy.param_specs(tf.param_shapes(cfg))
 
     @torch.no_grad()  # not inference mode: DTensor views of placed params need versions
@@ -510,11 +558,10 @@ def _placed_prefill(cfg: ModelConfig, policy, mesh) -> Callable:
         batch = {k: v.to(mesh.device) for k, v in batch.items()}
         batch = distribute_tree(batch, policy.batch_specs(batch), dm)
         with implicit_replication():
-            logits, _ = tf.forward_logits(tree_map(param_on_model, params),
-                                          {k: on_model(v) for k, v in batch.items()}, cfg)
-        data = batch["tokens"].placements[0]
-        return DTensor.from_local(logits.to_local(), dm, [data, logits.placements[0]],
-                                  run_check=False)
+            logits, _ = tf.forward_logits(
+                tree_map(lambda t: param_on_model(t, axes, flat), params),
+                {k: on_model(v, flat) for k, v in batch.items()}, cfg)
+        return _over_mesh(logits.to_local(), batch["tokens"], logits.placements[0], axes)
 
     return prefill
 
@@ -530,12 +577,13 @@ def make_encode(cfg: ModelConfig, device: Optional[torch.device] = None,
     attention); ``enc_out`` comes back a DTensor on the mesh, its rows over
     data as the frames' batch spec splits them and whole over model."""
     dev = resolve_device(device)
-    if not _model_axis(mesh):
+    if not placed(mesh):
         @torch.inference_mode()
         def encode(params, frames):
             return tf.encoder_forward(params["encoder"], frames.to(dev), cfg)
         return encode
-    dm = mesh.device_mesh
+    _check_mesh(policy, mesh)
+    dm, axes, flat = mesh.device_mesh, policy.axes.data, policy.flat_dp
     p_specs = policy.param_specs(tf.param_shapes(cfg))
 
     @torch.no_grad()
@@ -545,10 +593,10 @@ def make_encode(cfg: ModelConfig, device: Optional[torch.device] = None,
         frames = place(frames.to(mesh.device), policy.batch_spec("frames", tuple(frames.shape)),
                        dm)
         with implicit_replication():
-            out = tf.encoder_forward(tree_map(param_on_model, params["encoder"]),
-                                     on_model(frames), cfg)
-        return DTensor.from_local(out.to_local(), dm, [frames.placements[0], out.placements[0]],
-                                  run_check=False)
+            out = tf.encoder_forward(
+                tree_map(lambda t: param_on_model(t, axes, flat), params["encoder"]),
+                on_model(frames, flat), cfg)
+        return _over_mesh(out.to_local(), frames, out.placements[0], axes)
 
     return encode
 
@@ -563,15 +611,16 @@ def make_decode_step(cfg: ModelConfig, device: Optional[torch.device] = None,
     on its mesh: the params are placed by ``policy``'s param specs and the
     caches (of ``batch`` rows and ``max_len`` positions) by its cache specs,
     whole tensors on the way in and placed ones kept as they are
-    (:func:`init_placed_caches` makes them placed). The tokens are
-    ``Shard(0)`` on data where the batch splits, and each data rank decodes
-    its rows on its model group: ZeRO-3 params gathered over data, every
+    (:func:`init_placed_caches` makes them placed). The tokens are split
+    over the data axes as the caches' rows are (also where ``replicate_batch``
+    replicates the batch's spec), and each data rank decodes its rows on its
+    model group: ZeRO-3 params gathered over data, every
     attention on its own heads and slots
     (:func:`repro_torch.models.attention.placed_decode_attention`). The
     caches come back placed, the logits as a DTensor on the mesh
     (vocab-sharded where ``lm_head`` is)."""
     dev = resolve_device(device)
-    if _model_axis(mesh):
+    if placed(mesh):
         return _placed_decode(cfg, policy, mesh, batch, max_len)
 
     @torch.inference_mode()
@@ -609,10 +658,12 @@ def _placed_decode(cfg: ModelConfig, policy, mesh, batch: Optional[int],
                    max_len: Optional[int]) -> Callable:
     if batch is None or max_len is None:
         raise ValueError("a placed decode step needs the caches' batch and max_len")
-    dm = mesh.device_mesh
+    _check_mesh(policy, mesh)
+    dm, axes, flat = mesh.device_mesh, policy.axes.data, policy.flat_dp
     p_specs = policy.param_specs(tf.param_shapes(cfg))
     shapes = cache_shapes(cfg, batch, max_len)
     c_specs = policy.cache_specs(shapes)
+    rows = policy.dp_entry if batch % policy.dp == 0 else None
 
     @torch.no_grad()  # not inference mode: DTensor views of placed params need versions
     def decode(params, caches, tokens, position: int):
@@ -623,13 +674,13 @@ def _placed_decode(cfg: ModelConfig, policy, mesh, batch: Optional[int],
                 raise ValueError(f"the caches are not those of batch {batch} and max_len "
                                  f"{max_len} that the step was made for")
             caches = distribute_tree(caches, c_specs, dm)
-        tokens = tokens.to(mesh.device)
-        tokens = place(tokens, policy.batch_spec("tokens", tuple(tokens.shape)), dm)
+        # the tokens' rows as the caches hold them (cache_spec's batch rule): under
+        # replicate_batch too, each rank decodes the rows of its own caches
+        tokens = place(tokens.to(mesh.device), (rows, None), dm)
         with implicit_replication():
-            logits, caches = tf.decode_step(tree_map(param_on_model, params), caches,
-                                            on_model(tokens), position, cfg)
-        return DTensor.from_local(logits.to_local(), dm,
-                                  [tokens.placements[0], logits.placements[0]],
-                                  run_check=False), caches
+            logits, caches = tf.decode_step(
+                tree_map(lambda t: param_on_model(t, axes, flat), params), caches,
+                on_model(tokens, flat), position, cfg)
+        return _over_mesh(logits.to_local(), tokens, logits.placements[0], axes), caches
 
     return decode

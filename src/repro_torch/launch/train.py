@@ -26,11 +26,16 @@ Two meshes (:mod:`repro_torch.launch.mesh`):
 The sharding policy is made on the mesh and checked: every spec of every
 parameter and optimizer leaf must divide. ``main(argv, zero3=...)`` passes
 ``make_policy``'s ``zero3`` (``None``: its own rule) from a Python caller;
-the CLI has no flag for it, as the JAX trainer has none. Under a model axis
-the result also holds each param's local shape on this rank at the end and
-the params that the data axis then shards (``local_params``). With
-``--mesh single|multi`` the trainer makes and checks the policy of the
-production mesh and then exits: running on it needs 256 or 512 ranks.
+the CLI has no flag for it, as the JAX trainer has none; ``flat_dp=True``
+passes ``make_policy``'s ``flat_dp`` alike (the whole process mesh data
+parallel, its gradients reduced over the world). Placed, the result also
+holds each param's local shape on this rank at the end and the params that
+a data axis then shards (``local_params``). With ``--mesh single|multi``
+the trainer makes and checks the policy of the production mesh; under
+torchrun with a world of exactly its size (256 or 512 ranks) it lays the
+world out as that mesh (:func:`repro_torch.launch.mesh.lay_out_mesh`, the
+multi-pod one as pod 2 × data 16 × model 16, its gradients reduced over
+``("pod", "data")``) and trains; otherwise it exits.
 
 Checkpoints hold rank 0's params and optimizer state, and a restore gives
 every rank that copy, as the JAX trainer does: its ``save`` writes
@@ -56,6 +61,7 @@ from __future__ import annotations
 import argparse
 import json
 import math
+import os
 import statistics
 import time
 
@@ -70,23 +76,23 @@ from repro_torch.data.pipeline import DataConfig, stream
 from repro_torch.device import resolve_device
 from repro_torch.launch import steps as steps_lib
 from repro_torch.launch.mesh import (ProcessMesh, init_process_mesh, launched_by_torchrun,
-                                     make_host_mesh, make_production_mesh, split_model_axis)
+                                     lay_out_mesh, make_host_mesh, make_production_mesh)
 from repro_torch.models.transformer import param_shapes
 from repro_torch.optim.adamw import AdamWConfig
-from repro_torch.sharding.policy import make_policy
+from repro_torch.sharding.policy import MeshShape, data_dims, make_policy
 from repro_torch.tree import tree_map
 
 MESH_NEEDS_RANKS = ("the sharding policy of the {mesh} production mesh {shape} is valid for "
                     "{arch} (tp={tp}, dp={dp}, zero3={zero3}); training on it needs {ranks} "
-                    "ranks, one per card")
+                    "ranks, one per card, under torchrun ({have})")
 DP_NOT_DIVIDES = ("--data-parallel {dp} does not divide a world of {world} ranks: the model "
                   "axis is world / data ranks wide; pass a divisor of {world} (0: the world)")
 
 
-def checked_policy(cfg, mesh, zero3=None):
-    """``make_policy(cfg, mesh, zero3)``, with every param and optimizer spec
-    checked to divide its leaf (shapes on the meta device)."""
-    policy = make_policy(cfg, mesh, zero3=zero3)
+def checked_policy(cfg, mesh, zero3=None, flat_dp: bool = False):
+    """``make_policy(cfg, mesh, zero3, flat_dp)``, with every param and
+    optimizer spec checked to divide its leaf (shapes on the meta device)."""
+    policy = make_policy(cfg, mesh, zero3=zero3, flat_dp=flat_dp)
     shapes = param_shapes(cfg)
     policy.check_divides(shapes, policy.param_spec)
     policy.check_divides(steps_lib.opt_shapes(cfg, shapes), policy.opt_spec)
@@ -103,7 +109,7 @@ def _sync(dev: torch.device) -> None:
         torch.cuda.synchronize(dev)
 
 
-def main(argv=None, zero3=None) -> dict:
+def main(argv=None, zero3=None, flat_dp: bool = False) -> dict:
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", required=True)
     ap.add_argument("--smoke", action="store_true", help="reduced config")
@@ -141,35 +147,51 @@ def main(argv=None, zero3=None) -> dict:
                          "(ring/lumorph2/lumorph4/auto), not xla")
 
     cfg = get_smoke_config(args.arch) if args.smoke else get_config(args.arch)
+    shape = None
     if args.mesh != "host":
-        mesh = make_production_mesh(multi_pod=(args.mesh == "multi"))
-        policy = checked_policy(cfg, mesh)
-        raise SystemExit(MESH_NEEDS_RANKS.format(
-            mesh=args.mesh, shape=mesh.shape, arch=cfg.name, tp=policy.tp, dp=policy.dp,
-            zero3=policy.zero3, ranks=math.prod(mesh.axis_sizes)))
+        shape = make_production_mesh(multi_pod=(args.mesh == "multi"))
+        policy = checked_policy(cfg, shape, zero3, flat_dp)
+        ranks = math.prod(shape.axis_sizes)
+        world = _torchrun_world()
+        if world != ranks:
+            raise SystemExit(MESH_NEEDS_RANKS.format(
+                mesh=args.mesh, shape=shape.shape, arch=cfg.name, tp=policy.tp, dp=policy.dp,
+                zero3=policy.zero3, ranks=ranks,
+                have="no torchrun world" if world is None else f"a world of {world}"))
     if launched_by_torchrun():
         made_group = not dist.is_initialized()
         mesh = init_process_mesh(args.device, args.dist_backend)
         try:
-            if args.data_parallel < 0 or (args.data_parallel and
-                                          mesh.world % args.data_parallel):
-                raise SystemExit(DP_NOT_DIVIDES.format(dp=args.data_parallel, world=mesh.world))
-            return _train(args, cfg, split_model_axis(mesh, args.data_parallel or mesh.world),
-                          zero3)
+            if shape is None:
+                if args.data_parallel < 0 or (args.data_parallel and
+                                              mesh.world % args.data_parallel):
+                    raise SystemExit(DP_NOT_DIVIDES.format(dp=args.data_parallel,
+                                                           world=mesh.world))
+                data = args.data_parallel or mesh.world
+                shape = MeshShape(("data", "model"), (data, mesh.world // data))
+            return _train(args, cfg, lay_out_mesh(mesh, shape, flat_dp), zero3, flat_dp)
         finally:
             if made_group:
                 dist.destroy_process_group()
     dev = resolve_device(args.device)
     visible = torch.cuda.device_count() if dev.type == "cuda" else 1
-    return _train(args, cfg, make_host_mesh(args.data_parallel or visible, dev), zero3)
+    return _train(args, cfg, make_host_mesh(args.data_parallel or visible, dev), zero3,
+                  flat_dp)
 
 
-def _train(args, cfg, mesh, zero3=None) -> dict:
+def _torchrun_world():
+    """The world's size under torchrun (or a process group made), else None."""
+    if dist.is_initialized():
+        return dist.get_world_size()
+    return int(os.environ["WORLD_SIZE"]) if launched_by_torchrun() else None
+
+
+def _train(args, cfg, mesh, zero3=None, flat_dp: bool = False) -> dict:
     """The training loop on a virtual or a process mesh."""
     group = mesh.group if isinstance(mesh, ProcessMesh) else None
     lead = group is None or mesh.rank == 0  # prints, and writes the checkpoints
-    policy = checked_policy(cfg, mesh, zero3)
-    placed = getattr(mesh, "model", 1) > 1
+    policy = checked_policy(cfg, mesh, zero3, flat_dp)
+    placed = steps_lib.placed(mesh)
     opt_cfg = AdamWConfig(lr=args.lr, total_steps=args.steps,
                           warmup_steps=max(1, args.steps // 20))
     train_step = steps_lib.make_train_step(
@@ -228,7 +250,12 @@ def _train(args, cfg, mesh, zero3=None) -> dict:
             result.update(data=mesh.data, model=mesh.model, local_params={
                 "shapes": {p: list(t.to_local().shape) for p, t in flatten_with_paths(params)},
                 "over_data": [p for p, t in flatten_with_paths(params)
-                              if t.placements[0].is_shard()]})
+                              if any(t.placements[i].is_shard()
+                                     for i in data_dims(t.device_mesh, policy.axes.data))]})
+            if mesh.pod > 1:
+                result["pod"] = mesh.pod
+            if mesh.flat_dp:
+                result["flat_dp"] = True
     if lead:
         print(json.dumps(result))
     return result

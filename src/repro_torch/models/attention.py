@@ -41,7 +41,7 @@ from repro_torch.kernels import ops as kops
 from repro_torch.kernels.ref import RECIP_127
 from repro_torch.models import loop_fold
 from repro_torch.models.layers import apply_rope, dense_init, reduced, whole_grad
-from repro_torch.sharding.policy import local_offsets, redistribute
+from repro_torch.sharding.policy import flat_group, local_offsets, redistribute
 
 Tensor = torch.Tensor
 
@@ -361,7 +361,8 @@ def placed_decode_attention(p: dict, x: Tensor, cache: dict, position: int,
         heads they map to (:func:`kv_pick`) and masking with the slice of
         ``pos`` beside its keys. Where the sequence is split, the softmax's
         max per (row, head), then its sum and the partial P·V, are added over
-        the group that splits it (:func:`_seq_split_attention`): scalars and
+        the group that splits it, several mesh dims taken as one where they
+        split it together (:func:`_seq_split_attention`): scalars and
         one output row per head cross the wire, never the cache. Where that
         group is the model group, which also splits the query heads, every
         rank first gathers the new token's query heads, attends them all, and
@@ -415,7 +416,7 @@ def placed_decode_attention(p: dict, x: Tensor, cache: dict, position: int,
     kk, vv = kk[:, :, pick], vv[:, :, pick]
     mask = build_mask(pos_b, _local_like(cache["pos"], keys), "causal", cfg.sliding_window)
     if split:
-        out = _seq_split_attention(ql, kk, vv, mask, keys.device_mesh.get_group(split[0]))
+        out = _seq_split_attention(ql, kk, vv, mask, _split_group(keys, split))
     else:
         out = dense_attention(ql, kk, vv, mask)
     if own is not None:
@@ -487,6 +488,14 @@ def _local_like(leaf: DTensor, like: DTensor, dims: Optional[tuple[int, ...]] = 
     for d in dims:
         out = out.narrow(d, at[d] - off[d], like.to_local().shape[d])
     return out
+
+
+def _split_group(leaf: DTensor, dims: list[int]):
+    """The group over which ``leaf``'s mesh dims ``dims`` split its sequence:
+    one dim's own group, or several taken as one axis, major first
+    (``("pod", "data")``, ``flat_dp``'s ``("data", "model")``)."""
+    names = leaf.device_mesh.mesh_dim_names
+    return flat_group(leaf.device_mesh, tuple(names[i] for i in dims))
 
 
 def _seq_split_attention(q: Tensor, k: Tensor, v: Tensor, mask: Tensor, group,
@@ -688,8 +697,8 @@ def placed_mla_decode(p: dict, x: Tensor, cache: dict, position: int,
                      dim=-1).to(dt)[:, :, None]
     mask = build_mask(pos_b, _local_like(cache["pos"], c_kv), "causal")
     if split:
-        out = _seq_split_attention(q_both, keys, keys[..., :r], mask,
-                                   c_kv.device_mesh.get_group(split[0]), _mla_scale(cfg))
+        out = _seq_split_attention(q_both, keys, keys[..., :r], mask, _split_group(c_kv, split),
+                                   _mla_scale(cfg))
     else:
         out = dense_attention(q_both, keys, keys[..., :r], mask, scale=_mla_scale(cfg))
     if own is not None:  # [b, 1, H, r]

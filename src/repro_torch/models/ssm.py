@@ -458,7 +458,8 @@ def placed_step(step: Callable, p: dict, x: Tensor, state: dict, *args) -> tuple
     if any(not pl.is_replicate() for pl in x.placements):
         raise ValueError("a mixer's decode takes a whole x: reduce the layer's input first")
     kw = {}
-    split = [t for t in state.values() if t.placements[-1].is_shard(1)]  # mesh dim -1: model
+    split = [t for t in state.values()
+             if t.placements[t.device_mesh.mesh_dim_names.index("model")].is_shard(1)]
     if split:
         first, n = local_offsets(split[0])[1], split[0].to_local().shape[1]
         wire = collectives_dist.Wire(x.device_mesh.get_group())

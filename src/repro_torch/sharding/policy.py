@@ -27,7 +27,8 @@ places a tree of full tensors by a tree of specs, every rank keeping its
 own shard, and :func:`gather_tree` gathers it back. :func:`redistribute`
 is the port's one way to move a DTensor to other placements: under gloo it
 runs a CUDA DTensor's all-gathers through host memory. :func:`gather_data`
-gathers a ZeRO-3 leaf over data for use, :func:`local_offsets` says
+gathers a ZeRO-3 leaf over the data axes for use, :func:`flat_group` is
+the group of several mesh dims as one axis, :func:`local_offsets` says
 where a rank's shard lies in its leaf, and :func:`place_filled` makes a
 constant leaf's shard alone (an empty decode cache).
 
@@ -348,7 +349,11 @@ def to_placements(spec: Spec, mesh_axis_names: tuple[str, ...]) -> list:
     for dim, entry in enumerate(spec):
         for name in (() if entry is None else (entry,) if isinstance(entry, str) else entry):
             if name in dim_of:
-                raise ValueError(f"spec {spec!r} names mesh axis {name!r} twice")
+                raise ValueError(
+                    f"spec {spec!r} names mesh axis {name!r} twice: no layout places it, and "
+                    "the JAX package refuses it too (DuplicateSpecError); flat_dp's "
+                    "mamba2/mLSTM state puts its heads on model beside a batch over "
+                    "('data', 'model')")
             dim_of[name] = dim
     unknown = set(dim_of) - set(mesh_axis_names)
     if unknown:
@@ -370,13 +375,10 @@ def _spec_pairs(tree: Tree, spec_tree: Tree) -> list[tuple[Any, Spec]]:
 def place(full, spec: Spec, device_mesh):
     """``full`` (the same tensor on every rank) as a DTensor on ``device_mesh``
     placed by ``spec``: this rank keeps a copy of its own shard, and nothing
-    crosses the wire. A replicated leaf is kept as it is.
-
-    ZeRO-3's data entry on a ``(data, model)`` mesh is the bare ``"data"``
-    and is placed. A dim split over two mesh axes at once (the multi-pod
-    mesh's ``("pod", "data")``, ``flat_dp``'s ``("data", "model")``) raises
-    ``NotImplementedError``: the port places no such leaf (ROADMAP Queue 1
-    item 4(c))."""
+    crosses the wire. A replicated leaf is kept as it is. A dim split over
+    two mesh axes at once (the multi-pod mesh's ``("pod", "data")``,
+    ``flat_dp``'s ``("data", "model")``) is cut major axis first, as a
+    PartitionSpec cuts it (:func:`_placements`)."""
     return _placed(full, _placements(spec, device_mesh), device_mesh)
 
 
@@ -398,12 +400,20 @@ def place_filled(shape: tuple[int, ...], fill, dtype, spec: Spec, device_mesh, d
 
 
 def _placements(spec: Spec, device_mesh) -> list:
+    """:func:`to_placements` on ``device_mesh``. An entry that names two mesh
+    axes gives ``Shard(dim)`` on each, and DTensor then splits the dim over
+    the first mesh dim, then each piece over the next: the entry's order
+    when its axes come in mesh order, as every spec of the policy names
+    them. An entry out of mesh order would need another layout
+    (``_StridedShard``) and raises."""
+    names = tuple(device_mesh.mesh_dim_names)
     for entry in spec:
         if isinstance(entry, (tuple, list)) and len(entry) > 1:
-            raise NotImplementedError(
-                f"spec {spec!r} splits one dim over the mesh axes {tuple(entry)}: the port "
-                "places no such leaf (ROADMAP Queue 1 item 4(c))")
-    return to_placements(spec, tuple(device_mesh.mesh_dim_names))
+            at = [names.index(a) for a in entry if a in names]
+            if at != sorted(at):
+                raise ValueError(f"spec {spec!r} splits one dim over the mesh axes "
+                                 f"{tuple(entry)} out of the mesh's order {names}")
+    return to_placements(spec, names)
 
 
 def place_like(full, like):
@@ -412,10 +422,13 @@ def place_like(full, like):
 
 
 def _placed(full, placements: list, device_mesh):
+    """``full`` cut to this rank's shard: mesh dim by mesh dim, each cutting
+    what the dims before it left (DTensor's order for a tensor dim that
+    several mesh dims split)."""
     local = full
     for i, pl in enumerate(placements):
         if pl.is_shard():
-            n, size = device_mesh.size(i), full.shape[pl.dim]
+            n, size = device_mesh.size(i), local.shape[pl.dim]
             if size % n:
                 raise ValueError(f"dim {pl.dim} of {tuple(full.shape)} does not split "
                                  f"{n} ways over {device_mesh.mesh_dim_names[i]!r}")
@@ -423,6 +436,17 @@ def _placed(full, placements: list, device_mesh):
     if local is not full:
         local = local.clone()  # the shard alone, so that the full leaf can be freed
     return DTensor.from_local(local, device_mesh, placements, run_check=False)
+
+
+def flat_group(device_mesh, names: tuple[str, ...]):
+    """The process group of ``device_mesh``'s dims ``names`` taken as one axis,
+    the first dim major: its ranks are this rank's peers on those dims, in
+    the order of JAX's combined axis index over them (``("pod", "data")``).
+    One name is that dim's own group. Collective the first time: every rank
+    of the mesh calls it."""
+    if len(names) == 1:
+        return device_mesh.get_group(names[0])
+    return device_mesh[tuple(names)]._flatten().get_group()
 
 
 def _host_mesh(device_mesh):
@@ -463,27 +487,39 @@ def replicated(t):
     return redistribute(t, [Replicate() if p.is_shard() else p for p in t.placements])
 
 
-def gather_data(t):
-    """A leaf of the ``(data, model)`` mesh replicated over data, its model
+def data_dims(device_mesh, axes: Optional[tuple[str, ...]] = None) -> list[int]:
+    """The indices of ``device_mesh``'s dims named in ``axes`` (the policy's
+    ``axes.data``); by default every dim but ``"model"``."""
+    names = tuple(device_mesh.mesh_dim_names)
+    return [i for i, n in enumerate(names) if (n != "model" if axes is None else n in axes)]
+
+
+def gather_data(t, axes: Optional[tuple[str, ...]] = None):
+    """A leaf replicated over the data axes ``axes`` (the policy's
+    ``axes.data``; by default every mesh dim but ``"model"``), every other
     placement kept: a ZeRO-3 param (or moment) gathered for use
-    (:func:`redistribute`). A leaf that data does not shard comes back as
+    (:func:`redistribute`). A leaf that no data axis shards comes back as
     it is. A gradient goes the other way with no wire: redistributing a
     leaf replicated over data to a ``Shard`` over data keeps this rank's
     slice, as ``optim.adamw`` does for the moments' placement."""
-    if not t.placements[0].is_shard():
+    dims = [i for i in data_dims(t.device_mesh, axes) if t.placements[i].is_shard()]
+    if not dims:
         return t
-    return redistribute(t, [Replicate(), *t.placements[1:]])
+    return redistribute(t, [Replicate() if i in dims else pl
+                            for i, pl in enumerate(t.placements)])
 
 
 def local_offsets(t) -> tuple[int, ...]:
     """Where the local tensor of ``t`` (placed evenly, as :func:`place`
-    places) starts in the global leaf, per dim."""
-    off = [0] * t.dim()
-    local = t.to_local().shape
+    places) starts in the global leaf, per dim: a dim split over several
+    mesh dims takes them major first, so the shard's index along it is
+    their local ranks read as the digits of one number."""
+    index = [0] * t.dim()
     for i, pl in enumerate(t.placements):
         if pl.is_shard():
-            off[pl.dim] += t.device_mesh.get_local_rank(i) * local[pl.dim]
-    return tuple(off)
+            index[pl.dim] = index[pl.dim] * t.device_mesh.size(i) + \
+                t.device_mesh.get_local_rank(i)
+    return tuple(k * n for k, n in zip(index, t.to_local().shape))
 
 
 def distribute_tree(tree: Tree, spec_tree: Tree, device_mesh) -> Tree:

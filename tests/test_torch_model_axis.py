@@ -38,8 +38,9 @@ tests read both:
     1e-5 relative of JAX's ``make_prefill`` on the same mesh, the kernel path
     (the plain version under ``local_map``) within 1e-5 of dense, with one
     kernel call per layer in every rank, on its own heads;
-  * the error paths: ``--data-parallel 3`` in a world of 4 exits; a dim
-    split over two mesh axes is not placed.
+  * the error path: ``--data-parallel 3`` in a world of 4 exits; and a dim
+    split over two mesh axes, ``(("data", "model"), None)``, placed: each rank
+    keeps its quarter of the rows.
 """
 
 import json
@@ -198,10 +199,9 @@ try:
 except SystemExit as e:
     runs["dp3_exit"] = str(e)
 out["runs"] = runs
-try:
-    place(torch.zeros(4, 4), (("data", "model"), None), mesh.device_mesh)
-except NotImplementedError as e:
-    out["tuple_spec"] = str(e)
+# a dim split over both mesh axes (flat_dp's data entry): rank r keeps rows [r, r + 1)
+out["tuple_spec"] = place(torch.arange(16.0).reshape(4, 4), (("data", "model"), None),
+                          mesh.device_mesh).to_local().numpy()
 
 # the TP prefill at (1, model): the kernel path's calls counted per rank
 counted = ops.flash_attention
@@ -532,8 +532,11 @@ def test_data_parallel_not_dividing_the_world_exits(world):
 
 
 def test_a_dim_split_over_two_axes_is_not_placed(world):
-    for out in world[0]:
-        assert "splits one dim over the mesh axes ('data', 'model')" in out["tuple_spec"]
+    """A dim split over two mesh axes (``("data", "model")``) is placed, major
+    axis first: rank ``r = d·model + m`` keeps the ``r``-th quarter of the rows."""
+    full = np.arange(16.0, dtype=np.float32).reshape(4, 4)
+    for r, out in enumerate(world[0]):
+        np.testing.assert_array_equal(out["tuple_spec"], full[r:r + 1])
 
 
 @pytest.mark.parametrize("mesh,ranks", [("single", 256), ("multi", 512)])
