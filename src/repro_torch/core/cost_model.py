@@ -53,13 +53,12 @@ POD_RAIL_BW = 100e9  # bytes/s per rail, per direction
 POD_RAIL_ALPHA = 1.2e-6  # s
 RAIL_RECONFIG_DELAY = 25e-6  # s, rack-tier OCS reprogramming window
 
-#: Degraded-link β multipliers (the JAX package's ``repro.core.health``,
-#: kept here as constants only; the port has no health model): a link whose BER
+#: Degraded-link β multipliers (``repro_torch.core.health``): a link whose BER
 #: climbed into the FEC-retransmit regime effectively halves its goodput;
 #: a drifting laser forced down one modulation order loses ~2× as well,
 #: compounding to ~4× before the lane is declared dead and the TRX bank
 #: fails outright.  These seed chaos traces and the straggler→degrade
-#: wiring in ``repro.runtime.fault_tolerance``.
+#: wiring in ``repro_torch.runtime.fault_tolerance``.
 BER_DERATE = 2.0
 LASER_DRIFT_DERATE = 4.0
 

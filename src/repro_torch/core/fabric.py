@@ -187,7 +187,7 @@ class LumorphRack:
         self.servers = [LightpathFabric(tiles_per_server, trx_banks_per_tile)
                         for _ in range(n_servers)]
         self.fibers_per_server_pair = fibers_per_server_pair
-        #: optional FabricHealth (the JAX package's ``repro.core.health``; the port has none, so this stays ``None``): dead fibers/lanes,
+        #: optional FabricHealth (repro_torch.core.health): dead fibers/lanes,
         #: derates.  None (or a fault-free instance) keeps every check on
         #: the vectorized immortal-fabric path, bit-identical to before
         #: the health model existed.
@@ -364,7 +364,7 @@ class LumorphRack:
     def feasible_round(self, pairs: list[tuple[int, int]],
                        check_fibers: bool = True) -> bool:
         """Boolean form of :meth:`validate_round` for planners that probe
-        many candidate rounds (e.g. the JAX package's ``repro.morph`` state-move batching)."""
+        many candidate rounds (e.g. ``repro_torch.morph`` state-move batching)."""
         try:
             self.validate_round(pairs, check_fibers=check_fibers)
         except CircuitError:

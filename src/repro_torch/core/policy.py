@@ -27,7 +27,7 @@ turns them into *policies*:
         step today).
 
   * :class:`MorphObjective` scores candidate compaction targets for
-    the JAX package's ``repro.morph.policy.MorphPolicy`` — the same three flavors,
+    :class:`~repro_torch.morph.policy.MorphPolicy` — the same three flavors,
     so a simulator run can thread one objective through admission *and*
     runtime morphing (``PlacementPolicy.morph_objective()``).
 
@@ -397,7 +397,7 @@ class FutureMorphPolicy(_ScoredPolicy):
 
 class MorphObjective:
     """Scores candidate compaction targets for
-    the JAX package's ``repro.morph.policy.MorphPolicy``.
+    :class:`~repro_torch.morph.policy.MorphPolicy`.
 
     ``compaction_targets`` yields target layouts to plan toward —
     ``None`` entries mean the planner's own default (densest-server-first

@@ -139,7 +139,7 @@ class SchedulePricer:
     # -- keys ---------------------------------------------------------------
     def _health_suffix(self) -> tuple:
         """Cache-key suffix while the fabric carries permanent faults
-        (``rack.health`` truthy — the JAX package's ``repro.core.health``): entries are
+        (``rack.health`` truthy — :mod:`repro_torch.core.health`): entries are
         tagged with the health epoch, so every fail/repair/derate
         invalidates them wholesale and prices from one health state never
         serve another.  Empty on a healthy (or fully repaired) fabric —
@@ -333,7 +333,7 @@ class SchedulePricer:
         ``("chunks", …)`` variant — so entries are valid in any pricer
         built over the same link/rack geometry.  The sweep engine ships
         these across process boundaries to warm sibling workers
-        (the JAX package's ``repro.sweep``); they are plain tuples of str/int/float, so
+        (:mod:`repro_torch.sweep`); they are plain tuples of str/int/float, so
         they pickle cheaply.  Entries priced under live fabric faults
         (``"#health"``-tagged keys) are excluded — health state is local
         to one simulator and never portable across workers."""

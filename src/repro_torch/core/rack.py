@@ -1,8 +1,7 @@
 """Rack- and pod-level topology over the LIGHTPATH wafer model.
 
-The port's copy of ``repro.core.rack``, ``Pod`` included. A rack's or pod's
-``health`` stays ``None`` (the port has no health model), which is the
-reference's fault-free path.
+The port's copy of ``repro.core.rack``, ``Pod`` included, with the
+optional ``health`` state of :mod:`repro_torch.core.health`.
 
 The LUMORPH rack itself lives in ``repro_torch.core.fabric``; this module adds
 the tier above it: a :class:`Pod` of ``n_racks`` racks joined by
@@ -85,7 +84,7 @@ class Pod:
         self.fibers_per_server_pair = fibers_per_server_pair
         self.rails_per_rack_pair = rails_per_rack_pair
         self.rail_link = rail_link
-        #: optional FabricHealth (the JAX package's ``repro.core.health``; the port has none); chips/pairs are
+        #: optional FabricHealth (repro_torch.core.health); chips/pairs are
         #: keyed pod-globally.  None (or fault-free) keeps the vectorized
         #: immortal-fabric checks, bit-identical to the pre-health model.
         self.health = None

@@ -3,12 +3,11 @@
 The port's copy of ``repro.core.scheduler``, line for line: the builders,
 pricing on the ideal fabric, a rack or a pod, ``validate``, the chunked
 lowering of overlap mode, hierarchical composition, ``candidate_algos``,
-``fiber_demand`` and ``order_for_locality``, so that both executors read
-the same tables and both pricers give the same numbers. Left out:
-``transfer_schedule``, the JAX package's morph planner's state moves, which
-the port does not have. One addition: pricing or validating against
-anything that is not a ``LumorphRack`` or a ``Pod`` raises ``TypeError``
-(the reference fails on a missing attribute).
+``fiber_demand``, ``order_for_locality`` and ``transfer_schedule`` (the
+morph planner's state moves), so that both executors read the same
+tables and both pricers give the same numbers. One addition: pricing or
+validating against anything that is not a ``LumorphRack`` or a ``Pod``
+raises ``TypeError`` (the reference fails on a missing attribute).
 
 A :class:`Schedule` is the repo's **single source of truth** for a
 collective.  One builder per algorithm lowers ``(participant chips,
@@ -20,9 +19,10 @@ arithmetic each round needs, and its consumers derive from it:
     partner maps; the JAX package runs them as ``ppermute``);
   * **pricing** — :meth:`Schedule.cost` prices the rounds with the α–β
     model (``repro_torch.core.cost_model.algorithm_cost`` delegates here);
-  * **placement** — ``core.pricing`` and ``core.policy`` price schedules on
-    each tenant's actual chips, validated against the rack's photonic
-    limits, with inter-server fiber contention.
+  * **placement and simulation** — ``core.pricing``, ``core.policy`` and
+    ``repro_torch.sim.engine`` price schedules on each tenant's actual
+    chips, validated against the rack's photonic limits, with inter-server
+    fiber contention.
 
 **Shape vs. Transfer tables.**  The three consumers need very different
 amounts of the IR.  Pricing and validation only read each round's
@@ -683,6 +683,52 @@ def tree_schedule(chips: Sequence[int], n_bytes: float) -> Schedule:
                     _fill=fill)
 
 
+def transfer_schedule(move_rounds: Sequence[Sequence[tuple[int, int]]],
+                      bytes_per_move: float, tag: str = "transfer") -> Schedule:
+    """Point-to-point state movement as a first-class Schedule.
+
+    ``move_rounds`` is a list of waves; each wave is a set of simultaneous
+    directed ``(src_chip, dst_chip)`` copies of ``bytes_per_move`` bytes
+    (whole-buffer, ``n_chunks=1``, overwrite semantics — a state *replay*,
+    not a reduction).  Used by ``repro_torch.morph`` to ship a chip's shard
+    state during compaction and failure bypass; because the result is an
+    ordinary :class:`Schedule`, the moves are priced by :meth:`Schedule.cost`
+    (MZI window per wave + bytes × β with fiber time-sharing) and checked
+    by :meth:`Schedule.validate` like any collective.
+    """
+    chips: list[int] = []
+    for wave in move_rounds:
+        for s, d in wave:
+            if s == d:
+                raise ValueError(f"state move {s}→{d} is a no-op loopback")
+            for c in (s, d):
+                if c not in chips:
+                    chips.append(c)
+    rank = {c: i for i, c in enumerate(chips)}
+    p = len(chips)
+    rounds = []
+    perms = []
+    for wave in move_rounds:
+        if not wave:
+            continue
+        fanout: dict[int, int] = {}
+        for s, _ in wave:
+            fanout[s] = fanout.get(s, 0) + 1
+        perms.append(tuple((rank[s], rank[d]) for s, d in wave))
+        rounds.append(Round(np.asarray(list(wave), dtype=np.int64),
+                            bytes_per_move, egress_fanout=max(fanout.values()),
+                            reduce=False))
+
+    def fill():
+        zeros = np.zeros((max(p, 1), 1), dtype=np.int32)
+        return tuple((Transfer(perm, zeros, zeros, reduce=False),)
+                     for perm in perms)
+
+    return Schedule(tag, tuple(chips), tuple(rounds),
+                    n_bytes=bytes_per_move, n_chunks=1,
+                    _fill=fill if rounds else None)
+
+
 # ---------------------------------------------------------------------------
 # chunked / pipelined lowering (PCCL-style overlap)
 # ---------------------------------------------------------------------------
@@ -714,7 +760,7 @@ class ChunkedSchedule:
     The base program's rounds are split at the reduce-scatter/all-gather
     phase boundary (the shape-level ``Round.reduce`` tags) and re-emitted
     once per payload chunk at ``n_bytes / C`` — ``2·C`` waves (``C`` when a
-    phase is empty, e.g. a pure-overwrite program)
+    phase is empty, e.g. ``transfer_schedule``'s pure-overwrite programs)
     whose serial concatenation is provably equivalent to the base program
     (``tests/test_overlap.py``).  Pricing walks that serial concatenation
     with the ordinary :meth:`Schedule._priced_rounds` machinery, so MZI

@@ -1,6 +1,9 @@
 """Fault tolerance & elasticity: failure simulation, restart policy,
 straggler mitigation — built around the LUMORPH allocator.
 
+The port's copy of ``repro.runtime.fault_tolerance``, line for line,
+the morph failure bypass and ``straggler_to_degrade`` included.
+
 The paper's fragmentation-free property is exactly what makes recovery
 cheap: when chips die, *any* surviving free chips can rebuild the slice
 (torus/SiPAC racks must find an aligned block and usually cannot).
@@ -10,20 +13,25 @@ cheap: when chips die, *any* surviving free chips can rebuild the slice
   shrinks to the largest power-of-two ≤ new slice (keeping LUMORPH-2/4
   optimal) → restore latest checkpoint onto the shrunk mesh → continue.
 
-The port's copy of ``repro.runtime.fault_tolerance``, without the two
-parts that lean on the JAX package's rack simulator, which the port does
-not have: the morph **failure bypass** (``allow_bypass=True`` raises
-``NotImplementedError``; the shrink path is the recovery) and
-``straggler_to_degrade``, which emits the simulator's fault events.
+With ``allow_bypass=True`` the restart is preceded by a cheaper attempt:
+a :mod:`repro_torch.morph` **failure bypass** swaps a free chip into the slice
+and replays the lost shard from a surviving peer — full width survives
+and no checkpoint restore is needed; the shrink path remains the
+fallback when the rack has no spare chip.
 
 Straggler mitigation operates at two levels.  At the training-step
 level we model the standard backup-step rule (re-dispatch when a shard
 exceeds ``straggler_factor ×`` median step time,
 :meth:`StragglerPolicy.mitigated_step_time`).  At the circuit level a
 persistently slow chip is a *degraded link* — the same thing as a
-BER-derated transceiver from the fabric's point of view — and spare
-wavelengths absorb part of the slowdown
-(:meth:`StragglerPolicy.mitigated_derate`).
+BER-derated transceiver from the fabric's point of view — so
+:func:`straggler_to_degrade` converts detected stragglers into
+``kind="degrade"`` fault events the rack simulator applies through its
+:class:`~repro_torch.core.health.FabricHealth` state: every collective that
+chip joins is re-priced with the derate (the slowest circuit paces the
+round), and spare wavelengths absorb part of the slowdown
+(:meth:`StragglerPolicy.mitigated_derate`).  Repair events model the
+chip recovering (thermal throttle lifting, laser re-locking).
 """
 
 from __future__ import annotations
@@ -72,6 +80,35 @@ def reallocate_after_failure(allocator, tenant: str, requested: int):
     return None
 
 
+def bypass_failure(allocator, tenant: str, dead: Sequence[int],
+                   tiles_per_server: Optional[int] = None,
+                   state_bytes: float = float(4 << 20)):
+    """Morph-based alternative to the elastic restart: swap free chips in
+    for ``tenant``'s dead ones and replay the lost shards from surviving
+    peers (`repro_torch.morph.plan_bypass`), keeping the slice at full width.
+
+    Must run *before* the allocator is told about the failure (the plan
+    needs the victim's allocation intact).  Returns the new ``Allocation``
+    or ``None`` when no bypass is feasible — callers then fall back to
+    ``fail_chips`` + :func:`reallocate_after_failure`."""
+    from repro_torch.morph import apply_plan, plan_bypass  # deferred: keep the
+    # runtime importable without pulling the whole morph planner in
+    a = allocator.allocations.get(tenant)
+    if a is None:
+        return None
+    if tiles_per_server is None:
+        # follow the allocator's server geometry (LUMORPH default: 8)
+        tiles_per_server = getattr(allocator, "tiles_per_server", 8)
+    free = set(allocator.free) - set(dead)
+    plan = plan_bypass(tenant, a.chips, dead, free, tiles_per_server,
+                       state_bytes)
+    if plan is None:
+        return None
+    dead_outside = allocator.n_chips - len(allocator.free) - sum(
+        len(x.chips) for x in allocator.allocations.values())
+    return apply_plan(allocator, plan, dead_chips=dead_outside)
+
+
 class ElasticJob:
     """One tenant's training job on a LUMORPH rack, with failure recovery."""
 
@@ -101,9 +138,13 @@ class ElasticJob:
             return rec
         old = self.chips
         if allow_bypass:
-            raise NotImplementedError(
-                "the failure bypass needs the JAX package's morph planner (repro.morph), "
-                "which the port does not have; recover with allow_bypass=False")
+            alloc = bypass_failure(self.allocator, self.tenant, sorted(dead))
+            if alloc is not None:
+                self.chips = alloc.chips
+                rec = RecoveryRecord(step, tuple(sorted(dead)), old, self.chips,
+                                     self.dp_width, True, "bypassed")
+                self.history.append(rec)
+                return rec
         self.allocator.fail_chips(list(dead))  # releases survivors to the pool
         alloc = reallocate_after_failure(self.allocator, self.tenant, self.requested)
         if alloc is not None:
@@ -149,6 +190,34 @@ class StragglerPolicy:
         if raw_factor <= 1.0:
             return 1.0
         return 1.0 + (raw_factor - 1.0) / (1.0 + self.spare_wavelengths)
+
+
+def straggler_to_degrade(time: float, chip_ids: Sequence[int],
+                         shard_times: np.ndarray,
+                         policy: Optional[StragglerPolicy] = None):
+    """Convert one step's straggler detection into fabric ``degrade``
+    fault events the rack simulator replays through its health state
+    (one :class:`~repro_torch.sim.workload.FailureSpec` per slow chip, derated
+    by :meth:`StragglerPolicy.mitigated_derate`).  ``chip_ids[i]`` owns
+    ``shard_times[i]``.  Returns ``[]`` when no shard crosses the
+    backup-step threshold."""
+    from repro_torch.sim.workload import FailureSpec  # deferred: runtime must
+    # stay importable without the simulator package
+    policy = policy or StragglerPolicy()
+    shard_times = np.asarray(shard_times, dtype=float)
+    med = float(np.median(shard_times))
+    if med <= 0:
+        return []
+    out = []
+    slow_mask = policy.detect(shard_times)
+    for i, chip in enumerate(chip_ids):
+        if not slow_mask[i]:
+            continue
+        factor = policy.mitigated_derate(float(shard_times[i]) / med)
+        if factor > 1.0:
+            out.append(FailureSpec(time, (int(chip),), kind="degrade",
+                                   derate=factor))
+    return out
 
 
 def simulate_failures(n_steps: int, n_chips: int, mtbf_steps: float,

@@ -12,16 +12,25 @@
     the port's seed-0 params (carried to JAX) in fp32, and its first and
     final losses agree within 2e-5 relative; the restart resumes at the
     checkpoint's step.
+  * ``examples/torch_simulate_rack.py``, ``torch_morph_rack.py`` and
+    ``torch_multi_tenant_rack.py`` (host code) against their JAX examples,
+    both run in this process: they print the same text, but for the
+    temporary path ``simulate_rack`` saves its trace to, which is masked.
 
 No test draws at random: prompts come from a seeded numpy generator.
 """
 
+import contextlib
 import importlib.util
+import io
 import json
 import os
 import pickle
+import re
+import runpy
 import subprocess
 import sys
+import tempfile
 from pathlib import Path
 
 import jax
@@ -214,3 +223,24 @@ def test_train_bert_lumorph_twin_matches_jax(jax_examples, monkeypatch, capsys, 
                     if ln.startswith(("slice before", "recovery"))]
     assert len(recovery) == 3 and recovery == jax_recovery
     assert out["phase2"]["dp"] == 8 and out["phase2"]["reason"] == "full"
+
+
+# ---------------------------------------------------------------------------
+# the rack simulator twins
+# ---------------------------------------------------------------------------
+
+def _printed(path: Path) -> str:
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        runpy.run_path(str(path), run_name="__main__")
+    return re.sub(r"saved to \S+\)", "saved to <path>)", buf.getvalue())
+
+
+@pytest.mark.parametrize("name", ["simulate_rack", "morph_rack", "multi_tenant_rack"])
+def test_rack_twin_prints_what_jax_prints(name, monkeypatch, tmp_path):
+    monkeypatch.setattr(tempfile, "tempdir", str(tmp_path))  # simulate_rack's trace file
+    port = _printed(ROOT / "examples" / f"torch_{name}.py")
+    assert port == _printed(ROOT / "examples" / f"{name}.py")
+    assert len(port.splitlines()) >= 10
+    if name == "multi_tenant_rack":
+        assert "exact=True" in port

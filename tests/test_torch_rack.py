@@ -3,9 +3,9 @@
 The fabric, rack and pod models, the scheduler's rack pricing, validation,
 fiber and rail demand, locality order and candidate algorithms, the
 schedule pricer, the placement policies, the allocators and the fault
-tolerance runtime are copies of plain-Python modules of the JAX package.
-Every case here runs the same scenario on both packages and compares the
-results as plain data (exceptions by type name and message), so every
+tolerance runtime (the morph failure bypass included) are copies of
+plain-Python modules of the JAX package. Every case here runs the same
+scenario on both packages and compares the results as plain data (exceptions by type name and message), so every
 number, chip set and error must be the reference's to the bit. One case is
 reference fault (b): ``requests=[1, 5, 12]`` under ``future-morph`` places
 the 12-chip tenant on chips 6–17 at 424.0 µs, below the 429.2 µs of the
@@ -46,11 +46,16 @@ TILES = 8
 
 
 def _plain(x):
-    """Results as plain, comparable data."""
+    """Results as plain, comparable data (a Schedule as its rounds' circuits)."""
     if isinstance(x, np.ndarray):
         return ("nd", x.dtype.str, x.tolist())
+    if isinstance(x, (jsch.Schedule, tsch.Schedule)):
+        return ("Schedule", x.algo, x.participants, x.n_bytes, x.n_chunks,
+                tuple((r.pairs, r.bytes_per_circuit, r.egress_fanout, r.tier, r.reduce)
+                      for r in x.rounds))
     if dataclasses.is_dataclass(x) and not isinstance(x, type):
-        return (type(x).__name__, _plain(dataclasses.asdict(x)))
+        return (type(x).__name__,
+                {f.name: _plain(getattr(x, f.name)) for f in dataclasses.fields(x)})
     if isinstance(x, (set, frozenset)):
         return ("set", tuple(sorted(x)))
     if isinstance(x, (list, tuple)):
@@ -385,9 +390,20 @@ def test_recovery_cost_stragglers_and_failures():
     _both(run)
 
 
-def test_bypass_is_not_ported():
-    alloc = talloc.LumorphAllocator(16, tiles_per_server=TILES)
-    job = tft.ElasticJob(alloc, "job", 8)
-    with pytest.raises(NotImplementedError, match="morph planner"):
-        job.on_failure(1, [job.chips[0]], allow_bypass=True)
-    assert job.on_failure(1, [job.chips[0]]).recovered
+def test_elastic_job_bypass_matches():
+    """``allow_bypass=True`` swaps a free chip in at full width, as JAX's does;
+    without a spare the bypass keeps the survivors."""
+    def run(m):
+        alloc = m.alloc.LumorphAllocator(16, tiles_per_server=TILES)
+        job = m.ft.ElasticJob(alloc, "job", 8)
+        out = []
+        for step, dead in ((1, [job.chips[0]]), (2, job.chips[1:3])):
+            rec = job.on_failure(step, list(dead), allow_bypass=True)
+            out.append((rec, job.chips, job.dp_width, sorted(alloc.free)))
+        alloc.allocate("rest", len(alloc.free))
+        rec = job.on_failure(3, [job.chips[0]], allow_bypass=True)
+        out.append((rec, job.chips, job.dp_width, sorted(alloc.free)))
+        return out
+    got = _both(run)
+    assert [r[0][1]["reason"] for r in got] == ["bypassed"] * 3
+    assert len(got[1][1]) == 8 and len(got[2][1]) == 7
