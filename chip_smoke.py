@@ -12,15 +12,18 @@ JAX or of the JAX package. No phase's failure is caught.
      and spill bytes from nvcc's ``-Xptxas=-v`` report, the flash kernels'
      dynamic shared memory at danube's D, and the flash library's count of
      tensor-core (HMMA: mma.sync, HGMMA: wgmma) and FFMA instructions from
-     ``cuobjdump -sass``.
+     ``cuobjdump -sass``; every flash entry phase 2's shapes run, fp32
+     (3xTF32 on mma.sync) and bf16 (wgmma), must show tensor-core ones.
   2. Each kernel against its plain PyTorch version on the card. Flash
      attention on the shapes of tests/test_kernels.py's ATTN_CASES, each
-     again in bf16 (the tensor-core kernel), D = 72 with a non-causal
+     again in bf16 (the wgmma kernel), D = 72 with a non-causal
      window, danube's heads at S = 320 and danube's prefill shape (fp32
      within 1e-4, bf16 within 2e-2, unit-normal inputs), and rows with no
      live key (exactly 0); the kernel, the plain version and one library
      call timed by CUDA events, the least time the card could take
-     (``bound_ms``), the rate (``tflops``) and its share (``bound_frac``).
+     (``bound_ms``; fp32 at the 3xTF32 rate, a third of the TF32 peak, with
+     its bound at the CUDA cores' FMA peak beside it as ``fma_bound_ms``),
+     the rate (``tflops``) and its share (``bound_frac``).
      The same at dbrx-132b's attention shape (B=1, S=4096, 48 query / 8 KV
      heads of 128, causal, no window) and at zamba2-1.2b's shared block
      (B=2, S=4096, 32/32 heads of 64, causal, no window), against SDPA with
@@ -382,11 +385,11 @@ DBRX = dict(b=1, sq=4096, skv=4096, h=48, kv=8, d=128, causal=True, window=None)
 ZAMBA2 = dict(b=2, sq=4096, skv=4096, h=32, kv=32, d=64, causal=True, window=None)
 # the kernel entries danube's D = 80, dbrx's D = 128 and zamba2's D = 64 run, by dtype
 FLASH_ENTRY = {torch.bfloat16: "flash_fwd_bf16_kernel<80>",
-               torch.float32: "flash_fwd_f32_kernel<5>"}
+               torch.float32: "flash_fwd_f32_kernel<80>"}
 FLASH_ENTRY_128 = {torch.bfloat16: "flash_fwd_bf16_kernel<128>",
-                   torch.float32: "flash_fwd_f32_kernel<8>"}
+                   torch.float32: "flash_fwd_f32_kernel<128>"}
 FLASH_ENTRY_64 = {torch.bfloat16: "flash_fwd_bf16_kernel<64>",
-                  torch.float32: "flash_fwd_f32_kernel<4>"}
+                  torch.float32: "flash_fwd_f32_kernel<64>"}
 SDPA = torch.nn.functional.scaled_dot_product_attention  # the library yardstick
 # rows with no live key: Sq = 300 against Skv = 100, causal, window 48 (rows 147 on)
 NO_LIVE_KEY = (1, 300, 100, 4, 2, 80, True, 48, torch.bfloat16)
@@ -468,6 +471,9 @@ RACK_TMP = ROOT / "build" / "chip_smoke_rack"  # gitignored; the twins' temporar
 # H100 SXM published dense peaks (NVIDIA data sheet): fp32 on the CUDA cores,
 # bf16 on the tensor cores; HBM3 bandwidth
 PEAK_FLOPS = {torch.float32: 67e12, torch.bfloat16: 989e12}
+# the fp32 flash kernel runs each product as three TF32 tensor-core products
+# (3xTF32): its least time is its FLOPs at a third of the 495 TFLOP/s TF32 peak
+TF32X3_FLOPS = 495e12 / 3
 HBM_BYTES_S = 3.35e12
 # int8 pair: tests/test_kernels.py's sizes (normal × 5), then a 25 MB gradient
 # bucket (6,553,600 fp32) and bert-large's embedding leaf (30522 × 1024)
@@ -727,18 +733,21 @@ def live_pairs(sq: int, skv: int, causal: bool, window) -> int:
     return int(torch.clamp(hi - lo, min=0).sum())
 
 
-def attention_bound(b, sq, skv, h, kv, d, causal, window, dtype) -> tuple[float, str]:
-    """Least time for one call: 4·D FLOPs per live pair at the type's peak,
-    against q, k, v read once and o written once at the HBM rate."""
+def attention_bound(b, sq, skv, h, kv, d, causal, window, dtype,
+                    peak: float | None = None) -> tuple[float, str]:
+    """Least time for one call: 4·D FLOPs per live pair at ``peak`` (the
+    type's peak by default), against q, k, v read once and o written once at
+    the HBM rate."""
     flops = 4 * d * b * h * live_pairs(sq, skv, causal, window)
     nbytes = (2 * b * sq * h * d + 2 * b * skv * kv * d) * torch.finfo(dtype).bits // 8
-    t_ops, t_bytes = flops / PEAK_FLOPS[dtype], nbytes / HBM_BYTES_S
+    t_ops, t_bytes = flops / (peak or PEAK_FLOPS[dtype]), nbytes / HBM_BYTES_S
     return max(t_ops, t_bytes) * 1e3, "operations" if t_ops >= t_bytes else "bytes"
 
 
 def entry_name(mangled: str) -> str:
     """A kernel entry's readable name from its mangled one: the kernel's name
-    and its int, float and bf16 template arguments (``flash_fwd_bf16_kernel<80>``)."""
+    and its int, bool, float and bf16 template arguments
+    (``flash_fwd_bf16_kernel<80>``, ``rmsnorm_kernel<bf16, true>``)."""
     i = 3 if mangled.startswith("_ZN") else 2 if mangled.startswith("_Z") else len(mangled)
     name = ""
     while i < len(mangled) and mangled[i].isdigit():  # <length><identifier> pieces
@@ -750,9 +759,10 @@ def entry_name(mangled: str) -> str:
     rest = mangled[i:]
     args, i = [], 1
     while rest.startswith("I") and i < len(rest) and rest[i] != "E":
-        num = re.match(r"Li(-?\d+)E", rest[i:])
+        num = re.match(r"L([ib])(-?\d+)E", rest[i:])
         if num:
-            args.append(num.group(1))
+            args.append(num.group(2) if num.group(1) == "i" else
+                        ("false", "true")[int(num.group(2))])
             i += num.end()
         elif rest.startswith("13__nv_bfloat16", i):
             args.append("bf16")
@@ -867,7 +877,12 @@ def time_attention(ops, gen, s: dict, dt, checks) -> dict:
     else:  # no mask at all where bidirectional
         library = functools.partial(SDPA, qh, kh, vh, is_causal=s["causal"])
         label = "is_causal" if s["causal"] else "no mask"
-    bound_ms, bound_by = attention_bound(*s.values(), dt)
+    # the fp32 kernel's products run on the tensor cores as 3xTF32; its bound
+    # at the CUDA cores' FMA peak stays beside it as ``fma_bound_ms``
+    fp32 = dt == torch.float32
+    bound_ms, bound_by = attention_bound(*s.values(), dt, TF32X3_FLOPS if fp32 else None)
+    extra = {"bound_peak": "3xTF32, 495/3 TFLOP/s",
+             "fma_bound_ms": attention_bound(*s.values(), dt)[0]} if fp32 else {}
     flops = 4 * s["d"] * s["b"] * s["h"] * live_pairs(s["sq"], s["skv"], s["causal"],
                                                       s["window"])
     ms = cuda_ms(lambda: ops.flash_attention(q, k, v, **kw), 10)
@@ -876,7 +891,7 @@ def time_attention(ops, gen, s: dict, dt, checks) -> dict:
         "plain_ms": cuda_ms(lambda: ops.flash_attention_plain(q, k, v, **kw), 3),
         "library_ms": cuda_ms(library, 10),
         "library": "SDPA, " + label,
-        "bound_ms": bound_ms, "bound_by": bound_by,
+        "bound_ms": bound_ms, "bound_by": bound_by, **extra,
         "max_abs_err": next(c["max_abs_err"] for c in reversed(checks)
                             if c["shape"] == list(s.values())
                             and c["dtype"] == str(dt).removeprefix("torch.")),
@@ -3484,6 +3499,9 @@ def main() -> None:
         print(json.dumps({"built": name, "build_s": build_s, "ptxas": ptxas[name]}), flush=True)
     flash_sass = sass_counts(libs["flash_attention"], build.nvcc())
     print(json.dumps({"flash_attention_sass": flash_sass}), flush=True)
+    # every entry the phase-2 shapes run is a tensor-core kernel, fp32 included
+    for entry in {e for m in (FLASH_ENTRY, FLASH_ENTRY_128, FLASH_ENTRY_64) for e in m.values()}:
+        assert flash_sass[entry]["HMMA"] + flash_sass[entry]["HGMMA"] > 0, (entry, flash_sass[entry])
     torch.cuda.synchronize()
     done("1_build", t_phase)
 
@@ -3735,7 +3753,6 @@ def main() -> None:
         t["entry"] = FLASH_ENTRY[dt]
         t["ptxas"] = ptxas["flash_attention"]["entries"][FLASH_ENTRY[dt]]
         t["sass"] = flash_sass[FLASH_ENTRY[dt]]
-    assert bf["sass"]["HMMA"] + bf["sass"]["HGMMA"] > 0, bf["sass"]
     dbrx_attn = {"shape": DBRX, "launches": dbrx["launches"]["flash_attention"]}
     for dt, t in kern["timed"]["dbrx"].items():  # the entries dbrx's D = 128 runs
         dbrx_attn[str(dt).removeprefix("torch.")] = {

@@ -21,10 +21,19 @@
 //     with the scale folded into log2 e) runs while that P·V does. Rounding P
 //     to bf16 is what the dense path does (models/attention.py::dense_attention
 //     casts P before P·V); the Pallas kernel keeps P in fp32.
-//   * fp32: CUDA-core FMAs. fp32 inputs must agree with the plain version to
-//     1e-4, which TF32 tensor cores would not. One block of 256 threads per
-//     (b·h, 64-row query tile); Q and each K/V tile staged in shared memory as
-//     fp32, 4×4 register tiles per thread, P through shared memory.
+//   * fp32: the tensor cores at fp32 accuracy. fp32 inputs must agree with the
+//     plain version to 1e-4, which one TF32 product per fp32 product misses
+//     (TF32 keeps 10 mantissa bits: a score of 30 moves by ~0.015). Each
+//     operand is split into hi = x truncated to TF32 (the raw bits, which the
+//     tensor core truncates) and lo = x − hi (exact), and each product is
+//     summed as lo·hi + hi·lo, then hi·hi (3xTF32, as CUTLASS's
+//     OpMultiplyAddFastF32), ~1e-6 relative. One block of 8 warps
+//     per (b·h, 128-row query tile), 16 rows a warp; Q in shared memory, K/V
+//     tiles through a 2–3-deep cp.async ring (16-byte copies, zero-filled
+//     past Skv and D); S = Q·Kᵀ and O += P·V as mma.sync m16n8k8 TF32, P
+//     split from the S accumulators in registers. tf32 wgmma reads only
+//     K-major operands from shared memory, which V is not, and mma.sync
+//     leaves P in registers and V's rows where they landed.
 //
 // What both keep from the Pallas kernel:
 //   * Layout. q/k/v/o stay in the model's [B, S, H, D] layout, so no
@@ -36,27 +45,33 @@
 //     and the ragged edge are computed from tile offsets. The KV loop starts at
 //     the first and stops after the last tile any row of the query tile can
 //     see, where the Pallas grid visits every block and skips the dead ones;
-//     the longest query tiles are scheduled first. The bf16 kernel masks only
-//     the tiles that cross the diagonal, the window's edge or Skv, and a
-//     warpgroup skips the math of the tiles none of its rows can see.
+//     the longest query tiles are scheduled first. Both kernels mask only the
+//     tiles that cross the diagonal, the window's edge or Skv, and a warpgroup
+//     (bf16) or a warp (fp32) skips the math of the tiles none of its rows see.
 //   * Fully masked rows. A masked score is -inf and the row max is guarded:
 //     while a row has seen no live key it takes no exp(0) contributions. A row
 //     with no live key at all ends at 0, as in the Pallas kernel when every
 //     block of the row is skipped.
-//   * Head dims. Any D ≤ 128 that is a multiple of 8. The bf16 kernel pads D to
-//     a multiple of 16 with zeros (D = 72 runs as 80): TMA's out-of-range fill
-//     writes them, since the tensor maps give D's true extent.
+//   * Head dims. Any D ≤ 128 that is a multiple of 8. Both kernels pad D to a
+//     multiple of 16 with zeros (D = 72 runs as 80): TMA's out-of-range fill
+//     writes them in bf16, since the tensor maps give D's true extent, and
+//     cp.async's zero fill in fp32.
 //
 // Bound on the H100. The work is 4·D FLOPs for each live (query, key) pair
 // against reading q, k, v and writing o once. At danube's prefill shape
 // (B=2, S=4608, H=32, KV=8, D=80, window 4096) that is 2.1e11 FLOPs against
 // 118 MB in bf16: 0.22 ms at the 989 TFLOP/s bf16 tensor-core peak, 0.035 ms
-// at 3.35 TB/s, so the operations bound it; in fp32 3.2 ms at the 67 TFLOP/s
-// CUDA-core peak. What the design does about it: the S×S score matrix never
-// reaches device memory, tiles outside the causal window are skipped, and the
-// bf16 products run on wgmma. Each block re-reads the K/V tiles of its window
-// from L2, so the bf16 block is as tall as the registers allow (192 rows),
-// and each TMA row is one full 32-byte sector (16 columns, 32-byte swizzle).
+// at 3.35 TB/s, so the operations bound it. In fp32, three TF32 products per
+// FLOP at the 495 TFLOP/s TF32 peak, 1.3 ms (3.2 ms at the 67 TFLOP/s
+// CUDA-core FMA peak, which the fp32 kernel beats). What the design does
+// about it: the S×S score matrix never reaches device memory, tiles outside
+// the causal window are skipped, and both types' products run on the tensor
+// cores. Each block re-reads the K/V tiles of its window from L2, so the bf16
+// block is as tall as the registers allow (192 rows), and each TMA row is one
+// full 32-byte sector (16 columns, 32-byte swizzle). The fp32 kernel issues
+// ~1,700 other instructions (splits, shared loads, softmax) beside every 768
+// mma.sync of a 64-key tile at D = 128, and mma.sync's TF32 rate on Hopper
+// is below wgmma's.
 
 #include <cuda.h>
 #include <cuda_bf16.h>
@@ -89,55 +104,136 @@ __device__ __forceinline__ bool live(const Params& p, int qi, int kj) {
   return kj < p.skv && (!p.causal || kj <= qi) && (p.window <= 0 || qi - kj < p.window);
 }
 
+constexpr float LOG2E = 1.4426950408889634f;
+
+__device__ __forceinline__ uint32_t smem_u32(const void* ptr) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(ptr));
+}
+
+__device__ __forceinline__ float ex2(float x) {  // 2^x, one MUFU op; -inf → 0
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
 // ===========================================================================
-// fp32: CUDA-core FMA kernel
+// fp32: tensor cores at fp32 accuracy (3xTF32 mma.sync)
 // ===========================================================================
 namespace f32 {
 
-constexpr int BQ = 64;        // query rows per block
-constexpr int BK = 64;        // keys per KV tile
-constexpr int THREADS = 256;  // 16 × 16: thread (ty, tx) owns rows ty + 16·i, columns tx + 16·j
+constexpr int WARPS = 8;           // 16 query rows each
+constexpr int BQ = 16 * WARPS;     // query rows per block
+constexpr int BK = 64;             // keys per K/V tile
+constexpr int THREADS = 32 * WARPS;
 
-// 64 rows × d columns of src (row r at src + (row0 + r)·row_stride) into dst
-// (row stride ld floats); rows at or past n_rows are zero.
-__device__ __forceinline__ void load_tile(float* dst, int ld, const float* src, int row0,
-                                          int n_rows, int64_t row_stride, int d) {
-  for (int e = threadIdx.x; e < 64 * d; e += THREADS) {
-    const int r = e / d;
-    const int c = e - r * d;
-    const int row = row0 + r;
-    dst[r * ld + c] = row < n_rows ? src[row * row_stride + c] : 0.f;
+// Per padded head dim DP (a multiple of 16): the K/V ring's depth and the row
+// strides in shared memory, in floats. A warp's 16-byte reads of Q or K rows
+// (lanes g = 0, 1 of a quarter-warp on rows g, columns 4t..4t+3) fall in
+// distinct banks when LDK ≡ 16 (mod 32); its 8-byte reads of V rows (lanes
+// t on rows 2t, 2t + 1, columns 2g..2g+1) when LDV ≡ 4 (mod 16).
+template <int DP> struct Cfg {
+  static constexpr int STAGES = DP <= 96 ? 3 : 2;
+  static constexpr int LDK = DP % 32 == 0 ? DP + 16 : DP;
+  static constexpr int LDV = DP + 4;
+  static constexpr size_t SMEM =
+      sizeof(float) * ((size_t)BQ * LDK + (size_t)STAGES * BK * (LDK + LDV));
+};
+
+// 16 bytes from src to dst, or zeros where !valid (src is then not read)
+__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool valid) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_u32(dst)), "l"(src),
+               "r"(valid ? 16 : 0)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+template <int N> __device__ __forceinline__ void cp_async_wait() {  // ≤ N groups pending
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// rows [row0, row0 + n) of a [S, heads, D] slab (row stride `stride` floats)
+// into dst (row stride ld), as 16-byte copies; rows past `limit` and columns
+// past d are zeros
+template <int DP>
+__device__ __forceinline__ void load_rows(float* dst, int ld, const float* src, int row0, int n,
+                                          int limit, int64_t stride, int d) {
+  constexpr int CHUNKS = DP / 4;
+  for (int e = threadIdx.x; e < n * CHUNKS; e += THREADS) {
+    const int r = e / CHUNKS;
+    const int c = e - r * CHUNKS;
+    const bool valid = row0 + r < limit && 4 * c < d;
+    cp_async16(dst + r * ld + 4 * c, valid ? src + (row0 + r) * stride + 4 * c : src, valid);
   }
 }
 
-__device__ __forceinline__ float row_max16(float x) {
-  // the 16 lanes of a row group share ty; xor offsets below 16 stay inside it
-  for (int off = 8; off > 0; off >>= 1) x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, off));
-  return x;
+// x = hi + lo. hi is x's own bits: the tensor core reads a TF32 operand's top
+// 19 bits (10 mantissa bits) and drops the rest. lo = x − (those 19 bits),
+// exact in fp32, read to TF32 in turn. Two instructions (LOP3, FADD); a
+// split through cvt.rna.tf32.f32 takes five on sm_90a.
+__device__ __forceinline__ void split(float x, uint32_t& hi, uint32_t& lo) {
+  hi = __float_as_uint(x);
+  lo = __float_as_uint(x - __uint_as_float(hi & 0xffffe000u));
 }
 
-__device__ __forceinline__ float row_sum16(float x) {
-  for (int off = 8; off > 0; off >>= 1) x += __shfl_xor_sync(0xffffffffu, x, off);
-  return x;
+// d += A·B, m16n8k8, TF32 in, fp32 accumulate. A (row-major 16 × 8):
+// a0 (g, t), a1 (g + 8, t), a2 (g, t + 4), a3 (g + 8, t + 4); B (8 × 8):
+// b0 (t, g), b1 (t + 4, g); d: (g, 2t), (g, 2t + 1), (g + 8, 2t), (g + 8, 2t + 1)
+__device__ __forceinline__ void mma(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
+                                    uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
-template <int NC>  // NC = ⌈d / 16⌉ accumulator columns per thread
-__global__ void __launch_bounds__(THREADS) flash_fwd_f32_kernel(const Params p) {
-  extern __shared__ float smem[];
-  const int d = p.d;
-  const int ld = d + 1;  // odd row stride: the 16 threads reading a K column hit 16 banks
-  float* sQ = smem;            // [BQ][d + 1]
-  float* sK = sQ + BQ * ld;    // [BK][d + 1]
-  float* sV = sK + BK * ld;    // [BK][d]
-  float* sP = sV + BK * d;     // [BQ][BK + 1]
+// d += A·B at fp32 accuracy: lo·hi and hi·lo first, then hi·hi (lo·lo, ~2^-22
+// of the product, is left out)
+__device__ __forceinline__ void mma3(float (&d)[4], const uint32_t (&ah)[4],
+                                     const uint32_t (&al)[4], const uint32_t (&bh)[2],
+                                     const uint32_t (&bl)[2]) {
+  mma(d, al, bh[0], bh[1]);
+  mma(d, ah, bl[0], bl[1]);
+  mma(d, ah, bh[0], bh[1]);
+}
 
-  const int tx = threadIdx.x & 15;
-  const int ty = threadIdx.x >> 4;
+// One block per (b·h, 128-row query tile); warp w owns rows q0 + 16w .. + 15,
+// lane (g, t) = (lane / 4, lane % 4) rows g and g + 8 of them. Q stays in
+// shared memory; K/V tiles stream through a STAGES-deep cp.async ring.
+//
+// Both products run on mma.sync m16n8k8 in TF32 as three terms. The sums
+// over D and over keys take their terms in an order of our choosing, which
+// lets every shared-memory read be a vector:
+//   * S = Q·Kᵀ: a 16-column block c of D is two k-steps; in the first, A's
+//     column t is column 16c + 4t and t + 4 is 16c + 4t + 1, in the second
+//     16c + 4t + 2 and + 3. One 16-byte read of a Q row (or a K row) gives a
+//     lane its A (or B) values of both k-steps.
+//   * O += P·V: P's A fragment is S's accumulator as it stands: key 2t of an
+//     8-key block is A's column t, key 2t + 1 column t + 4, so V's B rows
+//     are keys 2t and 2t + 1. Output column n of the n-block pair (2c, 2c + 1)
+//     is D column 16c + 2n + (0, 1): one 8-byte read of a V row feeds both
+//     n-blocks, and a lane's four outputs of a row are D columns
+//     16c + 4t .. + 3, one 16-byte store.
+template <int DP>
+__global__ void __launch_bounds__(THREADS, 1) flash_fwd_f32_kernel(const Params p) {
+  using C = Cfg<DP>;
+  constexpr int NC = DP / 16;   // 16-column blocks of D
+  constexpr int NS = BK / 8;    // 8-key blocks of S
+  extern __shared__ __align__(16) float smem[];
+  float* sQ = smem;                          // [BQ][LDK]
+  float* sK = sQ + BQ * C::LDK;              // [STAGES][BK][LDK]
+  float* sV = sK + C::STAGES * BK * C::LDK;  // [STAGES][BK][LDV]
+
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const int g = lane >> 2;
+  const int t = lane & 3;
   const int bh = blockIdx.x;
   const int q0 = (gridDim.y - 1 - blockIdx.y) * BQ;  // the longest causal tiles start first
   const int b = bh / p.h;
   const int hh = bh - b * p.h;
   const int kvh = hh / p.n_rep;
+  const int d = p.d;
   const int64_t q_stride = (int64_t)p.h * d;
   const int64_t kv_stride = (int64_t)p.kv * d;
   const float* qg = static_cast<const float*>(p.q) + ((int64_t)b * p.sq * p.h + hh) * d;
@@ -145,109 +241,177 @@ __global__ void __launch_bounds__(THREADS) flash_fwd_f32_kernel(const Params p) 
   const float* vg = static_cast<const float*>(p.v) + ((int64_t)b * p.skv * p.kv + kvh) * d;
   float* og = static_cast<float*>(p.o) + ((int64_t)b * p.sq * p.h + hh) * d;
 
-  load_tile(sQ, ld, qg, q0, p.sq, q_stride, d);
-
   int k_lo, k_hi;
   key_range(p, q0, BQ, &k_lo, &k_hi);
+  const int t_lo = k_lo / BK;
+  const int n_tiles = max(0, (k_hi + BK - 1) / BK - t_lo);
+  auto load_tile = [&](int it) {
+    const int st = it % C::STAGES;
+    const int k0 = (t_lo + it) * BK;
+    load_rows<DP>(sK + st * BK * C::LDK, C::LDK, kg, k0, BK, p.skv, kv_stride, d);
+    load_rows<DP>(sV + st * BK * C::LDV, C::LDV, vg, k0, BK, p.skv, kv_stride, d);
+  };
 
-  float m[4], l[4], acc[4][NC];
+  // Q with tile 0 in the first group; one group per ring slot, empty or not,
+  // so that "≤ STAGES − 2 pending" always means "tile it landed"
+  load_rows<DP>(sQ, C::LDK, qg, q0, BQ, p.sq, q_stride, d);
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    m[i] = -INFINITY;
-    l[i] = 0.f;
-#pragma unroll
-    for (int n = 0; n < NC; ++n) acc[i][n] = 0.f;
+  for (int it = 0; it < C::STAGES - 1; ++it) {
+    if (it < n_tiles) load_tile(it);
+    cp_async_commit();
   }
 
-  for (int k0 = (k_lo / BK) * BK; k0 < k_hi; k0 += BK) {
-    __syncthreads();  // the last tile's sK/sV/sP reads are done (and sQ is in)
-    load_tile(sK, ld, kg, k0, p.skv, kv_stride, d);
-    load_tile(sV, d, vg, k0, p.skv, kv_stride, d);
-    __syncthreads();
+  // this warp's rows and the tiles they see, [it_lo, it_hi)
+  const int wr0 = q0 + 16 * warp;
+  const int r0 = wr0 + g;
+  int it_lo = n_tiles, it_hi = n_tiles;
+  if (wr0 < p.sq) {
+    int lo, hi;
+    key_range(p, wr0, 16, &lo, &hi);
+    it_lo = min(n_tiles, max(0, lo / BK - t_lo));
+    it_hi = max(it_lo, min(n_tiles, (hi + BK - 1) / BK - t_lo));
+  }
+  const float sl2 = p.scale * LOG2E;
+  const float* q_at = sQ + (16 * warp + g) * C::LDK + 4 * t;
 
-    float s[4][4];
+  float m[2] = {-INFINITY, -INFINITY};  // running row max (raw scores)
+  float l[2] = {0.f, 0.f};              // this lane's part of the row sums
+  float o[2 * NC][4];
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
+  for (int n = 0; n < 2 * NC; ++n)
 #pragma unroll
-      for (int j = 0; j < 4; ++j) s[i][j] = 0.f;
-#pragma unroll 8
-    for (int c = 0; c < d; ++c) {
-      float qa[4], kb[4];
+    for (int e = 0; e < 4; ++e) o[n][e] = 0.f;
+
+  for (int it = 0; it < n_tiles; ++it) {
+    cp_async_wait<C::STAGES - 2>();  // this thread's copies of tile it landed
+    __syncthreads();                 // everyone's did, and tile it − 1's slot is free
+    if (it + C::STAGES - 1 < n_tiles) load_tile(it + C::STAGES - 1);
+    cp_async_commit();
+    if (it < it_lo || it >= it_hi) continue;
+
+    const int st = it % C::STAGES;
+    const int k0 = (t_lo + it) * BK;
+    const float* k_at = sK + st * BK * C::LDK + g * C::LDK + 4 * t;
+    const float* v_at = sV + st * BK * C::LDV + 2 * t * C::LDV + 2 * g;
+
+    // S = Q·Kᵀ: s[j] holds keys k0 + 8j + 2t, + 1 of rows r0, r0 + 8
+    float s[NS][4];
 #pragma unroll
-      for (int i = 0; i < 4; ++i) qa[i] = sQ[(ty + 16 * i) * ld + c];
+    for (int j = 0; j < NS; ++j)
 #pragma unroll
-      for (int j = 0; j < 4; ++j) kb[j] = sK[(tx + 16 * j) * ld + c];
+      for (int e = 0; e < 4; ++e) s[j][e] = 0.f;
 #pragma unroll
-      for (int i = 0; i < 4; ++i)
+    for (int c = 0; c < NC; ++c) {
+      const float4 qa = *reinterpret_cast<const float4*>(q_at + 16 * c);
+      const float4 qb = *reinterpret_cast<const float4*>(q_at + 8 * C::LDK + 16 * c);
+      uint32_t ah[2][4], al[2][4];
+      split(qa.x, ah[0][0], al[0][0]);
+      split(qb.x, ah[0][1], al[0][1]);
+      split(qa.y, ah[0][2], al[0][2]);
+      split(qb.y, ah[0][3], al[0][3]);
+      split(qa.z, ah[1][0], al[1][0]);
+      split(qb.z, ah[1][1], al[1][1]);
+      split(qa.w, ah[1][2], al[1][2]);
+      split(qb.w, ah[1][3], al[1][3]);
 #pragma unroll
-        for (int j = 0; j < 4; ++j) s[i][j] = fmaf(qa[i], kb[j], s[i][j]);
+      for (int j = 0; j < NS; ++j) {
+        const float4 kb = *reinterpret_cast<const float4*>(k_at + 8 * j * C::LDK + 16 * c);
+        uint32_t bh0[2], bl0[2], bh1[2], bl1[2];
+        split(kb.x, bh0[0], bl0[0]);
+        split(kb.y, bh0[1], bl0[1]);
+        split(kb.z, bh1[0], bl1[0]);
+        split(kb.w, bh1[1], bl1[1]);
+        mma3(s[j], ah[0], al[0], bh0, bl0);
+        mma3(s[j], ah[1], al[1], bh1, bl1);
+      }
     }
 
+    // the mask, only on a tile that crosses Skv, the diagonal or the window's edge
+    if (k0 + BK > p.skv || (p.causal && k0 + BK - 1 > wr0) ||
+        (p.window > 0 && wr0 + 15 - k0 >= p.window)) {
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int qi = q0 + ty + 16 * i;
-      float mt = -INFINITY;
+      for (int j = 0; j < NS; ++j)
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        s[i][j] = live(p, qi, k0 + tx + 16 * j) ? s[i][j] * p.scale : -INFINITY;
-        mt = fmaxf(mt, s[i][j]);
-      }
-      const float m_new = fmaxf(m[i], row_max16(mt));
-      float corr = 1.f;
-      float rs = 0.f;
-      if (m_new == -INFINITY) {  // no live key yet in this row: contribute nothing
-#pragma unroll
-        for (int j = 0; j < 4; ++j) s[i][j] = 0.f;
-      } else {
-        corr = expf(m[i] - m_new);  // exp(-inf) = 0 on the row's first live tile
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          s[i][j] = expf(s[i][j] - m_new);
-          rs += s[i][j];
-        }
-      }
-      l[i] = l[i] * corr + row_sum16(rs);
-      m[i] = m_new;
-#pragma unroll
-      for (int n = 0; n < NC; ++n) acc[i][n] *= corr;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) sP[(ty + 16 * i) * (BK + 1) + tx + 16 * j] = s[i][j];
+        for (int e = 0; e < 4; ++e)
+          if (!live(p, r0 + 8 * (e >> 1), k0 + 8 * j + 2 * t + (e & 1))) s[j][e] = -INFINITY;
     }
-    __syncthreads();
-
-#pragma unroll 4
-    for (int kk = 0; kk < BK; ++kk) {
-      float pa[4], vb[NC];
+    // the online softmax in base 2, the scale folded into log2 e
+    float mx[2] = {m[0], m[1]};
 #pragma unroll
-      for (int i = 0; i < 4; ++i) pa[i] = sP[(ty + 16 * i) * (BK + 1) + kk];
+    for (int j = 0; j < NS; ++j) {
+      mx[0] = fmaxf(mx[0], fmaxf(s[j][0], s[j][1]));
+      mx[1] = fmaxf(mx[1], fmaxf(s[j][2], s[j][3]));
+    }
+    float base[2], corr[2];
 #pragma unroll
-      for (int n = 0; n < NC; ++n) {
-        const int col = tx + 16 * n;
-        vb[n] = col < d ? sV[kk * d + col] : 0.f;
+    for (int r = 0; r < 2; ++r) {  // a quad (4 lanes) holds one row
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+      base[r] = mx[r] == -INFINITY ? 0.f : mx[r] * sl2;  // no live key yet: exp2(-inf) = 0
+      corr[r] = ex2(m[r] * sl2 - base[r]);                // 0 on the row's first live tile
+      m[r] = mx[r];
+      l[r] *= corr[r];
+    }
+#pragma unroll
+    for (int j = 0; j < NS; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        s[j][e] = ex2(fmaf(s[j][e], sl2, -base[e >> 1]));
+        l[e >> 1] += s[j][e];
       }
 #pragma unroll
-      for (int i = 0; i < 4; ++i)
+    for (int n = 0; n < 2 * NC; ++n) {
+      o[n][0] *= corr[0];
+      o[n][1] *= corr[0];
+      o[n][2] *= corr[1];
+      o[n][3] *= corr[1];
+    }
+
+    // O += P·V, P in fp32 (the Pallas kernel's P)
 #pragma unroll
-        for (int n = 0; n < NC; ++n) acc[i][n] = fmaf(pa[i], vb[n], acc[i][n]);
+    for (int j = 0; j < NS; ++j) {
+      uint32_t ph[4], pl[4];
+      split(s[j][0], ph[0], pl[0]);
+      split(s[j][2], ph[1], pl[1]);
+      split(s[j][1], ph[2], pl[2]);
+      split(s[j][3], ph[3], pl[3]);
+      const float* v0 = v_at + 8 * j * C::LDV;
+#pragma unroll
+      for (int c = 0; c < NC; ++c) {
+        const float2 x = *reinterpret_cast<const float2*>(v0 + 16 * c);
+        const float2 y = *reinterpret_cast<const float2*>(v0 + C::LDV + 16 * c);
+        uint32_t bh0[2], bl0[2], bh1[2], bl1[2];
+        split(x.x, bh0[0], bl0[0]);
+        split(y.x, bh0[1], bl0[1]);
+        split(x.y, bh1[0], bl1[0]);
+        split(y.y, bh1[1], bl1[1]);
+        mma3(o[2 * c], ph, pl, bh0, bl0);
+        mma3(o[2 * c + 1], ph, pl, bh1, bl1);
+      }
     }
   }
+  cp_async_wait<0>();  // no copy outlives the block
 
+  float inv[2];
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int qi = q0 + ty + 16 * i;
-    if (qi >= p.sq) continue;
-    const float denom = fmaxf(l[i], 1e-30f);
+  for (int r = 0; r < 2; ++r) {
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
+    inv[r] = 1.f / fmaxf(l[r], 1e-30f);  // a row with no live key: O = 0, l = 0 → 0
+  }
 #pragma unroll
-    for (int n = 0; n < NC; ++n) {
-      const int col = tx + 16 * n;
-      if (col < d) og[qi * q_stride + col] = acc[i][n] / denom;
+  for (int r = 0; r < 2; ++r) {
+    const int row = r0 + 8 * r;
+    if (row >= p.sq) continue;
+#pragma unroll
+    for (int c = 0; c < NC; ++c) {
+      const int col = 16 * c + 4 * t;
+      if (col < d)
+        *reinterpret_cast<float4*>(og + row * q_stride + col) =
+            make_float4(o[2 * c][2 * r] * inv[r], o[2 * c + 1][2 * r] * inv[r],
+                        o[2 * c][2 * r + 1] * inv[r], o[2 * c + 1][2 * r + 1] * inv[r]);
     }
   }
-}
-
-size_t smem_bytes(int d) {
-  return sizeof(float) * ((size_t)BQ * (d + 1) + (size_t)BK * (d + 1) + (size_t)BK * d +
-                          (size_t)BQ * (BK + 1));
 }
 
 }  // namespace f32
@@ -267,7 +431,6 @@ constexpr int THREADS = 128 * (1 + CONSUMERS);  // warpgroup 0 produces
 constexpr int PRODUCER_REGS = 24;               // setmaxnreg: 65536 registers in all
 constexpr int CONSUMER_REGS = 160;
 constexpr int PW = 16;  // columns per panel: one 32-byte row, the swizzle's width
-constexpr float LOG2E = 1.4426950408889634f;
 
 // Shared memory. A tile of R rows and DP columns is DP/16 panels of [R][16]
 // bf16, each filled by one TMA box with the 32-byte swizzle, the layout wgmma
@@ -281,10 +444,6 @@ template <int DP> struct Smem {
 // the block's dynamic shared memory: the tiles, plus room to start them on a
 // 1024-byte boundary
 template <int DP> constexpr size_t smem_bytes() { return sizeof(Smem<DP>) + 1024; }
-
-__device__ __forceinline__ uint32_t smem_u32(const void* ptr) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(ptr));
-}
 
 // -- mbarriers ----------------------------------------------------------------
 __device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
@@ -482,12 +641,6 @@ template <> __device__ __forceinline__ void wgmma_rs<128>(float (&d)[64], const 
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);  // round to nearest even, as a cast does
   return *reinterpret_cast<uint32_t*>(&v);
-}
-
-__device__ __forceinline__ float ex2(float x) {  // 2^x, one MUFU op; -inf → 0
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
-  return y;
 }
 
 template <int DP>
@@ -771,9 +924,9 @@ struct Plan {
   size_t smem;
 };
 
-template <int NC> Plan f32_plan(int d) {
-  return {reinterpret_cast<const void*>(f32::flash_fwd_f32_kernel<NC>), f32::THREADS, f32::BQ,
-          f32::smem_bytes(d)};
+template <int DP> Plan f32_plan() {
+  return {reinterpret_cast<const void*>(f32::flash_fwd_f32_kernel<DP>), f32::THREADS, f32::BQ,
+          f32::Cfg<DP>::SMEM};
 }
 template <int DP> Plan bf16_plan() {
   return {reinterpret_cast<const void*>(wg::flash_fwd_bf16_kernel<DP>), wg::THREADS, wg::BQ,
@@ -789,14 +942,14 @@ cudaError_t plan_for(int d, int dtype, Plan* out) {
   const int blocks16 = (d + 15) / 16;
   if (dtype == 0) {
     switch (blocks16) {
-      case 1: *out = f32_plan<1>(d); break;
-      case 2: *out = f32_plan<2>(d); break;
-      case 3: *out = f32_plan<3>(d); break;
-      case 4: *out = f32_plan<4>(d); break;
-      case 5: *out = f32_plan<5>(d); break;
-      case 6: *out = f32_plan<6>(d); break;
-      case 7: *out = f32_plan<7>(d); break;
-      case 8: *out = f32_plan<8>(d); break;
+      case 1: *out = f32_plan<16>(); break;
+      case 2: *out = f32_plan<32>(); break;
+      case 3: *out = f32_plan<48>(); break;
+      case 4: *out = f32_plan<64>(); break;
+      case 5: *out = f32_plan<80>(); break;
+      case 6: *out = f32_plan<96>(); break;
+      case 7: *out = f32_plan<112>(); break;
+      case 8: *out = f32_plan<128>(); break;
     }
   } else if (dtype == 1) {
     switch (blocks16) {
@@ -818,16 +971,16 @@ cudaError_t plan_for(int d, int dtype, Plan* out) {
 }  // namespace
 
 // q: [B, Sq, H, D], k/v: [B, Skv, KV, D], o: [B, Sq, H, D], all contiguous and of one
-// type (dtype 0: fp32, 1: bf16); bf16 pointers start on 16-byte boundaries (TMA's
-// rule). window <= 0 means no window. Launches on `stream` and returns the
+// type (dtype 0: fp32, 1: bf16), each starting on a 16-byte boundary (the rule of
+// TMA and of cp.async's 16-byte copies). window <= 0 means no window. Launches on `stream` and returns the
 // launch's cudaError_t (0 on success); does not synchronise.
 extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v, void* o, int b,
                                    int sq, int skv, int h, int kv, int d, int causal, int window,
                                    float scale, int dtype, void* stream) {
   if (b <= 0 || sq <= 0 || skv <= 0 || h <= 0 || kv <= 0 || h % kv != 0)
     return (int)cudaErrorInvalidValue;
-  if (dtype == 1 && ((reinterpret_cast<uintptr_t>(q) | reinterpret_cast<uintptr_t>(k) |
-                      reinterpret_cast<uintptr_t>(v) | reinterpret_cast<uintptr_t>(o)) & 15))
+  if ((reinterpret_cast<uintptr_t>(q) | reinterpret_cast<uintptr_t>(k) |
+       reinterpret_cast<uintptr_t>(v) | reinterpret_cast<uintptr_t>(o)) & 15)
     return (int)cudaErrorMisalignedAddress;
   Plan plan;
   cudaError_t err = plan_for(d, dtype, &plan);

@@ -116,17 +116,19 @@ def flash_attention(q: Tensor, k: Tensor, v: Tensor, *, causal: bool = True,
     k/v may have fewer (KV) heads; the kernel reads KV head ``h // (H/KV)``
     and never materializes the repeat. Causal masking is top-left (k ≤ q on
     indices from 0); ``window`` keeps keys with q − k < window. On the card
-    bf16 runs on the tensor cores (wgmma, fed by TMA, which needs q/k/v to
-    start on 16-byte boundaries) and fp32 on CUDA-core FMAs.
+    both types run on the tensor cores, and q/k/v must start on 16-byte
+    boundaries: bf16 on wgmma fed by TMA, fp32 on mma.sync fed by 16-byte
+    ``cp.async`` copies, each product as three TF32 products (3xTF32), which
+    holds fp32 accuracy.
     """
     _check_attention(q, k, v, window)
     if q.device.type == "cpu":
         return flash_attention_plain(q, k, v, causal=causal, window=window)
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention runs on cpu or cuda tensors, not {q.device}")
-    if q.dtype == torch.bfloat16 and any(t.data_ptr() % 16 for t in (q, k, v)):
-        raise ValueError("bf16 q/k/v must start on 16-byte boundaries for the CUDA kernel "
-                         "(TMA's rule)")
+    if any(t.data_ptr() % 16 for t in (q, k, v)):
+        raise ValueError("q/k/v must start on 16-byte boundaries for the CUDA kernel "
+                         "(the rule of TMA and of 16-byte cp.async copies)")
     lib = _flash_lib()
     b, sq, h, d = q.shape
     _, skv, kv, _ = k.shape
@@ -244,7 +246,7 @@ def fused_rmsnorm(x: Tensor, w: Tensor) -> Tensor:
     lib = _rmsnorm_lib()
     out = torch.empty_like(x)
     vec = d % (16 // x.element_size()) == 0 and x.data_ptr() % 16 == 0 \
-        and out.data_ptr() % 16 == 0
+        and w.data_ptr() % 16 == 0 and out.data_ptr() % 16 == 0
     with torch.cuda.device(x.device):
         _launch("rmsnorm", lib.rmsnorm_fwd, x.data_ptr(), w.data_ptr(), out.data_ptr(),
                 x.numel() // d, d, RMSNORM_EPS, _DTYPE_CODE[x.dtype], int(vec))

@@ -120,6 +120,110 @@ def test_tensor_core_order_of_work_matches_pallas(b, sq, skv, h, kv, d, causal, 
     assert err < 2e-2, err
 
 
+def _tf32(x):
+    """fp32 ``x`` truncated to TF32 (10 stored mantissa bits), as the tensor
+    core reads a raw fp32 operand."""
+    return (x.contiguous().view(torch.int32) & ~0x1FFF).view(torch.float32)
+
+
+def _split(x):
+    """The fp32 kernel's split: hi = x's raw bits, which the tensor core reads
+    truncated to TF32; lo = x − hi (exact), read truncated in turn."""
+    hi = _tf32(x)
+    return hi, _tf32(x - hi)
+
+
+def _mma(a, b, k: int, terms: int):
+    """a @ b over the last/first axes in k-steps of 8, as mma.sync m16n8k8
+    does: per step lo·hi and hi·lo first, then hi·hi, into one fp32
+    accumulator (``terms`` 3); or hi·hi alone (``terms`` 1, one TF32 product)."""
+    ah, al = _split(a)
+    bh, bl = _split(b)
+    acc = torch.zeros(*a.shape[:-1], b.shape[-1])
+    for c in range(0, k, 8):
+        sa, sb = slice(c, c + 8), slice(c, c + 8)
+        if terms == 3:
+            acc = acc + al[..., sa] @ bh[..., sb, :]
+            acc = acc + ah[..., sa] @ bl[..., sb, :]
+        acc = acc + ah[..., sa] @ bh[..., sb, :]
+    return acc
+
+
+def _f32_tensor_core_order(q, k, v, causal, window, terms=3, bk=64):
+    """The fp32 CUDA kernel's order of work (``csrc/flash_attention.cu``,
+    ``f32::flash_fwd_f32_kernel``) on the CPU: 64-key tiles, S = Q·Kᵀ and
+    O += P·V as TF32 products in k-steps of 8 (3xTF32: ``terms`` 3), P in
+    fp32, the online softmax in base 2 with the scale folded into log2 e,
+    O / max(l, 1e-30). Key tiles and k-steps past Skv or D are zeros."""
+    b, sq, h, d = q.shape
+    skv, rep = k.shape[1], h // k.shape[2]
+    dp, kp = -(-d // 16) * 16, -(-skv // bk) * bk  # D padded to 16, Skv to the tile
+    qf = torch.nn.functional.pad(q.float().transpose(1, 2), (0, dp - d))
+    kf = torch.nn.functional.pad(k.float().repeat_interleave(rep, dim=2).transpose(1, 2),
+                                 (0, dp - d, 0, kp - skv))
+    vf = torch.nn.functional.pad(v.float().repeat_interleave(rep, dim=2).transpose(1, 2),
+                                 (0, dp - d, 0, kp - skv))
+    sl2 = torch.tensor((1.0 / np.sqrt(d)) * np.log2(np.e), dtype=torch.float32)
+    m = torch.full((b, h, sq), -torch.inf)
+    l = torch.zeros((b, h, sq))
+    o = torch.zeros((b, h, sq, dp))
+    qi = torch.arange(sq)[:, None]
+    for k0 in range(0, skv, bk):
+        kj = torch.arange(k0, k0 + bk)[None, :]
+        live = kj < skv
+        if causal:
+            live = live & (kj <= qi)
+        if window is not None:
+            live = live & (qi - kj < window)
+        s = _mma(qf, kf[:, :, k0:k0 + bk].transpose(-1, -2), dp, terms)
+        s = torch.where(live, s, -torch.inf)
+        mx = torch.maximum(m, s.amax(-1))
+        base = torch.where(mx == -torch.inf, 0.0, mx * sl2)
+        corr = torch.exp2(m * sl2 - base)
+        p = torch.exp2(s * sl2 - base[..., None])
+        l = l * corr + p.sum(-1)
+        o = o * corr[..., None] + _mma(p, vf[:, :, k0:k0 + bk], bk, terms)
+        m = mx
+    return (o / l.clamp(min=1e-30)[..., None])[..., :d].transpose(1, 2)
+
+
+# tests/test_kernels.py's fp32 ATTN_CASES, a D = 128 GQA case and a ragged
+# bidirectional one (Skv = 150: the last 64-key tile holds 42 zero keys)
+F32_TC_CASES = [
+    (2, 128, 128, 4, 4, 64, True, None),
+    (2, 100, 100, 4, 1, 32, True, 48),
+    (1, 64, 192, 2, 2, 128, False, None),
+    (1, 160, 160, 2, 2, 80, True, None),
+    (2, 100, 100, 4, 4, 64, False, None),
+    (1, 70, 70, 2, 2, 64, False, None),
+    (1, 192, 192, 4, 1, 128, True, None),
+    (1, 150, 150, 2, 2, 72, False, None),
+]
+
+
+@pytest.mark.parametrize("b,sq,skv,h,kv,d,causal,window", F32_TC_CASES)
+def test_f32_tensor_core_order_of_work_matches_pallas(b, sq, skv, h, kv, d, causal, window):
+    """3xTF32 products per 8-wide k-step, as the fp32 CUDA kernel runs them,
+    stay within the fp32 limit (1e-4) of the Pallas kernel, on unit-normal
+    inputs and with q and k scaled so that the scaled scores reach ±23–32;
+    one TF32 product on the same inputs does not (the reason for three)."""
+    rs = np.random.default_rng(5)
+    qn, kn, vn = (rs.standard_normal(shape, dtype=np.float32)
+                  for shape in ((b, sq, h, d), (b, skv, kv, d), (b, skv, kv, d)))
+    gain = np.float32(np.sqrt(6.0))  # scaled scores of std 6
+    for scale in (np.float32(1.0), gain):
+        (qj, qt), (kj, kt), (vj, vt) = (_pair(a, "float32") for a in
+                                        (qn * scale, kn * scale, vn))
+        expect = _f32(jax_kops.flash_attention(qj, kj, vj, causal=causal, window=window))
+        out = _f32_tensor_core_order(qt, kt, vt, causal, window)
+        assert out.shape == (b, sq, h, d)
+        err = float(np.abs(_f32(out) - expect).max())
+        assert err < 1e-4, (scale, err)
+        one = _f32_tensor_core_order(qt, kt, vt, causal, window, terms=1)
+        err1 = float(np.abs(_f32(one) - expect).max())
+        assert err1 > 1e-4, (scale, err1)
+
+
 @pytest.mark.parametrize("bad,match", [
     (dict(d=36), "multiple of 8"),
     (dict(d=136), "at most 128"),

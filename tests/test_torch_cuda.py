@@ -110,6 +110,39 @@ def test_flash_attention_cuda_rejects_misaligned_views(card, which):
     assert ops.LAUNCHES["flash_attention"] == n0
 
 
+# fp32 at large score magnitudes: q and k scaled by √6, so the scaled scores
+# (std 6) reach ±25–35, where one TF32 product per fp32 product misses 1e-4
+# (tests/test_torch_attention.py shows it); GQA and a window at D = 64, 80, 128
+F32_LARGE_CASES = [(2, 320, 320, 8, 2, 64, True, 100), (1, 384, 384, 8, 4, 80, True, 256),
+                   (1, 256, 320, 12, 2, 128, False, 64)]
+
+
+@pytest.mark.parametrize("b,sq,skv,h,kv,d,causal,window", F32_LARGE_CASES)
+def test_flash_attention_fp32_holds_large_scores(card, b, sq, skv, h, kv, d, causal, window):
+    gen = torch.Generator(device=card).manual_seed(3)
+    q, k, v = (torch.randn(shape, generator=gen, device=card)
+               for shape in ((b, sq, h, d), (b, skv, kv, d), (b, skv, kv, d)))
+    q, k = q * 6 ** 0.5, k * 6 ** 0.5
+    out = ops.flash_attention(q, k, v, causal=causal, window=window)
+    expect = ops.flash_attention_plain(q, k, v, causal=causal, window=window)
+    scores = torch.einsum("bqhd,bkhd->bhqk", q, k.repeat_interleave(h // kv, dim=2)) / d ** 0.5
+    assert float(scores.abs().max()) > 20
+    assert float((out - expect).abs().max()) <= 1e-4
+
+
+@pytest.mark.parametrize("which", ["q", "k", "v"])
+def test_flash_attention_fp32_rejects_misaligned_views(card, which):
+    """The fp32 kernel's 16-byte cp.async copies need 16-byte-aligned bases."""
+    shapes = {"q": (1, 64, 4, 80), "k": (1, 64, 2, 80), "v": (1, 64, 2, 80)}
+    t = {n: torch.randn(s, device=card) for n, s in shapes.items()}
+    buf = torch.zeros(1 + t[which].numel(), device=card)
+    t[which] = buf.flatten()[1:].view(shapes[which])  # contiguous, 4 bytes off a boundary
+    n0 = ops.LAUNCHES["flash_attention"]
+    with pytest.raises(ValueError, match="16-byte"):
+        ops.flash_attention(t["q"], t["k"], t["v"], causal=True)
+    assert ops.LAUNCHES["flash_attention"] == n0
+
+
 def test_flash_attention_cuda_rejects_without_plain_fallback(card):
     q = torch.zeros(1, 4, 8, 32, device=card).transpose(1, 2)  # not contiguous
     k = torch.zeros(1, 8, 2, 32, device=card)
@@ -176,6 +209,10 @@ def test_virtual_rank_collectives_on_card_equal_cpu(card):
 RMS_CASES = [((4, 37, 512), "float32"), ((2, 130, 768), "bfloat16"), ((1, 1, 2048), "float32"),
              ((512, 64), "float32"), ((5, 37), "float32"), ((3, 100), "bfloat16"),
              ((4096, 128), "float32"), ((2 * 4608, 2560), "bfloat16")]
+# the longest rows held in registers (16 vectors a lane: 4096 bf16, 2048 fp32), one
+# 16-byte vector past them (the two-pass walk), and an odd d past them (scalar)
+RMS_CASES += [((64, 4096), "bfloat16"), ((64, 4104), "bfloat16"), ((64, 2052), "float32"),
+              ((9, 4097), "bfloat16")]
 
 
 @pytest.mark.parametrize("shape,dt", RMS_CASES)
@@ -202,6 +239,16 @@ def test_rmsnorm_kernel_takes_unaligned_rows(card):
     w = torch.randn(128, device=card) * 0.2
     expect = ref.reference_rmsnorm(x, w)
     assert float((ops.fused_rmsnorm(x, w) - expect).abs().max()) <= 1e-5
+
+
+def test_rmsnorm_kernel_takes_an_unaligned_w(card):
+    buf = torch.randn(1 + 2560, device=card) * 0.2
+    w = buf[1:]  # 4 bytes past a 16-byte boundary: the scalar path
+    x = torch.randn(64, 2560, device=card).to(torch.bfloat16)
+    expect = ref.reference_rmsnorm(x, w).float()
+    limit = torch.maximum(torch.full_like(expect, 2e-2), torch.exp2(torch.floor(torch.log2(
+        expect.abs().clamp(min=2.0 ** -126))) - 7))
+    assert bool(((ops.fused_rmsnorm(x, w).float() - expect).abs() <= limit).all())
 
 
 def test_overlapped_rmsnorm_pipeline_on_card_equals_cpu(card):
