@@ -1,0 +1,8 @@
+"""Device time a step of the loss (``train/loss``: the cross-entropy and the
+balance term) and its backward, the recomputation left out, ms."""
+
+from bench import module_time
+
+
+def read(trace):
+    return module_time.ms_per_step(trace, "loss")

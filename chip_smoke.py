@@ -49,11 +49,8 @@ JAX or of the JAX package. No phase's failure is caught.
      monolithic compressed run); and a checkpoint round trip: the overlap
      run is restarted from its step-3 checkpoint and must end on the same
      final loss, exactly.
-  6. One profiled training step per comm at the same size (after a warm
-     step; lumorph4 also with ``--overlap 4``): host and device time of the
-     step's stages (``train/forward_backward``, ``train/grad_comm``,
-     ``train/adamw``), the card's busy time and idle share, and the kernels
-     that take the most.
+  6. Retired: the benchmark's traced run (``bench/run.py --trace 1``) splits
+     a training step by stage and by module on the card.
   7. Overlap mode, the port's twin of the JAX package's overlap benchmark:
      8 virtual ranks, lumorph2, each reduced chunk consumed by the RMSNorm
      kernel over rows of 128 (w = 0), monolithic and C ∈ {2, 4, 8}, at a
@@ -481,13 +478,6 @@ QUANT_SIZES = [256, 1000, 65536, 12345]
 BUCKET_N, LEAF_N = 25 * 1024 * 1024 // 4, 30522 * 1024
 TRAIN = ["--arch", "bert-large", "--data-parallel", "4", "--batch", "8", "--seq", "128",
          "--steps", "6", "--log-every", "1"]
-# device work by kind, for phase 6: the first kind whose words a kernel's name holds
-KERNEL_KINDS = [("gemm", ("gemm", "xmma", "cutlass", "cublas", "sm90_", "nvjet")),
-                ("int8", ("quantize_kernel",)),
-                ("index", ("index", "scatter", "gather")),
-                ("reduce", ("reduce",)),
-                ("copy", ("Memcpy", "Memset", "copy")),
-                ("elementwise", ("elementwise",))]
 TRAIN_RUNS = [("xla", ["--comm", "xla", "--wire-dtype", "float32"]),
               ("lumorph4", ["--comm", "lumorph4", "--wire-dtype", "float32"]),
               ("lumorph2+int8", ["--comm", "lumorph2", "--compress"]),
@@ -2348,64 +2338,6 @@ def moe_rank(out_dir: str) -> None:
     pathlib.Path(out_dir, f"rank{world.rank}.json").write_text(json.dumps(out))
 
 
-def phase_trace(get_config, steps_lib, pipeline, AdamWConfig) -> dict:
-    """Phase 6: one full-width training step per comm under ``torch.profiler``,
-    after one warm step: host and device time of the step's three stages,
-    the card's busy time and idle share, and the kernels that take the most."""
-    from torch.profiler import DeviceType, ProfilerActivity, profile
-    cfg = get_config("bert-large")
-    batch = pipeline.batch_at(0, cfg, pipeline.DataConfig(global_batch=8, seq_len=128))
-    out = {}
-    for name, comm, compress, wire, overlap in (
-            ("xla", "xla", False, torch.float32, 1),
-            ("lumorph4", "lumorph4", False, torch.float32, 1),
-            ("lumorph2+int8", "lumorph2", True, torch.bfloat16, 1),
-            ("lumorph4+ovl4", "lumorph4", False, torch.float32, 4)):
-        params, opt = steps_lib.init_train_state(cfg, 4, 0, "cuda", init_ef=compress)
-        step = steps_lib.make_train_step(cfg, AdamWConfig(total_steps=6, warmup_steps=1),
-                                         comm=comm, dp=4, compress=compress,
-                                         wire_dtype=wire, overlap_chunks=overlap,
-                                         device="cuda")
-        params, opt, _ = step(params, opt, batch)
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            params, opt, loss = step(params, opt, batch)
-            torch.cuda.synchronize()
-            wall_ms = (time.perf_counter() - t0) * 1e3
-        evts = prof.events()
-        marks = [e for e in evts if e.name.startswith("train/")]
-        gpu = [e for e in evts if e.device_type == DeviceType.CUDA and e not in marks]
-        busy_ms = sum(e.time_range.elapsed_us() for e in gpu) / 1e3  # kernels, copies
-
-        def kernel_ms(lo, hi):  # device time of the work that starts in [lo, hi]
-            return sum(e.time_range.elapsed_us() for e in gpu
-                       if lo <= e.time_range.start <= hi) / 1e3
-        spans = {}
-        for e in marks:  # the host-side mark, and its span on the device timeline
-            key = "host_ms" if e.device_type == DeviceType.CPU else "device_span_ms"
-            spans.setdefault(e.name, {})[key] = e.time_range.elapsed_us() / 1e3
-            if e.device_type == DeviceType.CUDA:
-                spans[e.name]["kernel_ms"] = kernel_ms(e.time_range.start, e.time_range.end)
-        by_name, by_kind = {}, {}
-        for e in gpu:
-            ms = e.time_range.elapsed_us() / 1e3
-            by_name[e.name] = by_name.get(e.name, 0.0) + ms
-            kind = next((k for k, words in KERNEL_KINDS if any(w in e.name for w in words)),
-                        "other")
-            by_kind[kind] = by_kind.get(kind, 0.0) + ms
-        top = sorted(by_name.items(), key=lambda kv: -kv[1])[:12]
-        out[name] = {
-            "wall_ms": wall_ms, "device_busy_ms": busy_ms,
-            "idle_share": 1 - busy_ms / wall_ms if busy_ms > 0 else "not measured",
-            "spans": spans, "device_ops": len(gpu), "by_kind_ms": by_kind,
-            "top": [[k[:90], v] for k, v in top]}
-        print(json.dumps({"trace": name, **out[name]}), flush=True)
-        del params, opt, step, prof, evts, marks, gpu
-        torch.cuda.empty_cache()
-    return out
-
-
 def phase_prefill(get_config, tf, make_prefill, ops) -> dict:
     """Phase 3: full-width danube prefill, kernel path against the plain path."""
     dev = torch.device("cuda")
@@ -3539,11 +3471,6 @@ def main() -> None:
     print(json.dumps({"launches": {"serving": serving, "training": training}}), flush=True)
     done("5_training", t_phase)
 
-    # -- phase 6: where a training step spends its time ---------------------
-    t_phase = time.perf_counter()
-    trace = phase_trace(get_config, steps_lib, pipeline, AdamWConfig)
-    done("6_trace", t_phase)
-
     # -- phase 7: overlap mode, the RMSNorm kernel as each chunk's consumer --
     t_phase = time.perf_counter()
     reset_launches()
@@ -3841,7 +3768,7 @@ def main() -> None:
             C: r["rmsnorm_launches_per_rank"] for C, r in dist_runs["overlap"].items()}},
     })
     print(json.dumps({"kernels": records}), flush=True)
-    print(json.dumps({"prefill": prefill, "train": runs, "trace": trace, "overlap": overlap,
+    print(json.dumps({"prefill": prefill, "train": runs, "overlap": overlap,
                       "deepseek": deepseek, "dbrx": dbrx, "dense": dense, "ssm": ssm_runs,
                       "whisper": whisper, "paligemma": paligemma, "auto": auto,
                       "policies": policies, "kivi": kivi, "dryrun": dry, "roofline": roof,

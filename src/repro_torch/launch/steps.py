@@ -52,8 +52,17 @@ flash-attention kernel, once per standard-attention layer (``"dense"``,
 ``"moe"``); MLA layers take the dense or chunked path, as in JAX.
 
 The train step marks its three stages for ``torch.profiler``
-(``train/forward_backward``, ``train/grad_comm``, ``train/adamw``), which
-``chip_smoke.py`` reads to split a step's host and device time.
+(``train/forward_backward``, ``train/grad_comm``, ``train/adamw``) and sets
+the namespace ``train`` for the length of its call, under which the model's
+module spans open while a profiler runs (:mod:`repro_torch.spans`):
+``train/forward`` and ``train/backward`` (host only), ``train/embed``,
+``train/norm``, ``train/attention``, ``train/ffn``, ``train/unembed`` and
+``train/loss``, each with its ``.bwd`` span, and ``train/recompute``. The
+prefill, the encode and the decode set no namespace and mark nothing. The
+benchmark's traced run reads them (``bench/metrics/``: ``fwd_bwd_ms.train``,
+``adamw_ms.train``, ``grad_comm_ms.train``, the modules' ``*_ms.train`` and
+``recompute_ms.train`` on the device; ``host_fwd_ms.train``,
+``host_bwd_ms.train`` and ``bwd_idle_ms.train`` from the host's spans).
 """
 
 from __future__ import annotations
@@ -66,6 +75,7 @@ from torch.distributed.tensor import DTensor, Replicate
 from torch.distributed.tensor.experimental import implicit_replication
 from torch.profiler import record_function
 
+from repro_torch import spans
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core import collectives_dist
 from repro_torch.device import resolve_device
@@ -301,11 +311,17 @@ def make_train_step(cfg: ModelConfig, opt_cfg: Optional[AdamWConfig] = None,
     # re-lays the rows so that its contiguous share holds its part of each
     relay = comm == "xla" and group is not None and dp > 1 and microbatches > 1
 
+    def loss_and_grads(params, plist, batch):
+        with spans.host_span("forward"):
+            loss = tf.loss_fn(params, batch, cfg)
+        with spans.host_span("backward"):
+            return loss, torch.autograd.grad(loss, plist)
+
     def grad_fn(params, batch) -> tuple[torch.Tensor, list[torch.Tensor]]:
         plist = leaves(params)
         if microbatches == 1:
-            loss = tf.loss_fn(params, batch, cfg)
-            return loss.detach(), list(torch.autograd.grad(loss, plist))
+            loss, g = loss_and_grads(params, plist, batch)
+            return loss.detach(), list(g)
         b = batch["tokens"].shape[0]
         if b % microbatches:
             raise ValueError(f"{b} rows per rank do not split into {microbatches} microbatches")
@@ -314,14 +330,17 @@ def make_train_step(cfg: ModelConfig, opt_cfg: Optional[AdamWConfig] = None,
         for i in range(microbatches):
             mb = {k: v.reshape(microbatches, b // microbatches, *v.shape[1:])[i]
                   for k, v in batch.items()}
-            loss = tf.loss_fn(params, mb, cfg)
-            g = torch.autograd.grad(loss, plist)
+            loss, g = loss_and_grads(params, plist, mb)
             loss_acc = loss_acc + loss.detach()
             g_acc = [a + gi.float() for a, gi in zip(g_acc, g)]
         inv = 1.0 / microbatches
         return loss_acc * inv, [g * inv for g in g_acc]
 
     def step(params, opt_state, batch):
+        with spans.namespace("train"):
+            return spanned_step(params, opt_state, batch)
+
+    def spanned_step(params, opt_state, batch):
         batch = {k: v.to(dev) for k, v in batch.items()}
         b = batch["tokens"].shape[0]
         if b % dp:

@@ -13,7 +13,10 @@ shared block is one unstacked block. ``cfg.remat`` recomputes each block in
 the backward pass (``torch.utils.checkpoint``, non-reentrant), as
 ``jax.checkpoint`` does; every ``remat_policy`` recomputes the whole block,
 which changes memory and time but not the numbers. The MoE blocks' balance
-loss is summed over layers into ``forward_logits``'s aux.
+loss is summed over layers into ``forward_logits``'s aux. Inside a train step
+run under ``torch.profiler`` the embedding, the norms, the attention, the MLP
+or MoE, the unembedding and the loss mark their forward and backward, and each
+block its recomputation (:mod:`repro_torch.spans`).
 
 Whisper (``kind="encdec"``) adds an encoder stack of bidirectional dense
 blocks over precomputed frame embeddings (``use_pallas`` sends its attention
@@ -45,6 +48,7 @@ import torch
 from torch.distributed.tensor import DTensor
 from torch.utils.checkpoint import checkpoint
 
+from repro_torch import spans
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import attention as attn
 from repro_torch.models import moe as moe_lib
@@ -221,17 +225,18 @@ def _mix_forward(kind: str, p: dict, h: Tensor, cfg: ModelConfig) -> Tensor:
 
 def _block_forward(kind: str, p: dict, x: Tensor, positions: Tensor,
                    cfg: ModelConfig, mask_kind: str, prefix_len: int) -> tuple[Tensor, Tensor]:
-    h = apply_norm(cfg.norm, p["ln1"], x)
+    h = spans.wrap("norm", x, lambda t: apply_norm(cfg.norm, p["ln1"], t))
     if kind in _SSM_KINDS:
         return x + _mix_forward(kind, p["mix"], h, cfg), torch.zeros(
             (), dtype=torch.float32, device=x.device)
     if kind in ("dense", "moe"):
-        x = x + attn.attention_forward(p["attn"], h, positions, cfg, mask_kind,
-                                       prefix_len, use_pallas=cfg.use_pallas)
+        x = x + spans.wrap("attention", h, lambda t: attn.attention_forward(
+            p["attn"], t, positions, cfg, mask_kind, prefix_len, use_pallas=cfg.use_pallas))
     else:
-        x = x + attn.mla_forward(p["attn"], h, positions, cfg)
-    h = apply_norm(cfg.norm, p["ln2"], x)
-    y, aux = _ffn(kind, p, h, cfg, cfg.moe_capacity_factor)
+        x = x + spans.wrap("attention", h, lambda t: attn.mla_forward(p["attn"], t, positions,
+                                                                       cfg))
+    h = spans.wrap("norm", x, lambda t: apply_norm(cfg.norm, p["ln2"], t))
+    y, aux = spans.wrap("ffn", h, lambda t: _ffn(kind, p, t, cfg, cfg.moe_capacity_factor))
     return x + y, aux
 
 
@@ -270,9 +275,10 @@ def forward_logits(params: Params, batch: dict, cfg: ModelConfig) -> tuple[Tenso
     cdt = cfg.cdtype
     tokens = batch["tokens"]
     b, s = tokens.shape
-    x = _lookup(params["embed"], tokens).to(cdt)
-    if cfg.scale_embeddings:
-        x = x * torch.tensor(cfg.d_model ** 0.5, dtype=cdt)
+    # the first kernel, so that a traced train step's own range on the device opens with
+    # it (repro_torch.spans)
+    aux = torch.zeros((), dtype=torch.float32, device=tokens.device)
+    x = spans.wrap("embed", params["embed"], lambda t: _embed(t, tokens, cfg))
     mask_kind, prefix_len = "causal", 0
     if cfg.kind == "vlm":  # the image embeds are not scaled
         x = torch.cat([batch["image_embeds"].to(cdt), x], dim=1)
@@ -282,9 +288,8 @@ def forward_logits(params: Params, batch: dict, cfg: ModelConfig) -> tuple[Tenso
     if cfg.kind == "encdec":
         enc_out = encoder_forward(params["encoder"], batch["frames"], cfg)
         x = x + sinusoidal_positions(s, cfg.d_model, device=x.device).to(cdt)[None]
-        return _decoder_cross_forward(params, x, enc_out, positions, cfg)
+        return _decoder_cross_forward(params, x, enc_out, positions, cfg), aux
     remat = _remat(cfg)
-    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     x0, layer_idx = x, 0
     for seg_params, (kind, count) in zip(params["segments"], segments_of(cfg)):
         if _shared_site(cfg, layer_idx):  # segments split at every site
@@ -292,11 +297,21 @@ def forward_logits(params: Params, batch: dict, cfg: ModelConfig) -> tuple[Tenso
         layer_idx += count
         for layer in _layers(seg_params, count):
             args = (kind, layer, x, positions, cfg, mask_kind, prefix_len)
-            x, a = (checkpoint(_block_forward, *args, use_reentrant=False) if remat
+            x, a = (checkpoint(_block_forward, *args, use_reentrant=False,
+                               context_fn=spans.checkpoint_contexts) if remat
                     else _block_forward(*args))
             aux = aux + a
-    x = apply_norm(cfg.norm, params["final_norm"], x)
-    return _unembed(params, x, cfg), aux
+    x = spans.wrap("norm", x, lambda t: apply_norm(cfg.norm, params["final_norm"], t))
+    return spans.wrap("unembed", x, lambda t: _unembed(params, t, cfg)), aux
+
+
+def _embed(table: Tensor, tokens: Tensor, cfg: ModelConfig) -> Tensor:
+    """The embedding rows of ``tokens`` in the compute dtype, scaled where the
+    model scales them."""
+    x = _lookup(table, tokens).to(cfg.cdtype)
+    if cfg.scale_embeddings:
+        x = x * torch.tensor(cfg.d_model ** 0.5, dtype=cfg.cdtype)
+    return x
 
 
 def _lookup(table: Tensor, tokens: Tensor) -> Tensor:
@@ -328,7 +343,8 @@ def encoder_forward(enc: Params, frames: Tensor, cfg: ModelConfig) -> Tensor:
     remat = _remat(cfg)
     for layer in _layers(enc["layers"], cfg.enc_layers):
         args = ("dense", layer, x, positions, cfg, "bidirectional", 0)
-        x = (checkpoint(_block_forward, *args, use_reentrant=False) if remat
+        x = (checkpoint(_block_forward, *args, use_reentrant=False,
+                        context_fn=spans.checkpoint_contexts) if remat
              else _block_forward(*args))[0]
     return apply_norm(cfg.norm, enc["final_norm"], x)
 
@@ -348,7 +364,7 @@ def _cross_block(p: dict, x: Tensor, enc_out: Tensor, positions: Tensor,
 
 
 def _decoder_cross_forward(params: Params, x: Tensor, enc_out: Tensor, positions: Tensor,
-                           cfg: ModelConfig) -> tuple[Tensor, Tensor]:
+                           cfg: ModelConfig) -> Tensor:
     enc_pos = _positions(x.shape[0], enc_out.shape[1], x.device)
     remat = _remat(cfg)
     for layer in _layers(params["segments"][0], cfg.n_layers):
@@ -356,7 +372,7 @@ def _decoder_cross_forward(params: Params, x: Tensor, enc_out: Tensor, positions
         x = (checkpoint(_cross_block, *args, use_reentrant=False) if remat
              else _cross_block(*args))
     x = apply_norm(cfg.norm, params["final_norm"], x)
-    return _unembed(params, x, cfg), torch.zeros((), dtype=torch.float32, device=x.device)
+    return _unembed(params, x, cfg)
 
 
 # ---------------------------------------------------------------------------
@@ -369,8 +385,8 @@ def loss_fn(params: Params, batch: dict, cfg: ModelConfig) -> Tensor:
     logits, aux = forward_logits(params, batch, cfg)
     if cfg.kind == "vlm":
         logits = logits[:, cfg.num_image_tokens:]
-    ce = cross_entropy(logits[:, :-1], batch["tokens"][:, 1:])
-    return ce + cfg.aux_loss_weight * aux
+    return spans.wrap("loss", logits, lambda t: cross_entropy(t[:, :-1], batch["tokens"][:, 1:])
+                      + cfg.aux_loss_weight * aux)
 
 
 # ---------------------------------------------------------------------------
@@ -530,9 +546,7 @@ def decode_step(params: Params, caches: list, tokens: Tensor, position: int,
     the sinusoidal position ``position`` to the embedding; a vlm decodes text
     only (no image prefix), as the JAX serving launcher does."""
     cdt = cfg.cdtype
-    x = _lookup(params["embed"], tokens).to(cdt)
-    if cfg.scale_embeddings:
-        x = x * torch.tensor(cfg.d_model ** 0.5, dtype=cdt)
+    x = _embed(params["embed"], tokens, cfg)
     if cfg.kind == "encdec":
         x = x + sinusoidal_positions(1, cfg.d_model, position, device=x.device).to(cdt)[None]
     new_caches: list = []
