@@ -48,7 +48,9 @@ JAX or of the JAX package. No phase's failure is caught.
      steps, and ``lumorph2 --compress`` (within 1e-3 relative of the
      monolithic compressed run); and a checkpoint round trip: the overlap
      run is restarted from its step-3 checkpoint and must end on the same
-     final loss, exactly.
+     final loss, exactly. Every LayerNorm of these runs goes through the
+     LayerNorm kernels: 97 forward, 49 backward and 49 reduction launches
+     in each virtual rank's step.
   6. Retired: the benchmark's traced run (``bench/run.py --trace 1``) splits
      a training step by stage and by module on the card.
   7. Overlap mode, the port's twin of the JAX package's overlap benchmark:
@@ -311,6 +313,16 @@ bf16 ulp where that is larger) on the shapes of tests/test_kernels.py, odd
 widths, an overlap chunk's rows and danube's prefill rows, and times it
 from a cold L2 at an overlap chunk of phase 7 and at danube's rows, beside
 its plain version and ``torch.nn.functional.rms_norm``.
+
+Phase 2 also holds the LayerNorm pair (forward, backward and the backward's
+reduction of the weight gradients) against the plain fp32 layer and
+autograd, at bert-large's rows (256 × 128 × 1024) in bf16 and fp32, at
+whisper-tiny's and xlstm-125m's widths, at an odd width and past the
+register hold: y and dx within one rounding to x's dtype or 1e-5 of their
+largest value, dw and db within 1e-5 of their columns' sums of |terms|, the
+limits of tests/test_torch_cuda.py. It times the forward and the backward
+from a cold L2 at bert's rows in bf16, beside their HBM bound (bytes at
+3.35 TB/s), the plain version and ``torch.nn.functional.layer_norm``.
 
 Phase 2 also holds the int8 quantize/dequantize kernels against their plain
 versions, equal in every bit (``torch.equal``), on the sizes of
@@ -670,6 +682,17 @@ RMS_TOL = {torch.float32: 1e-5, torch.bfloat16: 2e-2}
 # the timed shapes: one chunk of phase 7's 256 MB call at C = 4, and danube's rows
 RMS_TIMED = {"overlap_chunk": ((OVL_P * 64_000_000 // 4 // OVL_D, OVL_D), torch.float32),
              "danube_rows": ((2 * 4608, 2560), torch.bfloat16)}
+# the LayerNorm pair: bert-large's rows in its benchmark cell (256 × 128, d 1024) in both
+# types, whisper-tiny's and xlstm-125m's widths, an odd d and a row past the register
+# hold (both the scalar walk); timed at bert's rows in bf16, as its training step runs them
+LN_CASES = [((256 * 128, 1024), torch.bfloat16), ((256 * 128, 1024), torch.float32),
+            ((2, 300, 384), torch.bfloat16), ((3, 200, 768), torch.float32),
+            ((64, 37), torch.bfloat16), ((64, 2048), torch.float32)]
+LN_TIMED = ((256 * 128, 1024), torch.bfloat16)
+# launches of one bert-large training step on one rank: 49 norms forward (two a block
+# and the embeddings'), 48 again in the blocks' recomputation, 49 backward, each backward
+# with its reduction of the weight gradients' partials
+LN_STEP = {"layernorm_fwd": 97, "layernorm_bwd": 49, "layernorm_bwd_reduce": 49}
 
 
 def cuda_ms(fn, reps: int) -> float:
@@ -979,6 +1002,84 @@ def phase_rmsnorm(ops, ref) -> dict:
     return {"checks": checks, "timed": timed}
 
 
+def layernorm_check(ops, ref, x, w, b, dy) -> dict:
+    """The LayerNorm kernels' output and gradients in x, w and b against the plain
+    fp32 layer and autograd on the same values, as tests/test_torch_cuda.py holds them:
+    y and dx within one rounding to x's dtype (one bf16 ulp of the fp32 value) or 1e-5
+    of their largest value; dw and db within 1e-5 of their columns' sums of |terms|
+    (another order of the same fp32 sum). Returns each one's largest error over its
+    limit."""
+    def run(fn, *ts):
+        ts = [t.detach().requires_grad_() for t in ts]
+        y = fn(*ts)
+        return (y.detach(), *torch.autograd.grad(y, ts, dy.to(y.dtype)))
+    got = run(ops.fused_layernorm, x, w, b)
+    expect = run(ref.reference_layernorm, x.float(), w, b)
+    rows = dy.float().reshape(-1, dy.shape[-1])
+    xhat = ((expect[0] - b) / w).reshape(rows.shape)
+    terms = {"dw": (rows * xhat).abs().sum(0), "db": rows.abs().sum(0)}
+    out = {}
+    for name, g, e in zip(("y", "dx", "dw", "db"), got, expect):
+        assert torch.isfinite(g).all(), name
+        if name in terms:
+            assert g.dtype == torch.float32, name
+            limit = 1e-5 * terms[name]
+        else:
+            assert g.dtype == x.dtype and g.shape == x.shape, name
+            limit = torch.full_like(e, 1e-5 * float(e.abs().max()))
+            if x.dtype == torch.bfloat16:
+                limit = torch.maximum(limit, bf16_ulp(e))
+        out[name] = float(((g.float() - e).abs() / limit).max())
+    return out
+
+
+def phase_layernorm(ops, ref) -> dict:
+    """Phase 2, LayerNorm: the forward and backward kernels against the plain fp32
+    layer and autograd on ``LN_CASES``, then both timed from a cold L2 at bert-large's
+    rows beside their HBM bound, the plain version and ``F.layer_norm``."""
+    gen = torch.Generator(device="cuda").manual_seed(33)
+
+    def inputs(shape, dt):
+        x = (torch.randn(shape, generator=gen, device="cuda") * 3 + 1).to(dt)
+        w = 1 + 0.1 * torch.randn(shape[-1], generator=gen, device="cuda")
+        b = 0.1 * torch.randn(shape[-1], generator=gen, device="cuda")
+        return x, w, b, torch.randn(shape, generator=gen, device="cuda").to(dt)
+    checks = []
+    for shape, dt in LN_CASES:
+        over = layernorm_check(ops, ref, *inputs(shape, dt))
+        checks.append({"shape": list(shape), "dtype": str(dt).removeprefix("torch."),
+                       "err_over_limit": over})
+        assert all(v <= 1.0 for v in over.values()), checks[-1]
+        torch.cuda.empty_cache()
+    shape, dt = LN_TIMED
+    x, w, b, dy = inputs(shape, dt)
+    rows, d = x.numel() // shape[-1], shape[-1]
+    xg, wg, bg = (t.clone().requires_grad_() for t in (x, w, b))
+    y = ops.fused_layernorm(xg, wg, bg)
+    y_plain = ref.reference_layernorm(xg, wg, bg)
+    y_lib = torch.nn.functional.layer_norm(xg, (d,), wg.to(dt), bg.to(dt), ops.LAYERNORM_EPS)
+
+    def grads(out):
+        return lambda: torch.autograd.grad(out, (xg, wg, bg), dy, retain_graph=True)
+    # forward: x in, y out; backward: x and dy in, dx out (w, b, dw, db and the rows'
+    # statistics and partials, under 4 MB, left out)
+    fwd_bytes, bwd_bytes = 2 * rows * d * x.element_size(), 3 * rows * d * x.element_size()
+    timed = {"shape": list(shape), "dtype": str(dt).removeprefix("torch."), "bound_by": "bytes"}
+    for key, nbytes, fns in (
+            ("forward", fwd_bytes, (lambda: ops.fused_layernorm(xg, wg, bg),
+                                    lambda: ref.reference_layernorm(xg, wg, bg),
+                                    lambda: torch.nn.functional.layer_norm(
+                                        xg, (d,), wg.to(dt), bg.to(dt), ops.LAYERNORM_EPS))),
+            ("backward", bwd_bytes, (grads(y), grads(y_plain), grads(y_lib)))):
+        ms, plain_ms, library_ms = (cold_ms(fn, n) for fn, n in zip(fns, (20, 5, 20)))
+        bound_ms = nbytes / HBM_BYTES_S * 1e3
+        timed[key] = {"ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
+                      "bound_ms": bound_ms, "bound_frac": bound_ms / ms}
+    del x, w, b, dy, xg, wg, bg, y, y_plain, y_lib
+    torch.cuda.empty_cache()
+    return {"checks": checks, "timed": timed}
+
+
 def phase_overlap(ops, ref, collectives) -> dict:
     """Phase 7: overlap mode on 8 virtual ranks, lumorph2, the RMSNorm kernel as
     each chunk's consumer; monolithic against C ∈ {2, 4, 8} at two sizes."""
@@ -1249,14 +1350,21 @@ def phase_tp(train, get_config, tf, steps_lib) -> dict:
     ``launch.train.main`` with each of ``TP_TRAIN_RUNS``; (b) danube's TP
     prefills, rank 0's gathered logits held against phase 3's; (c) the
     production meshes' layout (``phase_pod``)."""
+    from repro_torch.models import layers
     refs, dp4 = {}, {}
     for name, flags, _ in TP_TRAIN_RUNS:
         refs[name] = train.main(TP_TRAIN + flags)
         torch.cuda.empty_cache()
-    for name in sorted({comm for _, comm, kind, _ in POD_TRAIN_RUNS.values() if kind == "dp4"}):
-        dp4[name] = train.main(POD_TRAIN + dict((n, f) for n, f, _ in TP_TRAIN_RUNS)[name]
-                               + ["--data-parallel", str(DIST_WORLD)])
-        torch.cuda.empty_cache()
+    # (c1)'s placed runs are DTensors, whose LayerNorm is the plain version; their
+    # virtual-rank references take it too, so that the two are held bit for bit
+    on_card, layers.on_card = layers.on_card, lambda x: False
+    try:
+        for name in sorted({c for _, c, kind, _ in POD_TRAIN_RUNS.values() if kind == "dp4"}):
+            dp4[name] = train.main(POD_TRAIN + dict((n, f) for n, f, _ in TP_TRAIN_RUNS)[name]
+                                   + ["--data-parallel", str(DIST_WORLD)])
+            torch.cuda.empty_cache()
+    finally:
+        layers.on_card = on_card
     dev = torch.device("cuda")
     shutil.rmtree(POD_REF_DIR, ignore_errors=True)
     POD_REF_DIR.mkdir(parents=True)
@@ -3446,6 +3554,9 @@ def main() -> None:
     rms = phase_rmsnorm(ops, ref)
     print(json.dumps({"rmsnorm_checks": rms["checks"], "rmsnorm_timed": rms["timed"]}),
           flush=True)
+    ln = phase_layernorm(ops, ref)
+    print(json.dumps({"layernorm_checks": ln["checks"], "layernorm_timed": ln["timed"]}),
+          flush=True)
     done("2_kernels", t_phase)
 
     # -- phases 3 and 4: the serving path -----------------------------------
@@ -3458,6 +3569,7 @@ def main() -> None:
     assert res["finite"] and res["generated_shape"] == [4, 32], res
     assert res["ttft_s"] > 0 and res["tpot_s"] > 0, res
     assert serving["flash_attention"] > 0, serving
+    assert all(serving[k] == 0 for k in LN_STEP), serving  # danube's norms are RMSNorm
     torch.cuda.empty_cache()
     done("3_4_serving", t_phase)
 
@@ -3468,6 +3580,10 @@ def main() -> None:
     torch.cuda.synchronize()
     training = dict(ops.LAUNCHES)
     assert training["quantize_int8"] > 0 and training["dequantize_int8"] > 0, training
+    # every LayerNorm of the training path through the kernels: each of the four virtual
+    # ranks' steps (six in each of TRAIN_RUNS, three after the restart) launches LN_STEP
+    rank_steps = 4 * (6 * len(TRAIN_RUNS) + 3)
+    assert all(training[k] == n * rank_steps for k, n in LN_STEP.items()), training
     print(json.dumps({"launches": {"serving": serving, "training": training}}), flush=True)
     done("5_training", t_phase)
 
@@ -3558,6 +3674,7 @@ def main() -> None:
         ssm_launches[arch]["flash_attention"] -= ssm_runs[arch]["timing_launches"]
         assert ssm_launches[arch]["flash_attention"] == 2 * SSM_ARCHS[arch]["launches"], arch
         torch.cuda.empty_cache()
+    assert ssm_launches["xlstm-125m"]["layernorm_fwd"] > 0, ssm_launches  # xlstm's d 768
     print(json.dumps({"launches": {"ssm": ssm_launches}}), flush=True)
     done("11_ssm_hybrid", t_phase)
 
@@ -3579,6 +3696,9 @@ def main() -> None:
     assert res["finite"] and res["generated_shape"] == [4, 24], res
     assert res["encode_s"] > 0 and res["ttft_s"] > 0 and res["tpot_s"] > 0, res
     assert whisper["launches"]["flash_attention"] == whisper["enc_layers"], whisper  # one encode
+    # whisper's LayerNorms (d 384) through the forward kernel; serving takes no gradient
+    assert whisper["launches"]["layernorm_fwd"] > 0, whisper["launches"]
+    assert whisper["launches"]["layernorm_bwd"] == 0, whisper["launches"]
     torch.cuda.empty_cache()
     reset_launches()
     paligemma = phase_paligemma(get_config, tf, steps_lib, flatten_with_paths, ops)
@@ -3766,6 +3886,20 @@ def main() -> None:
         "shape": t["shape"], "dtype": t["dtype"], "danube_rows": rms["timed"]["danube_rows"],
         "launches_by_path": {"overlap": overlapping["rmsnorm"], "cross_process_per_rank": {
             C: r["rmsnorm_launches_per_rank"] for C, r in dist_runs["overlap"].items()}},
+    })
+    records.append({
+        "name": "layernorm", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/layernorm.cu",
+        "replaces": None, "plain": "src/repro_torch/kernels/ref.py:reference_layernorm",
+        "launches": {k: training[k] for k in LN_STEP},
+        "launches_per_rank_step": LN_STEP,
+        "max_err_over_limit": max(v for c in ln["checks"] for v in c["err_over_limit"].values()),
+        **ln["timed"], "ptxas": ptxas["layernorm"],
+        "launches_by_path": {"training": {k: training[k] for k in LN_STEP},
+                             "auto": {k: auto_launches[k] for k in LN_STEP},
+                             "whisper-tiny": {k: whisper["launches"][k] for k in LN_STEP},
+                             "xlstm-125m": {k: ssm_launches["xlstm-125m"][k] for k in LN_STEP},
+                             "danube_serving": {k: serving[k] for k in LN_STEP}},
     })
     print(json.dumps({"kernels": records}), flush=True)
     print(json.dumps({"prefill": prefill, "train": runs, "overlap": overlap,

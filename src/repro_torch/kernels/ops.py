@@ -22,7 +22,8 @@ Tensor = torch.Tensor
 
 #: kernel name → number of CUDA launches by its wrapper in this process
 LAUNCHES: dict[str, int] = {"flash_attention": 0, "quantize_int8": 0, "dequantize_int8": 0,
-                            "rmsnorm": 0}
+                            "rmsnorm": 0, "layernorm_fwd": 0, "layernorm_bwd": 0,
+                            "layernorm_bwd_reduce": 0}
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -69,6 +70,20 @@ def _rmsnorm_lib() -> ctypes.CDLL:
     vp, ci = ctypes.c_void_p, ctypes.c_int
     lib.rmsnorm_fwd.argtypes = [vp, vp, vp, ctypes.c_longlong, ci, ctypes.c_float, ci, ci, vp]
     lib.rmsnorm_fwd.restype = ci
+    return lib
+
+
+@functools.cache
+def _layernorm_lib() -> ctypes.CDLL:
+    lib = build.load("layernorm")
+    vp, ci, cl = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    lib.layernorm_fwd.argtypes = [vp, vp, vp, vp, vp, vp, cl, ci, ctypes.c_float, ci, ci, vp]
+    lib.layernorm_bwd_parts.argtypes = [cl, ci, ci, ci]
+    lib.layernorm_bwd.argtypes = [vp, vp, vp, vp, vp, vp, vp, cl, ci, ci, ci, vp]
+    lib.layernorm_bwd_reduce.argtypes = [vp, vp, vp, ci, ci, vp]
+    for fn in (lib.layernorm_fwd, lib.layernorm_bwd_parts, lib.layernorm_bwd,
+               lib.layernorm_bwd_reduce):
+        fn.restype = ci
     return lib
 
 
@@ -225,6 +240,12 @@ def dequantize_int8(q: Tensor, scales: Tensor, n: int) -> Tensor:
 # fused RMSNorm
 # ---------------------------------------------------------------------------
 
+def _vec_rows(d: int, *ts: Tensor) -> bool:
+    """Whether rows of ``d`` elements of ``ts[0]``'s dtype take the kernels' 16-byte
+    vectors: d a multiple of the vector and every tensor on a 16-byte boundary."""
+    return d % (16 // ts[0].element_size()) == 0 and all(t.data_ptr() % 16 == 0 for t in ts)
+
+
 RMSNORM_EPS = 1e-6
 
 
@@ -245,9 +266,98 @@ def fused_rmsnorm(x: Tensor, w: Tensor) -> Tensor:
         return ref.reference_rmsnorm(x, w, RMSNORM_EPS)
     lib = _rmsnorm_lib()
     out = torch.empty_like(x)
-    vec = d % (16 // x.element_size()) == 0 and x.data_ptr() % 16 == 0 \
-        and w.data_ptr() % 16 == 0 and out.data_ptr() % 16 == 0
     with torch.cuda.device(x.device):
         _launch("rmsnorm", lib.rmsnorm_fwd, x.data_ptr(), w.data_ptr(), out.data_ptr(),
-                x.numel() // d, d, RMSNORM_EPS, _DTYPE_CODE[x.dtype], int(vec))
+                x.numel() // d, d, RMSNORM_EPS, _DTYPE_CODE[x.dtype],
+                int(_vec_rows(d, x, w, out)))
     return out
+
+
+# ---------------------------------------------------------------------------
+# fused LayerNorm, forward and backward
+# ---------------------------------------------------------------------------
+
+LAYERNORM_EPS = 1e-5
+
+
+@functools.lru_cache(maxsize=64)
+def _layernorm_bwd_parts(rows: int, d: int, dtype: int, vec: bool) -> int:
+    parts = _layernorm_lib().layernorm_bwd_parts(rows, d, dtype, int(vec))
+    if parts <= 0:
+        raise RuntimeError(f"layernorm_bwd_parts refused rows {rows}, d {d}, dtype {dtype}")
+    return parts
+
+
+def _layernorm_fwd(x: Tensor, w: Tensor, b: Tensor, eps: float,
+                   stats: bool) -> tuple[Tensor, Optional[Tensor], Optional[Tensor]]:
+    """One launch: ``y``, and the rows' fp32 ``mean`` and ``rstd`` where ``stats``."""
+    lib = _layernorm_lib()
+    d = x.shape[-1]
+    rows = x.numel() // d
+    y = torch.empty_like(x)
+    mean = rstd = None
+    if stats:
+        mean, rstd = torch.empty((2, rows), dtype=torch.float32, device=x.device)
+    with torch.cuda.device(x.device):
+        _launch("layernorm_fwd", lib.layernorm_fwd, x.data_ptr(), w.data_ptr(),
+                b.data_ptr(), y.data_ptr(), mean.data_ptr() if stats else None,
+                rstd.data_ptr() if stats else None, rows, d, eps, _DTYPE_CODE[x.dtype],
+                int(_vec_rows(d, x, w, b, y)))
+    return y, mean, rstd
+
+
+class _LayerNorm(torch.autograd.Function):
+    """The forward kernel, saving x, mean and rstd; the backward kernel and its
+    column sums of the weight gradients."""
+
+    @staticmethod
+    def forward(ctx, x, w, b, eps):
+        y, mean, rstd = _layernorm_fwd(x, w, b, eps, stats=True)
+        ctx.save_for_backward(x, w, mean, rstd)
+        return y
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, w, mean, rstd = ctx.saved_tensors
+        dy = dy.contiguous()
+        d = x.shape[-1]
+        rows = x.numel() // d
+        dx = torch.empty_like(x)
+        vec = _vec_rows(d, x, dy, w, dx)
+        code = _DTYPE_CODE[x.dtype]
+        parts = _layernorm_bwd_parts(rows, d, code, vec)
+        part = torch.empty((parts, 2, d), dtype=torch.float32, device=x.device)
+        dw, db = torch.empty((2, d), dtype=torch.float32, device=x.device)
+        lib = _layernorm_lib()
+        with torch.cuda.device(x.device):
+            _launch("layernorm_bwd", lib.layernorm_bwd, x.data_ptr(), dy.data_ptr(),
+                    mean.data_ptr(), rstd.data_ptr(), w.data_ptr(), dx.data_ptr(),
+                    part.data_ptr(), rows, d, code, int(vec))
+            _launch("layernorm_bwd_reduce", lib.layernorm_bwd_reduce, part.data_ptr(),
+                    dw.data_ptr(), db.data_ptr(), parts, d)
+        return dx, dw, db, None
+
+
+def fused_layernorm(x: Tensor, w: Tensor, b: Tensor, eps: float = LAYERNORM_EPS) -> Tensor:
+    """Per row of ``x [..., d]``: ``(x − mean)·rsqrt(var + eps)·w + b`` with fp32
+    statistics (the two-pass variance), ``w`` and ``b`` ``[d]`` applied in fp32, in
+    x's dtype; differentiable in ``x``, ``w`` and ``b``. ``x`` is float32 or bfloat16.
+
+    On the card the forward is one launch (``LAUNCHES["layernorm_fwd"]``) and, under
+    autograd, saves the rows' mean and rstd; the backward is one launch over the rows
+    (``"layernorm_bwd"``: dx, and fp32 partial sums of dw and db a block) and one that
+    adds the partials in a fixed order (``"layernorm_bwd_reduce"``), so the gradients
+    are deterministic. A CPU tensor takes the plain version."""
+    if x.dim() < 1 or x.numel() == 0:
+        raise ValueError(f"fused_layernorm takes a non-empty [..., d] tensor, got {tuple(x.shape)}")
+    d = x.shape[-1]
+    if x.dtype not in _DTYPE_CODE:
+        raise TypeError(f"fused_layernorm takes float32 or bfloat16 x, got {x.dtype}")
+    if w.shape != (d,) or b.shape != (d,):
+        raise ValueError(f"w and b must be [{d}], got {tuple(w.shape)} and {tuple(b.shape)}")
+    if _device_of(x, w, b) == "cpu":
+        return ref.reference_layernorm(x, w, b, eps)
+    x, w, b = x.contiguous(), w.float().contiguous(), b.float().contiguous()
+    if torch.is_grad_enabled() and (x.requires_grad or w.requires_grad or b.requires_grad):
+        return _LayerNorm.apply(x, w, b, eps)
+    return _layernorm_fwd(x, w, b, eps, stats=False)[0]

@@ -50,6 +50,16 @@ def reference_rmsnorm(x: Tensor, w: Tensor, eps: float = 1e-6) -> Tensor:
     return (xf * torch.rsqrt(var + eps) * (1.0 + w.float())).to(x.dtype)
 
 
+def reference_layernorm(x: Tensor, w: Tensor, b: Tensor, eps: float = 1e-5) -> Tensor:
+    """Per row: ``(x − mean)·rsqrt(mean((x − mean)²) + eps)·w + b`` with fp32
+    statistics, in x's dtype."""
+    xf = x.float()
+    mu = torch.mean(xf, dim=-1, keepdim=True)
+    var = torch.mean(torch.square(xf - mu), dim=-1, keepdim=True)
+    y = (xf - mu) * torch.rsqrt(var + eps)
+    return (y * w.float() + b.float()).to(x.dtype)
+
+
 #: 1/127 rounded to fp32. The JAX package writes ``max(amax, 1e-12) / 127``,
 #: and XLA compiles that division by a constant into a multiply by this
 #: reciprocal (in the jitted trainer and in the Pallas kernel alike), so the

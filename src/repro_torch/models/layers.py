@@ -19,6 +19,8 @@ import torch
 import torch.nn.functional as F
 from torch.distributed.tensor import DTensor, Replicate
 
+from repro_torch.kernels import ops as kops
+from repro_torch.kernels import ref as kref
 from repro_torch.sharding.policy import redistribute, replicated
 
 Tensor = torch.Tensor
@@ -91,12 +93,20 @@ def rmsnorm(x: Tensor, weight: Tensor, eps: float = 1e-6) -> Tensor:
     return (y * (1.0 + weight.float())).to(x.dtype)
 
 
+def on_card(x: Tensor) -> bool:
+    """Whether ``x`` takes a hand-written kernel: a plain tensor on the card. A
+    DTensor (a tensor-parallel placement) and a CPU or meta tensor take the plain
+    version."""
+    return not isinstance(x, DTensor) and x.device.type == "cuda"
+
+
 def layernorm(x: Tensor, weight: Tensor, bias: Tensor, eps: float = 1e-5) -> Tensor:
-    xf = x.float()
-    mu = torch.mean(xf, dim=-1, keepdim=True)
-    var = torch.mean(torch.square(xf - mu), dim=-1, keepdim=True)
-    y = (xf - mu) * torch.rsqrt(var + eps)
-    return (y * weight.float() + bias.float()).to(x.dtype)
+    """LayerNorm, fp32 statistics (two-pass variance) regardless of activation
+    dtype: on the card the fused kernels (``ops.fused_layernorm``, forward and
+    backward), elsewhere the plain version (``ref.reference_layernorm``)."""
+    if on_card(x):
+        return kops.fused_layernorm(x, weight, bias, eps)
+    return kref.reference_layernorm(x, weight, bias, eps)
 
 
 def init_norm(cfg_norm: str, d: int, lead: tuple[int, ...] = (), device=None) -> dict:

@@ -269,6 +269,113 @@ def test_overlapped_rmsnorm_pipeline_on_card_equals_cpu(card):
     assert torch.equal(mono, collectives.all_reduce(x.to(card), "lumorph2"))
 
 
+# -- fused LayerNorm -------------------------------------------------------------
+
+# bert-large's rows and the widths of whisper-tiny (384) and xlstm-125m (768) in both
+# types; an odd d and a row past the register hold (d > 1024), both the scalar walk
+LN_CASES = [((4096, 1024), dt) for dt in ("bfloat16", "float32")]
+LN_CASES += [((2, 300, 384), dt) for dt in ("bfloat16", "float32")]
+LN_CASES += [((3, 200, 768), dt) for dt in ("bfloat16", "float32")]
+LN_CASES += [((64, 37), dt) for dt in ("bfloat16", "float32")]
+LN_CASES += [((64, 2048), "bfloat16")]
+
+
+def _ln_inputs(shape, dt, seed=0, x=None):
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    d = shape[-1]
+    if x is None:
+        x = (torch.randn(shape, generator=gen, device="cuda") * 3 + 1).to(getattr(torch, dt))
+    w = 1 + 0.1 * torch.randn(d, generator=gen, device="cuda")
+    b = 0.1 * torch.randn(d, generator=gen, device="cuda")
+    dy = torch.randn(shape, generator=gen, device="cuda").to(x.dtype)
+    return x, w, b, dy
+
+
+def _ln_grads(fn, x, w, b, dy):
+    """``fn``'s output and its gradients in x, w and b under the cotangent ``dy``."""
+    x, w, b = (t.detach().requires_grad_() for t in (x, w, b))
+    y = fn(x, w, b)
+    return (y.detach(), *torch.autograd.grad(y, (x, w, b), dy))
+
+
+def _ln_hold(got, x, w, b, dy):
+    """The kernels' output and gradients against the plain fp32 layer and autograd on
+    the same values: an output in bf16 within one bf16 ulp of the fp32 value (its one
+    rounding), else within 1e-5 of the output's largest value; dw and db within 1e-5
+    of their columns' sums of |terms| (another order of the same fp32 sum)."""
+    y, gx, gw, gb = got
+    ey, egx, egw, egb = _ln_grads(ref.reference_layernorm, x.float(), w, b, dy.float())
+    xhat = (ey - b) / w  # the normalised rows
+    for out, expect in ((y, ey), (gx, egx)):
+        assert out.dtype == x.dtype and out.shape == x.shape
+        limit = torch.full_like(expect, 1e-5 * float(expect.abs().max()))
+        if x.dtype == torch.bfloat16:
+            limit = torch.maximum(limit, torch.exp2(torch.floor(torch.log2(
+                expect.abs().clamp(min=2.0 ** -126))) - 7))
+        assert bool(((out.float() - expect).abs() <= limit).all())
+    rows = dy.float().reshape(-1, dy.shape[-1])
+    for out, expect, terms in ((gw, egw, rows * xhat.reshape(rows.shape)), (gb, egb, rows)):
+        assert out.dtype == torch.float32 and out.shape == expect.shape
+        assert bool(((out - expect).abs() <= 1e-5 * terms.abs().sum(0)).all())
+
+
+@pytest.mark.parametrize("shape,dt", LN_CASES)
+def test_layernorm_kernels_match_plain(card, shape, dt):
+    x, w, b, dy = _ln_inputs(shape, dt)
+    n0 = dict(ops.LAUNCHES)
+    got = _ln_grads(ops.fused_layernorm, x, w, b, dy)
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES["layernorm_fwd"] == n0["layernorm_fwd"] + 1
+    assert ops.LAUNCHES["layernorm_bwd"] == n0["layernorm_bwd"] + 1
+    assert ops.LAUNCHES["layernorm_bwd_reduce"] == n0["layernorm_bwd_reduce"] + 1
+    _ln_hold(got, x, w, b, dy)
+    again = _ln_grads(ops.fused_layernorm, x, w, b, dy)  # no atomics: the same bits
+    assert all(torch.equal(a, g) for a, g in zip(again, got))
+
+
+@pytest.mark.parametrize("dt", ["bfloat16", "float32"])
+def test_layernorm_kernels_take_unaligned_rows(card, dt):
+    buf = torch.randn(1 + 64 * 1024, device=card).to(getattr(torch, dt)) * 3 + 1
+    x = buf[1:].view(64, 1024)  # contiguous, one element past a 16-byte boundary
+    assert x.data_ptr() % 16
+    x, w, b, dy = _ln_inputs(x.shape, dt, seed=1, x=x)
+    _ln_hold(_ln_grads(ops.fused_layernorm, x, w, b, dy), x, w, b, dy)
+
+
+def test_layernorm_kernels_under_checkpoint(card):
+    """Non-reentrant checkpointing, as the trainer's remat calls it: the forward
+    launches again in the recomputation, the backward once, and the gradients are
+    the same bits as without the checkpoint."""
+    from torch.utils.checkpoint import checkpoint
+    from repro_torch.models import layers
+    x, w, b, dy = _ln_inputs((8, 128, 1024), "bfloat16", seed=2)
+
+    def block(t, w, b):
+        return layers.layernorm(t * 2, w, b) + t
+    plain = _ln_grads(block, x, w, b, dy)
+    n0 = dict(ops.LAUNCHES)
+    got = _ln_grads(lambda t, w, b: checkpoint(block, t, w, b, use_reentrant=False), x, w, b, dy)
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES["layernorm_fwd"] == n0["layernorm_fwd"] + 2
+    assert ops.LAUNCHES["layernorm_bwd"] == n0["layernorm_bwd"] + 1
+    assert ops.LAUNCHES["layernorm_bwd_reduce"] == n0["layernorm_bwd_reduce"] + 1
+    assert all(torch.equal(a, g) for a, g in zip(got, plain))
+
+
+def test_layernorm_on_card_goes_through_the_kernels(card):
+    """``layers.layernorm`` on a plain CUDA tensor launches the forward kernel; with
+    no gradient to take it saves no statistics and launches no backward."""
+    from repro_torch.models import layers
+    x, w, b, _ = _ln_inputs((2, 64, 768), "bfloat16", seed=3)
+    n0 = dict(ops.LAUNCHES)
+    with torch.no_grad():
+        y = layers.apply_norm("layernorm", {"w": w, "b": b}, x)
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES["layernorm_fwd"] == n0["layernorm_fwd"] + 1
+    assert ops.LAUNCHES["layernorm_bwd"] == n0["layernorm_bwd"]
+    assert torch.equal(y, _ln_grads(ops.fused_layernorm, x, w, b, torch.ones_like(x))[0])
+
+
 # -- the MoE and MLA block kinds --------------------------------------------------
 
 @pytest.mark.parametrize("cf,dt", [(1.25, "float32"), (0.5, "float32"), (1.25, "bfloat16")])
