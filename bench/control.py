@@ -8,9 +8,10 @@ For each seed it prints the numbers the cell compares, for:
 
 * ``sound``: the program as the benchmark runs it (its set-up and, for a
   serving mix, a window of ``--seconds``);
-* ``control``: the plain reference put in the program's place in the
-  precision below the configuration's (float8 e4m3 operands for bf16
-  compute), judged by the fp32 reference;
+* ``control``: the plain reference (for a prefill, the configuration's own,
+  ``bench.harness.model_parts``) put in the program's place in the precision
+  below the configuration's (float8 e4m3 operands for bf16 compute), judged
+  by the fp32 reference;
 * each fault of ``bench/faults.py`` that the cell can have, planted in the
   program.
 

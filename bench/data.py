@@ -3,10 +3,10 @@
 The Zipf-ish token draw is a frozen copy of ``repro_torch.data.pipeline``'s
 (a seeded permutation of the vocabulary, ranked by a log-uniform inverse
 CDF), keyed here by (seed, batch index); the uniform draw is for prompts.
-Weights are drawn on the card in one call, in the tree ``init_params``
-lays out (dict keys, a list of stacked segments, leaves ``[layers, ...]``),
-so the same tensors can be handed to the program and, drawn again from the
-seed, to the plain reference.
+Weights are drawn on the card from the seed, in the tree ``init_params``
+lays out (dict keys, a list of stacked segments, leaves ``[layers, ...]``)
+and in each leaf's stored dtype, so the same tensors can be handed to the
+program and, drawn again from the seed, to the plain reference.
 """
 
 from __future__ import annotations
@@ -43,27 +43,31 @@ def tokens(cfg: dict, kind: str, seed: int, index: int, batch: int, seq: int) ->
 
 def weight_shapes(cfg: dict) -> dict:
     """The params tree as ``init_params`` lays it out for a dense decoder,
-    leaf → (shape, init), init one of ``embed``, ``fan_in:<n>``, ``norm_w``,
-    ``norm_b``, ``rms_w``."""
+    leaf → (shape, init, dtype), init one of ``embed``, ``fan_in:<n>``,
+    ``norm_w``, ``norm_b``, ``rms_w``; the norms stored in fp32, the rest in
+    the configuration's ``param_dtype``."""
     d, h, kv, hd, f, n = (cfg[k] for k in ("d_model", "n_heads", "n_kv_heads", "head_dim",
                                            "d_ff", "n_layers"))
+    pd = cfg["param_dtype"]
 
     def norm(lead):
         if cfg["norm"] == "rmsnorm":
-            return {"w": (lead + (d,), "rms_w")}
-        return {"w": (lead + (d,), "norm_w"), "b": (lead + (d,), "norm_b")}
-    mlp = {"wi": ((n, d, f), f"fan_in:{d}"), "wo": ((n, f, d), f"fan_in:{f}")}
+            return {"w": (lead + (d,), "rms_w", "float32")}
+        return {"w": (lead + (d,), "norm_w", "float32"),
+                "b": (lead + (d,), "norm_b", "float32")}
+    mlp = {"wi": ((n, d, f), f"fan_in:{d}", pd), "wo": ((n, f, d), f"fan_in:{f}", pd)}
     if cfg["mlp_style"] in ("swiglu", "geglu"):
-        mlp["wg"] = ((n, d, f), f"fan_in:{d}")
+        mlp["wg"] = ((n, d, f), f"fan_in:{d}", pd)
     seg = {"ln1": norm((n,)),
-           "attn": {"wq": ((n, d, h, hd), f"fan_in:{d}"), "wk": ((n, d, kv, hd), f"fan_in:{d}"),
-                    "wv": ((n, d, kv, hd), f"fan_in:{d}"),
-                    "wo": ((n, h, hd, d), f"fan_in:{h * hd}")},
+           "attn": {"wq": ((n, d, h, hd), f"fan_in:{d}", pd),
+                    "wk": ((n, d, kv, hd), f"fan_in:{d}", pd),
+                    "wv": ((n, d, kv, hd), f"fan_in:{d}", pd),
+                    "wo": ((n, h, hd, d), f"fan_in:{h * hd}", pd)},
            "ln2": norm((n,)), "mlp": mlp}
-    tree = {"embed": ((cfg["vocab_size"], d), "embed"), "segments": [seg],
+    tree = {"embed": ((cfg["vocab_size"], d), "embed", pd), "segments": [seg],
             "final_norm": norm(())}
     if not cfg["tie_embeddings"]:
-        tree["lm_head"] = ((d, cfg["vocab_size"]), f"fan_in:{d}")
+        tree["lm_head"] = ((d, cfg["vocab_size"]), f"fan_in:{d}", pd)
     return tree
 
 
@@ -84,30 +88,49 @@ def _set(tree, path, value):
     tree[path[-1]] = value
 
 
-def make_weights(cfg: dict, seed: int, device) -> dict:
-    """fp32 weights from ``seed``: one normal draw on ``device`` for every leaf
-    at once, each leaf a view scaled in place (matrices by 1/sqrt(fan-in),
-    embeddings by 0.02, norms around their identity)."""
-    spec = weight_shapes(cfg)
+CHUNK = 1 << 26  # values of one fp32 draw where a layout is not all fp32 (256 MiB)
+
+
+def _scale(x: torch.Tensor, init: str) -> torch.Tensor:
+    """A standard normal draw scaled in place to its init: matrices by
+    1/sqrt(fan-in), embeddings by 0.02, norms around their identity."""
+    if init == "embed":
+        return x.mul_(0.02)
+    if init.startswith("fan_in:"):
+        return x.mul_(1.0 / math.sqrt(int(init.split(":")[1])))
+    if init == "norm_w":
+        return x.mul_(0.1).add_(1.0)
+    return x.mul_(0.1)  # norm_b, rms_w (the scale is 1 + w)
+
+
+def make_weights(cfg: dict, seed: int, device, layout: dict | None = None) -> dict:
+    """Weights from ``seed`` in ``layout`` (a ``weight_shapes`` tree; the dense
+    decoder's where None), on ``device``. An all-fp32 layout takes one normal
+    draw for every leaf at once, each leaf a view of it scaled in place. Any
+    other is drawn leaf by leaf, ``CHUNK`` values at a time in fp32, each
+    chunk scaled and stored in its leaf's dtype: the device never holds the
+    model in fp32."""
+    spec = weight_shapes(cfg) if layout is None else layout
     flat = list(_walk(spec))
-    total = sum(math.prod(shape) for _, (shape, _) in flat)
     gen = torch.Generator(device=device)
     gen.manual_seed(seed & SEED_MASK)
-    buf = torch.randn(total, generator=gen, device=device, dtype=torch.float32)
     out = _copy_structure(spec)
-    at = 0
-    for path, (shape, init) in flat:
-        n = math.prod(shape)
-        leaf = buf[at:at + n].view(shape)
-        at += n
-        if init == "embed":
-            leaf.mul_(0.02)
-        elif init.startswith("fan_in:"):
-            leaf.mul_(1.0 / math.sqrt(int(init.split(":")[1])))
-        elif init == "norm_w":
-            leaf.mul_(0.1).add_(1.0)
-        else:  # norm_b, rms_w (the scale is 1 + w)
-            leaf.mul_(0.1)
+    if all(dtype == "float32" for _, (_, _, dtype) in flat):
+        total = sum(math.prod(shape) for _, (shape, _, _) in flat)
+        buf = torch.randn(total, generator=gen, device=device, dtype=torch.float32)
+        at = 0
+        for path, (shape, init, _) in flat:
+            n = math.prod(shape)
+            _set(out, path, _scale(buf[at:at + n].view(shape), init))
+            at += n
+        return out
+    for path, (shape, init, dtype) in flat:
+        leaf = torch.empty(shape, dtype=getattr(torch, dtype), device=device)
+        values = leaf.view(-1)
+        for at in range(0, values.numel(), CHUNK):
+            n = min(CHUNK, values.numel() - at)
+            draw = torch.randn(n, generator=gen, device=device, dtype=torch.float32)
+            values[at:at + n].copy_(_scale(draw, init))
         _set(out, path, leaf)
     return out
 

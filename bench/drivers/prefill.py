@@ -7,7 +7,9 @@ The calls to be checked are drawn from the seed before the window; for each,
 once it is timed, its served tokens (the first choice at every position) are
 kept. After the window the weights are dropped, drawn again from the seed,
 and the plain reference judges every served token in fp32: the widest gap by
-which a served token's logit lies below the reference's best.
+which a served token's logit lies below the reference's best. The weights'
+layout, the reference, the FLOP count and the kernels' bounds are the
+configuration's model parts (``bench.harness.model_parts``).
 """
 
 from __future__ import annotations
@@ -20,8 +22,8 @@ import torch
 from torch.profiler import ProfilerActivity, profile, record_function
 
 from bench import data, flops, reference, trace as trace_lib
-from bench.harness import (Run, checks_verdict, device_info, device_kind, program_config,
-                           read_metrics, stage)
+from bench.harness import (Run, checks_verdict, device_info, device_kind, model_parts,
+                           program_config, read_metrics, stage)
 
 
 class Setup:
@@ -35,7 +37,9 @@ class Setup:
         self.prefill = steps_lib.make_prefill(mc, device=self.dev)
         self.ring = [data.tokens(self.cfg, tr["tokens"], run.seed, i, tr["batch"],
                                  tr["prompt_len"]).to(self.dev) for i in range(tr["ring"])]
-        self.weights = data.make_weights(self.cfg, run.seed, self.dev)
+        self.model = model_parts(self.cfg)
+        self.layout = self.model.weight_shapes(self.cfg)
+        self.weights = data.make_weights(self.cfg, run.seed, self.dev, self.layout)
         stage(run, "weights and prompts")
         self.n = 0  # calls issued
         self.chosen: set[int] = set()  # the calls whose served tokens are checked
@@ -76,9 +80,9 @@ class Setup:
 
     def gap(self, prompts, served, prec=reference.FP32) -> float:
         with reference.exact_fp32():
-            w = data.make_weights(self.cfg, self.run.seed, self.dev)
-            return reference.served_gaps(w, prompts, served, self.cfg,
-                                         self.tr["reference_rows"], prec)
+            w = data.make_weights(self.cfg, self.run.seed, self.dev, self.layout)
+            return self.model.served_gaps(w, prompts, served, self.cfg,
+                                          self.tr["reference_rows"], prec)
 
 
 def run(run: Run) -> dict:
@@ -97,7 +101,8 @@ def run(run: Run) -> dict:
                 su.sync()
                 lat += [su.call() for _ in range(tr["trace_calls"])]
     after_trace = time.perf_counter()
-    while time.perf_counter() < t_end:
+    # the window holds the calls the check draws from, however slow the host
+    while time.perf_counter() < t_end or su.n < tr["sample_from"]:
         lat.append(su.call())
     end = time.perf_counter()
     window_s = end - start
@@ -111,10 +116,10 @@ def run(run: Run) -> dict:
     tokens_per_call = tr["batch"] * tr["prompt_len"]
     if run.trace:
         peaks = flops.peak(device_kind(su.dev))
-        launch = flops.flash_launch(su.cfg, tr["batch"], tr["prompt_len"], peaks)
-        info = {"flops_per_unit": flops.forward_flops(su.cfg, tr["batch"], tr["prompt_len"]),
+        b, s = tr["batch"], tr["prompt_len"]
+        info = {"flops_per_unit": su.model.forward_flops(su.cfg, b, s),
                 "peak_flops": peaks and peaks["bf16_flops"], "chips": 1,
-                "flash_bound_s": launch["bound_s"],
+                **su.model.kernel_bounds(su.cfg, b, s, peaks),
                 # the window's rate past the traced stretch, which the profiler slows
                 "units_per_s": (len(lat) - tr["trace_calls"]) / (end - after_trace)}
         tr_obj = trace_lib.from_profiler(traced, tr["trace_calls"], info)

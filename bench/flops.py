@@ -1,5 +1,7 @@
-"""The benchmark's yardstick: model FLOPs from a configuration's shapes, the
-flash kernel's least time, and the card's published peaks.
+"""The benchmark's yardstick for the dense decoder: model FLOPs from a
+configuration's shapes, the flash kernel's least time, and the card's
+published peaks. A configuration with its own blocks counts its own
+(``bench/references/<config>.py``).
 
 Counted from the configuration file alone, whatever implements the model:
 every matmul parameter once (a tied head once), 2 FLOPs per parameter per
@@ -70,3 +72,9 @@ def flash_launch(cfg: dict, batch: int, seq: int, peaks: dict | None,
         out.update(bound_s=max(t_ops, t_bytes),
                    bound_by="operations" if t_ops >= t_bytes else "bytes")
     return out
+
+
+def kernel_bounds(cfg: dict, batch: int, seq: int, peaks: dict | None) -> dict:
+    """The dense decoder's kernels' least times a launch, by the names their
+    roofline readers read: the flash kernel's."""
+    return {"flash_bound_s": flash_launch(cfg, batch, seq, peaks)["bound_s"]}

@@ -5,8 +5,10 @@ A cell of ``BENCHMARK.json`` names a configuration (``bench/configs/<name>.json`
 the file of sizes that is run) and a traffic mix (``bench/traffic/<name>.json``,
 whose ``driver`` names the loop in ``bench/drivers/`` and whose other keys are
 its parameters); its limits for ``correct`` are ``bench/limits/<cell>.json``;
-each per-layer metric is read by ``bench/metrics/<metric>.py``. Adding a cell,
-a configuration, a mix or a metric is adding files and entries.
+each per-layer metric is read by ``bench/metrics/<metric>.py``; a
+configuration's own model parts, where its blocks are not the dense decoder's,
+are ``bench/references/<config>.py``. Adding a cell, a configuration, a mix or
+a metric is adding files and entries.
 
 A cell on several chips runs one rank process per chip, spawned here with a
 rendezvous on 127.0.0.1; rank 0 prints the result line.
@@ -22,12 +24,14 @@ import os
 import socket
 import subprocess
 import sys
+import types
 from pathlib import Path
 from typing import Any, Optional
 
 ROOT = Path(__file__).resolve().parents[1]
 BENCH = ROOT / "bench"
 FORBIDDEN = ("jax", "jaxlib", "flax", "repro")  # top-level module names, compared whole
+REFERENCES = BENCH / "references"
 NOT_PROGRAM_KEYS = ("name", "source", "deployment", "assumed")
 
 
@@ -79,18 +83,53 @@ def make_cell(w: dict, bench: dict) -> Cell:
 
 
 def program_config(cfg: dict, **overrides):
-    """The program's ``ModelConfig`` with the configuration file's sizes."""
+    """The program's ``ModelConfig`` with the configuration file's sizes (JSON's
+    lists as the tuples ``ModelConfig`` holds, such as ``block_pattern``)."""
     from repro_torch.configs.base import ModelConfig
-    fields = {k: v for k, v in cfg.items() if k not in NOT_PROGRAM_KEYS}
+
+    def tuples(v):
+        return tuple(tuples(x) for x in v) if isinstance(v, list) else v
+    fields = {k: tuples(v) for k, v in cfg.items() if k not in NOT_PROGRAM_KEYS}
     return ModelConfig(name=cfg["name"], **fields).replace(**overrides)
 
 
-def reader(metric: str):
-    path = BENCH / "metrics" / f"{metric}.py"
-    spec = importlib.util.spec_from_file_location(f"bench_metric_{metric}", path)
+def _load(path: Path, name: str):
+    spec = importlib.util.spec_from_file_location(name, path)
     mod = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(mod)
-    return mod.read
+    return mod
+
+
+def reader(metric: str):
+    return _load(BENCH / "metrics" / f"{metric}.py", f"bench_metric_{metric}").read
+
+
+def model_parts(cfg: dict) -> types.SimpleNamespace:
+    """The model parts of the configuration file ``cfg``: its own module
+    ``bench/references/<name>.py`` where there is one, and the dense decoder's
+    for every part that it does not define (``SMALL`` has no default):
+
+    * ``weight_shapes(cfg)``: the ``init_params`` tree, leaf → (shape, init,
+      stored dtype), init as ``bench.data.make_weights`` draws it;
+    * ``served_gaps(w, prompts, served, cfg, q_rows, prec)``: the
+      ``token_gap`` reading in fp32, as ``bench.reference.served_gaps``;
+    * ``forward_flops(cfg, batch, seq)``: model FLOPs of one forward, from
+      the configuration alone;
+    * ``kernel_bounds(cfg, batch, seq, peaks)``: the least time a launch of
+      each kernel the path runs, under the name its roofline reader reads
+      in ``Trace.info`` (None where ``peaks`` is None);
+    * ``forward(w, tok, cfg)``: logits ``[B, S, V]`` in fp32, which the CPU
+      tests hold the port against;
+    * ``SMALL``: the configuration's sizes in the CPU tests.
+
+    A module imports nothing of JAX or of the programs under test."""
+    from bench import data, flops, reference
+    dense = {"weight_shapes": data.weight_shapes, "served_gaps": reference.served_gaps,
+             "forward_flops": flops.forward_flops, "kernel_bounds": flops.kernel_bounds,
+             "forward": reference.forward, "SMALL": None}
+    path = REFERENCES / f"{cfg['name']}.py"
+    own = vars(_load(path, f"bench_reference_{cfg['name']}")) if path.is_file() else {}
+    return types.SimpleNamespace(**{k: own.get(k, v) for k, v in dense.items()})
 
 
 def read_metrics(cell: Cell, trace) -> dict:

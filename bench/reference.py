@@ -3,8 +3,9 @@ configuration file, with no kernel, cache or batching of the program's.
 
 It imports neither JAX nor anything of the programs under test. It takes the
 weights that ``bench.data.make_weights`` draws from the seed (the layout of
-``init_params``), the token batches, and the optimizer's settings, and works
-everything out again from them:
+``init_params``, each leaf as stored, upcast to fp32 where a layer uses it),
+the token batches, and the optimizer's settings, and works everything out
+again from them:
 
 * ``forward``: embeddings (no positions unless ``use_rope``: interleaved
   lane pairs, theta from the file), per layer ``x + attn(norm1(x))`` then
@@ -113,7 +114,8 @@ def _rope(x: Tensor, pos: Tensor, theta: float) -> Tensor:
 
 
 def _layer(p: dict, i: int) -> dict:
-    return {k: _layer(v, i) if isinstance(v, dict) else v[i] for k, v in p.items()}
+    """Layer ``i`` of a stacked segment, in fp32."""
+    return {k: _layer(v, i) if isinstance(v, dict) else v[i].float() for k, v in p.items()}
 
 
 def _attention(cfg: dict, p: dict, x: Tensor, prec: Precision, q_rows: int) -> Tensor:
@@ -156,7 +158,7 @@ def _mlp(cfg: dict, p: dict, x: Tensor, prec: Precision) -> Tensor:
 def hidden(w: dict, tok: Tensor, cfg: dict, prec: Precision = FP32,
            q_rows: int = 1 << 30) -> Tensor:
     """The final normed hidden states [B, S, d] of ``tok`` [B, S]."""
-    x = w["embed"][tok.long()]
+    x = w["embed"][tok.long()].float()
     seg = w["segments"][0]
     for i in range(cfg["n_layers"]):
         p = _layer(seg, i)
@@ -167,7 +169,7 @@ def hidden(w: dict, tok: Tensor, cfg: dict, prec: Precision = FP32,
 
 def head(w: dict, x: Tensor, cfg: dict, prec: Precision = FP32) -> Tensor:
     table = w["embed"].t() if cfg["tie_embeddings"] else w["lm_head"]
-    return prec.mm(x, table)
+    return prec.mm(x, table.float())
 
 
 def forward(w: dict, tok: Tensor, cfg: dict, prec: Precision = FP32,

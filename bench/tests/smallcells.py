@@ -1,6 +1,7 @@
 """Cells of ``BENCHMARK.json`` cut to sizes a CPU test can hold: every width
-of the configuration shrunk, the traffic's batch and lengths too. The cut is
-for tests only; the benchmark runs the files as they are."""
+of the configuration shrunk to its model parts' ``SMALL``
+(``bench/references/<config>.py``), the traffic's batch and lengths too. The
+cut is for tests only; the benchmark runs the files as they are."""
 
 from __future__ import annotations
 
@@ -13,12 +14,6 @@ ROOT = Path(__file__).resolve().parents[2]
 sys.path[:0] = [p for p in (str(ROOT), str(ROOT / "src")) if p not in sys.path]
 
 from bench import harness  # noqa: E402
-
-SMALL = {"bert-large": dict(n_layers=2, d_model=64, n_heads=4, n_kv_heads=4, head_dim=16,
-                            d_ff=128, vocab_size=256),
-         "h2o-danube-1.8b": dict(n_layers=4, d_model=128, n_heads=4, n_kv_heads=2, head_dim=32,
-                                 d_ff=256, vocab_size=2048, sliding_window=16)}
-
 
 # A four-chip cell whose files are in bench/ but whose entry is not yet in
 # BENCHMARK.json (PERF.md, Open questions); it reports what the one-chip
@@ -38,9 +33,24 @@ def load_cell(name: str) -> harness.Cell:
     return harness.make_cell(entry, bench)
 
 
+def small_sizes(cfg: dict) -> dict:
+    """The configuration's sizes in the CPU tests: its model parts' ``SMALL``."""
+    small = harness.model_parts(cfg).SMALL
+    if small is None:
+        raise LookupError(f"bench/references/{cfg['name']}.py gives no SMALL")
+    return small
+
+
+def small_config(name: str, **overrides) -> dict:
+    """The configuration file ``name`` at its CPU test sizes."""
+    cfg = json.loads((ROOT / "bench" / "configs" / f"{name}.json").read_text())
+    cfg.update(small_sizes(cfg), **overrides)
+    return cfg
+
+
 def small_cell(name: str, **cfg_overrides) -> harness.Cell:
     cell = load_cell(name)
-    cell.cfg.update(SMALL[cell.cfg["name"]], **cfg_overrides)
+    cell.cfg.update(small_sizes(cell.cfg), **cfg_overrides)
     if cell.traffic["driver"] == "train":
         cell.traffic.update(global_batch=8 * cell.chips, seq_len=16,
                             reference_rows=4, trace_steps=2)

@@ -2,9 +2,10 @@
 
 import json
 
+import pytest
 from smallcells import ROOT
 
-from bench import data, flops
+from bench import data, flops, harness
 
 
 def cfg(name):
@@ -42,16 +43,17 @@ def test_an_unknown_card_has_no_peak():
     assert launch["bound_s"] is None and launch["flops"] > 0
 
 
-def test_weights_have_the_ports_layout():
+@pytest.mark.parametrize("name", [c["name"] for c in harness.manifest()["configs"]])
+@pytest.mark.parametrize("param_dtype", ["float32", "bfloat16"])
+def test_weights_have_the_ports_layout(name, param_dtype):
     from repro_torch.models.transformer import param_shapes
     from repro_torch.tree import leaves
-
-    from bench import harness
-    for name in ("bert-large", "h2o-danube-1.8b"):
-        c = cfg(name)
-        got = [tuple(s) for s, _ in data.leaf_list(data.weight_shapes(c))]
-        want = [tuple(t.shape) for t in leaves(param_shapes(harness.program_config(c)))]
-        assert got == want
+    c = dict(cfg(name), param_dtype=param_dtype)
+    got = [(tuple(s), dt) for s, _, dt in
+           data.leaf_list(harness.model_parts(c).weight_shapes(c))]
+    want = [(tuple(t.shape), str(t.dtype).removeprefix("torch."))
+            for t in leaves(param_shapes(harness.program_config(c)))]
+    assert got == want
 
 
 def test_draws_repeat_from_the_seed():

@@ -42,7 +42,9 @@ def test_no_jax_and_no_jax_package():
 
 def test_the_reference_side_loads_no_program():
     code = (f"import sys; sys.path[:0] = [{str(ROOT)!r}]\n"
-            "import bench.reference, bench.data, bench.flops, json\n"
+            "import bench.reference, bench.data, bench.flops, bench.harness, json\n"
+            "for c in bench.harness.manifest()['configs']:\n"
+            "    bench.harness.model_parts(c)\n"
             "print(json.dumps(sorted({m.split('.')[0] for m in sys.modules})))")
     out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
                          check=True, cwd=ROOT)

@@ -127,9 +127,12 @@ STRETCH = "bench/stretch"  # the harness's span around the traced units, synchro
 
 
 def from_profiler(prof, units: int, info: dict,
-                  span_prefixes: tuple[str, ...] = ("train/", "bench/")) -> Trace:
+                  span_prefixes: tuple[str, ...] = ("train/", "prefill/", "bench/")) -> Trace:
     """A :class:`Trace` of a finished ``torch.profiler.profile``: the events
-    inside its ``bench/stretch`` span, on the profiler's clock in seconds."""
+    inside its ``bench/stretch`` span, on the profiler's clock in seconds.
+    Ranges named under ``span_prefixes`` (the program's train and prefill
+    spans, the harness's own) are spans; every other device event is an
+    operation."""
     from torch.autograd import DeviceType
     events = prof.events()
     stretch = next(e for e in events
