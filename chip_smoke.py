@@ -60,16 +60,27 @@ JAX or of the JAX package. No phase's failure is caught.
      the plain RMSNorm of the plain sum within 1e-5, time per call, one
      kernel launch per chunk. With no consumer, C = 1 equals the monolithic
      program bit for bit, and at 1 MB per rank C = 4 equals its CPU run.
-  8. The MLA and MoE blocks at full width: deepseek-v2-lite-16b whole (27
-     layers, 15,706,357,760 parameters as ``param_count()`` counts them, fp32
-     params from seed 0): (a) the count on the card; (b) a bf16 prefill of
-     2 × 4096 tokens through ``make_prefill`` with ``use_pallas``, timed, which
-     launches no flash kernel (MLA never reaches it, as in JAX); (c) in fp32,
-     1 × 64 tokens with capacity to spare, the prefill's logits against 64
-     decode steps over the rank-512 latent cache (≤ 1e-3 relative); (d) the
-     first two layers, fp32, 1 × 256 tokens, the card against the CPU (≤ 1e-4
-     relative, argmax agreement 1.0); (e) with those params freed, the serving
-     driver (4 requests, 64-token prompts, 32 generated tokens).
+  8. The MLA and MoE blocks at full width: deepseek-v2-lite-16b whole as
+     published (27 layers, 15,706,357,760 parameters as ``param_count()``
+     counts them, bf16; the latent's RMSNorm, YaRN, the top-6 gates as the
+     softmax gives them, dropless routing): (a) ``init_params``' count on the
+     card, seed 0; then on the benchmark cell's weights from ``DEEPSEEK_SEED``:
+     (b) a bf16 prefill of the cell's prompts (2 × 4096 Zipf tokens from that
+     seed) through ``make_prefill`` with ``use_pallas``, timed, which launches
+     no flash kernel (MLA never reaches it, as in JAX) and three grouped expert
+     products a MoE layer, none of which waits for the card (sync debug mode
+     "error"), and fills the latent caches; each MoE layer's pairs per expert
+     (``moe.EXPERT_LOADS`` of a profiled call); 16 greedy decode steps
+     through the caches; the prefill's served tokens and each step's logits
+     judged by the plain fp32 reference
+     (``bench/references/deepseek-v2-lite-16b.py``) over the whole sequence,
+     every served token within the benchmark cell's ``token_gap`` limit, each
+     step's relative error printed; (c) in fp32, 1 × 64 tokens, the
+     prefill's logits against 64 decode steps over the rank-512 latent cache
+     (≤ 1e-3 relative); (d) the first two layers, fp32, 1 × 256 tokens, the
+     card against the CPU (≤ 1e-4 relative, argmax agreement 1.0); (e) with
+     those params freed, the serving driver (4 requests, 64-token prompts,
+     32 generated tokens).
   9. dbrx-132b's MoE blocks at full width, 2 layers deep (7,751,270,400
      bf16 parameters): prefill of 1 × 4096 tokens in bf16 and fp32 through the
      flash kernel (two launches per prefill) against the plain path, held to
@@ -265,8 +276,9 @@ JAX or of the JAX package. No phase's failure is caught.
      processes on this card over gloo (``python3 chip_smoke.py --moe-rank
      DIR``), its references run here first (every MoE call's router gaps
      recorded), each arch's params built once per process. (a)
-     deepseek-v2-lite-16b at full width, its first 3 of 27 layers (fp32
-     params): the prefill of 1 × 512 at data 1 × model 4 (16 experts and 4
+     deepseek-v2-lite-16b at full width, its first 3 of 27 layers, as the
+     JAX package has it (``tests/jax_twin.py``: capacity dispatch, fp32
+     params; the placed MoE refuses the published model's dropless routing): the prefill of 1 × 512 at data 1 × model 4 (16 experts and 4
      heads per rank) in fp32; decodes of 8 + 8 through the placed step, fed
      the one process's tokens, at 1 × 4 batch 4 in fp32 and bf16 and at 2 × 2
      batch 1 in fp32 (``c_kv``'s sequence over model, ``pos`` over data). (b)
@@ -409,7 +421,10 @@ TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}  # the card sums in another or
 TAIL_TOL = {torch.float32: 1e-4, torch.bfloat16: 5e-3}
 PREFILL_TOL = {"float32": 1e-3, "bfloat16": 5e-2}
 # phase 8: deepseek-v2-lite-16b; phase 9: dbrx-132b at 2 of its 40 layers
-DEEPSEEK_PREFILL = (2, 4096)
+# the benchmark cell whose prompts (2 x 4096 Zipf tokens) phase 8(b) prefills, from
+# DEEPSEEK_SEED, and whose token_gap limit judges them
+DEEPSEEK_CELL, DEEPSEEK_SEED = "deepseek-v2-lite-16b.prefill-b2-s4096", 3000000001
+DEEPSEEK_DECODE = 16  # greedy bf16 steps through the latent caches after that prefill
 DEEPSEEK_REPLAY = 64  # tokens, fp32: prefill against token-by-token decode
 DEEPSEEK_DEPTH2 = (("mla_dense", "mla_moe"), 256)  # layers, tokens: card against CPU
 DBRX_LAYERS, DBRX_PREFILL, DBRX_DECODE = 2, (1, 4096), 8
@@ -2196,6 +2211,15 @@ def _hybrid_hold(refs: dict, ranks: list, hold) -> dict:
     return out
 
 
+def _jax_twin():
+    """``tests/jax_twin.twin_config``: the configs as the JAX package has them, so
+    deepseek-v2-lite-16b with capacity dispatch and fp32 params, which phase 18
+    places on the model axis (the placed MoE refuses dropless routing)."""
+    sys.path.insert(0, str(ROOT / "tests"))
+    from jax_twin import twin_config
+    return twin_config
+
+
 def phase_moe_mla(get_config, tf, steps_lib, train, moe_lib, attn, apply_norm) -> dict:
     """Phase 18: the MoE and MLA block kinds on the model axis. The references run
     here first, each arch's params freed before the next: (a) deepseek's fp32
@@ -2244,8 +2268,8 @@ def phase_moe_mla(get_config, tf, steps_lib, train, moe_lib, attn, apply_norm) -
                 del logits, tokens
         del params
         torch.cuda.empty_cache()
-    get = train.get_config  # (c): the first 2 layers, in fp32
-    train.get_config = functools.partial(_moe_train_config, get)
+    get = train.get_config  # (c): the first 2 layers, in fp32, of the phase's configs
+    train.get_config = functools.partial(_moe_train_config, get_config)
     model1 = {}
     try:
         for name, flags in MOE_TRAIN_RUNS:
@@ -2352,9 +2376,9 @@ def phase_moe_mla(get_config, tf, steps_lib, train, moe_lib, attn, apply_norm) -
 def moe_rank(out_dir: str) -> None:
     """One rank of phase 18's world: its runs, written to ``out_dir/rank<r>.json``."""
     sys.path.insert(0, str(ROOT / "src"))
+    get_config = _jax_twin()
     import torch.distributed as dist
     from torch.distributed.tensor.experimental import implicit_replication
-    from repro_torch.configs import get_config
     from repro_torch.kernels import ops
     from repro_torch.launch import train
     from repro_torch.launch import steps as steps_lib
@@ -2433,7 +2457,7 @@ def moe_rank(out_dir: str) -> None:
         torch.cuda.empty_cache()
     ops.flash_attention = counted
     get = train.get_config  # (c): the first 2 layers in fp32, as the reference's
-    train.get_config = functools.partial(_moe_train_config, get)
+    train.get_config = functools.partial(_moe_train_config, get_config)
     out["train"] = rank_train(train, ops, MOE_TRAIN_RUNS, MOE_TRAIN)
     train.get_config = get
     for res in out["train"].values():
@@ -2499,12 +2523,61 @@ def _map(fn, tree):
 
 
 def _is_norm(path: str) -> bool:
-    return "ln1" in path or "ln2" in path or "final_norm" in path
+    return "ln1" in path or "ln2" in path or "final_norm" in path or "kv_norm" in path
 
 
-def phase_deepseek(get_config, tf, steps_lib, flatten_with_paths, ops) -> dict:
-    """Phase 8 (a)–(d): deepseek-v2-lite-16b whole on the card, fp32 params
-    from seed 0. Returns numbers only, so its params die with the call."""
+@contextlib.contextmanager
+def _no_host_sync(moe_lib):
+    """While the block runs, every dropless MoE call raises on an operation that
+    waits for the card (``torch.cuda.set_sync_debug_mode``)."""
+    dropless = moe_lib._dropless
+
+    def checked(*args):
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            return dropless(*args)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    moe_lib._dropless = checked
+    try:
+        yield
+    finally:
+        moe_lib._dropless = dropless
+
+
+def _published_reference_check(cell, params, seq, served, steps, s: int) -> dict:
+    """Phase 8(b)'s judgement by the ``cell``'s reference
+    (``bench/references/deepseek-v2-lite-16b.py``) in fp32 (TF32 off) over each row
+    of ``seq`` [b, s + n] (the prompt and the n tokens fed to the decode steps):
+    the widest gap by which a served token's logit (the prefill's first choices
+    ``served`` [b, s], each step's ``steps`` [b, n, V]) lies below the reference's
+    best, held to the cell's ``token_gap`` limit, and each step's logits' error
+    relative to the reference's largest."""
+    from bench import harness, reference
+    bench_cfg, limit = cell.cfg, cell.limits
+    model = harness.model_parts(bench_cfg)
+    prefill_gap, step_gap, step_err = 0.0, [0.0] * steps.shape[1], [0.0] * steps.shape[1]
+    with reference.exact_fp32(), torch.inference_mode():
+        for i in range(seq.shape[0]):
+            ref = model.forward(params, seq[i:i + 1], bench_cfg, q_rows=1024)[0]  # [s + n, V]
+            best = ref.max(-1).values
+            gap = best[:s] - ref[:s].gather(-1, served[i].long()[:, None])[:, 0]
+            prefill_gap = max(prefill_gap, float(gap.max()))
+            for j in range(steps.shape[1]):
+                want, got = ref[s + j], steps[i, j]
+                step_gap[j] = max(step_gap[j], float(best[s + j] - want[got.argmax()]))
+                step_err[j] = max(step_err[j], _rel(got, want))
+            del ref, best, gap
+    return {"prefill_token_gap": prefill_gap, "decode_token_gap": step_gap,
+            "decode_rel_err": step_err, "token_gap_limit": limit["token_gap"],
+            "ok": max(prefill_gap, *step_gap) <= limit["token_gap"]}
+
+
+def phase_deepseek(get_config, tf, steps_lib, flatten_with_paths, ops, moe_lib) -> dict:
+    """Phase 8 (a)–(d): deepseek-v2-lite-16b whole on the card as published: (a)
+    ``init_params``' bf16 tree from seed 0 counted, (b)–(d) on the benchmark cell's
+    weights, drawn as the cell draws them from ``DEEPSEEK_SEED``. Returns numbers
+    only, so its params die with the call."""
     dev = torch.device("cuda")
     cfg = get_config("deepseek-v2-lite-16b")
     t0 = time.perf_counter()
@@ -2520,29 +2593,76 @@ def phase_deepseek(get_config, tf, steps_lib, flatten_with_paths, ops) -> dict:
     print(json.dumps({"deepseek_params": out}), flush=True)
     assert counted == cfg.param_count(), out  # 15,706,357,760 (tests/test_torch_mla.py)
 
-    # (b) the bf16 prefill: MLA takes the dense path, no flash launch
-    gen = torch.Generator(device=dev).manual_seed(1)
-    batch = {"tokens": torch.randint(0, cfg.vocab_size, DEEPSEEK_PREFILL, generator=gen,
-                                     device=dev)}
-    prefill = steps_lib.make_prefill(cfg.replace(use_pallas=True), dev)
+    # (b) the published model as the benchmark serves it, bf16, on the cell's weights
+    # and prompts: a prefill of 2 x 4096 through make_prefill (no flash launch: MLA
+    # takes the dense path; three grouped expert products a MoE layer, none of them
+    # reading a value on the host) that fills the latent caches, then greedy decode
+    # steps through them; the served tokens and the steps' logits judged by the plain
+    # fp32 reference's forward over the whole sequence
+    del params
+    torch.cuda.empty_cache()
+    sys.path.insert(0, str(ROOT))
+    from bench import data, harness
+    cell = harness.load_cell(DEEPSEEK_CELL)
+    model = harness.model_parts(cell.cfg)
+    params = data.make_weights(cell.cfg, DEEPSEEK_SEED, dev, model.weight_shapes(cell.cfg))
+    b, s = cell.traffic["batch"], cell.traffic["prompt_len"]
+    batch = {"tokens": data.tokens(cell.cfg, cell.traffic["tokens"], DEEPSEEK_SEED, 0, b,
+                                   s).to(dev)}
+    c16 = cfg.replace(use_pallas=True)
+    prefill = steps_lib.make_prefill(c16, dev)
+    caches = tf.init_caches(c16, b, s + DEEPSEEK_DECODE, dev)
+    moe_layers = cfg.block_pattern.count("mla_moe")
     n0 = ops.LAUNCHES["flash_attention"]
     torch.cuda.reset_peak_memory_stats()
     logits, first_s = _timed(prefill, params, batch)
     del logits
-    logits, prefill_s = _timed(prefill, params, batch)
+    g0 = moe_lib.LAUNCHES["grouped_mm"]
+    with _no_host_sync(moe_lib):
+        logits, prefill_s = _timed(prefill, params, batch, caches)
     launches = ops.LAUNCHES["flash_attention"] - n0
-    out["prefill_bf16"] = {"tokens": list(DEEPSEEK_PREFILL), "first_s": first_s,
+    grouped = moe_lib.LAUNCHES["grouped_mm"] - g0
+    moe_lib.EXPERT_LOADS.clear()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]):
+        del logits
+        logits = prefill(params, batch, caches)  # the spans keep each layer's loads
+    loads = torch.stack(moe_lib.EXPERT_LOADS).cpu()  # [MoE layers, experts]
+    moe_lib.EXPERT_LOADS.clear()
+    decode = steps_lib.make_decode_step(c16, dev)
+    cur = logits[:, -1].argmax(-1, keepdim=True).int()
+    seq, steps = [batch["tokens"], cur], []
+    t0 = time.perf_counter()
+    for i in range(DEEPSEEK_DECODE):
+        step, caches = decode(params, caches, cur, s + i)
+        steps.append(step[:, 0].float())
+        cur = step[:, 0].argmax(-1, keepdim=True).int()
+        seq.append(cur)
+    torch.cuda.synchronize()
+    decode_s = (time.perf_counter() - t0) / DEEPSEEK_DECODE
+    served = logits.argmax(-1)  # [b, s]
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    del logits, caches
+    torch.cuda.empty_cache()
+    judged = _published_reference_check(cell, params, torch.cat(seq[:-1], 1), served,
+                                        torch.stack(steps, 1), s)
+    out["prefill_bf16"] = {"tokens": [b, s], "first_s": first_s,
                            "prefill_s": prefill_s, "flash_launches": launches,
-                           "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
-                           "finite": bool(torch.isfinite(logits).all())}
+                           "grouped_mm_launches": grouped, "moe_layers": moe_layers,
+                           "decode_steps": DEEPSEEK_DECODE, "decode_step_s": decode_s,
+                           "peak_gb": peak_gb,
+                           "expert_load_max_over_mean": (loads.amax(1) / loads.mean(1)).tolist(),
+                           "expert_load_min": loads.amin(1).tolist(), **judged}
     print(json.dumps({"deepseek_prefill": out["prefill_bf16"]}), flush=True)
-    assert logits.shape == (*DEEPSEEK_PREFILL, cfg.vocab_size), logits.shape
-    assert out["prefill_bf16"]["finite"] and launches == 0, out["prefill_bf16"]
-    del logits, batch
+    assert launches == 0 and grouped == 3 * moe_layers, out["prefill_bf16"]
+    assert loads.shape == (moe_layers, cfg.moe_experts), loads.shape
+    assert bool((loads.sum(1) == b * s * cfg.moe_top_k).all()), loads.sum(1)  # dropless
+    assert judged["ok"], out["prefill_bf16"]
+    del batch, steps, seq
     torch.cuda.empty_cache()
 
-    # (c) fp32, capacity to spare: prefill against token replay over the latent cache
-    c32 = cfg.replace(compute_dtype="float32", moe_capacity_factor=50.0)
+    # (c) fp32: prefill against token replay over the latent cache, both dropless
+    gen = torch.Generator(device=dev).manual_seed(1)
+    c32 = cfg.replace(compute_dtype="float32")
     toks = torch.randint(0, cfg.vocab_size, (1, DEEPSEEK_REPLAY), generator=gen, device=dev)
     full = steps_lib.make_prefill(c32, dev)(params, {"tokens": toks})
     decode = steps_lib.make_decode_step(c32, dev)
@@ -3601,7 +3721,8 @@ def main() -> None:
     t_phase = time.perf_counter()
     torch.cuda.empty_cache()
     reset_launches()
-    deepseek = phase_deepseek(get_config, tf, steps_lib, flatten_with_paths, ops)
+    deepseek = phase_deepseek(get_config, tf, steps_lib, flatten_with_paths, ops,
+                              moe_lib)
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
     held_gb = torch.cuda.memory_allocated() / 1e9  # (e) starts with nothing of (a)–(d)
@@ -3792,7 +3913,7 @@ def main() -> None:
     # -- phase 18: the MoE and MLA block kinds on the model axis, over gloo -------
     t_phase = time.perf_counter()
     torch.cuda.empty_cache()
-    moe_mla = phase_moe_mla(get_config, tf, steps_lib, train, moe_lib, attn, apply_norm)
+    moe_mla = phase_moe_mla(_jax_twin(), tf, steps_lib, train, moe_lib, attn, apply_norm)
     done("18_moe_mla_model_axis", t_phase)
 
     bf, f32 = kern["timed"]["danube"][torch.bfloat16], kern["timed"]["danube"][torch.float32]

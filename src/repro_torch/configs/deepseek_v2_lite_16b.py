@@ -5,6 +5,14 @@ top-6 + 2 shared, first layer dense (d_ff=10944)  [arXiv:2405.04434; hf]
 
 The MLA latent cache (rank 512 + 64 rope dims = 576/token) is the arch's
 serving-side contribution; ``decode_32k`` exercises it.
+
+``config()`` is the published model (huggingface.co/deepseek-ai/DeepSeek-V2-Lite,
+config.json): the latent's RMSNorm, YaRN (factor 40 over 4096 positions, mscale
+0.707 on both sides, so the softmax scale is 1/sqrt(192) x 1.2608^2), the top-6
+softmax gates as they are (``norm_topk_prob`` false), dropless routing, and bf16
+weights, its published dtype (15.7B parameters, 31.4 GB). The JAX package's
+deepseek leaves the four mechanisms out and keeps fp32 weights; its smoke config
+is ``smoke_config()``.
 """
 
 from repro_torch.configs.base import ModelConfig
@@ -24,6 +32,11 @@ def config() -> ModelConfig:
         moe_experts=64, moe_top_k=6, moe_shared_experts=2, moe_d_ff=1408,
         rope_theta=10000.0, mlp_style="swiglu", norm="rmsnorm",
         tie_embeddings=False,
+        mla_kv_norm=True,
+        yarn_factor=40.0, yarn_original_max_position_embeddings=4096,
+        yarn_beta_fast=32.0, yarn_beta_slow=1.0, yarn_mscale=0.707, yarn_mscale_all_dim=0.707,
+        moe_norm_topk_prob=False, moe_capacity_factor=None,
+        param_dtype="bfloat16",
     )
 
 

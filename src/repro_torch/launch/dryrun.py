@@ -74,7 +74,7 @@ from typing import Any
 import torch
 from torch.utils._python_dispatch import TorchDispatchMode
 from torch.utils._pytree import tree_leaves
-from torch.utils.flop_counter import FlopCounterMode, flop_registry
+from torch.utils.flop_counter import FlopCounterMode, flop_registry, register_flop_formula
 
 from repro_torch.bridge import flatten_with_paths
 from repro_torch.configs import ASSIGNED, SHAPES, cells_for, get_config
@@ -123,6 +123,16 @@ _METADATA_OPS = {torch.ops.aten.size.default, torch.ops.aten.stride.default,
                  torch.ops.aten.storage_offset.default, torch.ops.aten.sym_size.default,
                  torch.ops.aten.sym_stride.default, torch.ops.aten.sym_numel.default,
                  torch.ops.aten.is_contiguous.default, torch.ops.prim.layout.default}
+
+
+@register_flop_formula(torch.ops.aten._grouped_mm)
+def _grouped_mm_flops(a_shape, b_shape, *args, out_shape=None, **kwargs) -> int:
+    """A grouped product's FLOPs (``torch.utils.flop_counter`` has none): 2 per
+    multiply-add, each output element over the contracted width; where both
+    operands are 2-D the groups split that width, so it is summed once."""
+    if len(a_shape) == 2 and len(b_shape) == 2:
+        return 2 * a_shape[0] * a_shape[1] * b_shape[1]
+    return 2 * math.prod(out_shape) * a_shape[-1]
 
 
 def _sid(t: torch.Tensor) -> int:

@@ -58,8 +58,11 @@ module spans open while a profiler runs (:mod:`repro_torch.spans`):
 ``train/forward`` and ``train/backward`` (host only), ``train/embed``,
 ``train/norm``, ``train/attention``, ``train/ffn``, ``train/unembed`` and
 ``train/loss``, each with its ``.bwd`` span, and ``train/recompute``. The
-prefill, the encode and the decode set no namespace and mark nothing. The
-benchmark's traced run reads them (``bench/metrics/``: ``fwd_bwd_ms.train``,
+prefill sets the namespace ``prefill`` (its modules ``prefill/embed``,
+``prefill/norm``, ``prefill/attention``, ``prefill/ffn``, ``prefill/unembed``,
+and a dropless MoE's stages ``prefill/moe.route``, ``moe.dispatch``,
+``moe.experts``, ``moe.combine`` and ``moe.shared``); the encode and the
+decode mark nothing. The benchmark's traced run reads them (``bench/metrics/``: ``fwd_bwd_ms.train``,
 ``adamw_ms.train``, ``grad_comm_ms.train``, the modules' ``*_ms.train`` and
 ``recompute_ms.train`` on the device; ``host_fwd_ms.train``,
 ``host_bwd_ms.train`` and ``bwd_idle_ms.train`` from the host's spans).
@@ -542,7 +545,9 @@ def _shard_of(t: DTensor) -> grad_comm.Shard:
 
 def make_prefill(cfg: ModelConfig, device: Optional[torch.device] = None,
                  policy=None, mesh=None) -> Callable:
-    """``prefill(params, batch) -> logits [B,S,V]`` on ``device`` (default cuda).
+    """``prefill(params, batch, caches=None) -> logits [B,S,V]`` on ``device``
+    (default cuda); an MLA model's ``caches`` (``tf.init_caches``) are filled
+    at the prompt's positions, for the decode step to go on from.
 
     On a process ``mesh`` with a model axis, tensor-parallel: the params are
     placed by ``policy``'s param specs (full tensors on the way in, every
@@ -557,9 +562,11 @@ def make_prefill(cfg: ModelConfig, device: Optional[torch.device] = None,
         return _placed_prefill(cfg, policy, mesh)
 
     @torch.inference_mode()
-    def prefill(params, batch):
+    def prefill(params, batch, caches=None):
         batch = {k: v.to(dev) for k, v in batch.items()}
-        logits, _ = tf.forward_logits(params, batch, cfg)
+        with spans.namespace("prefill"):  # no caches: the three-argument call wrappers take
+            logits, _ = (tf.forward_logits(params, batch, cfg) if caches is None
+                         else tf.forward_logits(params, batch, cfg, caches))
         return logits
 
     return prefill
@@ -576,7 +583,7 @@ def _placed_prefill(cfg: ModelConfig, policy, mesh) -> Callable:
             params = distribute_tree(params, p_specs, dm)
         batch = {k: v.to(mesh.device) for k, v in batch.items()}
         batch = distribute_tree(batch, policy.batch_specs(batch), dm)
-        with implicit_replication():
+        with implicit_replication(), spans.namespace("prefill"):
             logits, _ = tf.forward_logits(
                 tree_map(lambda t: param_on_model(t, axes, flat), params),
                 {k: on_model(v, flat) for k, v in batch.items()}, cfg)

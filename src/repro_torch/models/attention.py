@@ -15,7 +15,11 @@ updates the cache in place (an eager program gains nothing from a copy).
 
 MLA (DeepSeek-V2's multi-head latent attention) takes the dense or chunked
 path only, as in the JAX package: its query/key dim (nope + rope) differs
-from its value dim, and the kernel takes one head dim.
+from its value dim, and the kernel takes one head dim. The published model's
+two mechanisms that the JAX package leaves out are the configuration's: the
+latent's RMSNorm (``cfg.mla_kv_norm``, before the latent is cached or
+decompressed) and YaRN on the rope lanes (``cfg.yarn_factor``: its
+frequencies, and the softmax scale times mscale(factor, mscale_all_dim)²).
 
 Under tensor parallelism (DTensor params, the heads sharded over the model
 axis) the standard block's attention core runs on each rank's own heads
@@ -40,7 +44,8 @@ from repro_torch.core import collectives_dist
 from repro_torch.kernels import ops as kops
 from repro_torch.kernels.ref import RECIP_127
 from repro_torch.models import loop_fold
-from repro_torch.models.layers import apply_rope, dense_init, reduced, whole_grad
+from repro_torch.models.layers import (apply_norm, apply_rope, dense_init, init_norm, reduced,
+                                       whole_grad, yarn_mscale, yarn_of)
 from repro_torch.sharding.policy import flat_group, local_offsets, redistribute
 
 Tensor = torch.Tensor
@@ -525,8 +530,10 @@ def _seq_split_attention(q: Tensor, k: Tensor, v: Tensor, mask: Tensor, group,
 
 def init_mla(gen: torch.Generator, d: int, n_heads: int, kv_lora_rank: int,
              qk_nope_dim: int, qk_rope_dim: int, v_dim: int, dtype=torch.float32,
-             lead: tuple[int, ...] = ()) -> dict:
-    return {
+             lead: tuple[int, ...] = (), kv_norm: bool = False) -> dict:
+    """MLA's params; with ``kv_norm`` the latent's RMSNorm scale too (fp32,
+    stored as 1 + w, as every RMSNorm of the port)."""
+    p = {
         # queries (lite model: no q-lora)
         "wq": dense_init(gen, (d, n_heads, qk_nope_dim + qk_rope_dim), dtype=dtype, lead=lead),
         # latent KV compression
@@ -537,23 +544,29 @@ def init_mla(gen: torch.Generator, d: int, n_heads: int, kv_lora_rank: int,
         "w_uv": dense_init(gen, (kv_lora_rank, n_heads, v_dim), dtype=dtype, lead=lead),
         "wo": dense_init(gen, (n_heads, v_dim, d), dtype=dtype, lead=lead),
     }
+    if kv_norm:
+        p["kv_norm"] = init_norm("rmsnorm", kv_lora_rank, lead, gen.device)
+    return p
 
 
 def _mla_query(p: dict, x: Tensor, positions: Tensor, cfg) -> Tensor:
     """[B,S,H,nope+rope]: the nope lanes as projected, the rope lanes roped."""
     q = torch.einsum("bsd,dhk->bshk", x, p["wq"].to(x.dtype))
     nope = cfg.mla_qk_nope_dim
-    return torch.cat([q[..., :nope], apply_rope(q[..., nope:], positions, cfg.rope_theta)],
-                     dim=-1)
+    return torch.cat([q[..., :nope], apply_rope(q[..., nope:], positions, cfg.rope_theta,
+                                                yarn=yarn_of(cfg))], dim=-1)
 
 
 def _mla_latent(p: dict, x: Tensor, positions: Tensor, cfg) -> tuple[Tensor, Tensor]:
-    """The cached pair: latent ``c_kv`` [B,S,rank] and roped ``k_pe`` [B,S,rope]
-    (full rotary on the interleaved lanes, one head shared by all)."""
+    """The cached pair: latent ``c_kv`` [B,S,rank] (RMS-normed where the
+    configuration norms it) and roped ``k_pe`` [B,S,rope] (full rotary on the
+    interleaved lanes, one head shared by all)."""
     dt = x.dtype
     c_kv = torch.einsum("bsd,dr->bsr", x, p["w_dkv"].to(dt))
+    if cfg.mla_kv_norm:
+        c_kv = apply_norm("rmsnorm", p["kv_norm"], c_kv)
     k_pe = torch.einsum("bsd,dk->bsk", x, p["w_kpe"].to(dt))[:, :, None, :]
-    return c_kv, apply_rope(k_pe, positions, cfg.rope_theta)[:, :, 0, :]
+    return c_kv, apply_rope(k_pe, positions, cfg.rope_theta, yarn=yarn_of(cfg))[:, :, 0, :]
 
 
 def _mla_keys_values(p: dict, c_kv: Tensor, k_pe: Tensor, cfg) -> tuple[Tensor, Tensor]:
@@ -566,13 +579,20 @@ def _mla_keys_values(p: dict, c_kv: Tensor, k_pe: Tensor, cfg) -> tuple[Tensor, 
 
 
 def _mla_scale(cfg) -> float:
-    return 1.0 / math.sqrt(cfg.mla_qk_nope_dim + cfg.mla_qk_rope_dim)
+    """1/sqrt(nope + rope), times mscale(factor, mscale_all_dim)² under YaRN
+    (DeepSeek-V2: 0.0722 x 1.5897 = 0.11472)."""
+    scale = 1.0 / math.sqrt(cfg.mla_qk_nope_dim + cfg.mla_qk_rope_dim)
+    if cfg.yarn_factor is not None and cfg.yarn_mscale_all_dim:
+        scale *= yarn_mscale(cfg.yarn_factor, cfg.yarn_mscale_all_dim) ** 2
+    return scale
 
 
 def mla_forward(p: dict, x: Tensor, positions: Tensor, cfg,
-                use_chunked: Optional[bool] = None) -> Tensor:
+                use_chunked: Optional[bool] = None, cache: Optional[dict] = None) -> Tensor:
     """Full-sequence MLA. The latent c_kv (rank 512) + shared k_pe (64) are
-    what a server caches: 576 values per token against 2·H·D = 4096.
+    what a server caches: 576 values per token against 2·H·D = 4096. With
+    ``cache`` (``init_mla_cache``'s, plain tensors) the pair is written into
+    its slots 0..S−1, for :func:`mla_decode` to go on from.
 
     With DTensor params on the model axis (``wq``, ``w_uk``, ``w_uv`` and
     ``wo`` split over heads, ``w_dkv`` and ``w_kpe`` whole), the latent pair
@@ -584,6 +604,10 @@ def mla_forward(p: dict, x: Tensor, positions: Tensor, cfg,
     q = _mla_query(p, x, positions, cfg)
     c_kv, k_pe = _mla_latent(p, x, positions, cfg)
     s = x.shape[1]
+    if cache is not None:
+        cache["c_kv"][:, :s] = c_kv.to(cache["c_kv"].dtype)
+        cache["k_pe"][:, :s] = k_pe.to(cache["k_pe"].dtype)
+        cache["pos"][:, :s] = positions
     if use_chunked is None:
         use_chunked = s * s > cfg.dense_attn_limit
 
@@ -672,7 +696,8 @@ def placed_mla_decode(p: dict, x: Tensor, cache: dict, position: int,
     xl, dt = x.to_local(), x.dtype
     b = xl.shape[0]
     pos_b = torch.full((b, 1), position, dtype=torch.int32, device=xl.device)
-    local = {k: t.to_local() for k, t in p.items()}
+    local = {k: {n: w.to_local() for n, w in t.items()} if isinstance(t, dict) else t.to_local()
+             for k, t in p.items()}
     q = _mla_query(local, xl, pos_b, cfg)  # [b, 1, H_l, nope + rope]
     c_new, kpe_new = _mla_latent(local, xl, pos_b, cfg)
     c_kv = cache["c_kv"]

@@ -13,7 +13,7 @@ backward), and the loss gathers vocab-sharded logits.
 from __future__ import annotations
 
 import math
-from typing import Optional
+from typing import NamedTuple, Optional
 
 import torch
 import torch.nn.functional as F
@@ -126,28 +126,80 @@ def apply_norm(cfg_norm: str, p: dict, x: Tensor) -> Tensor:
 # rotary position embeddings
 # ---------------------------------------------------------------------------
 
+class Yarn(NamedTuple):
+    """YaRN's rope scaling (arXiv:2309.00071) as DeepSeek-V2 computes it (HF's
+    ``DeepseekV2YarnRotaryEmbedding``): HF's ``rope_scaling`` keys."""
+    factor: float
+    original_max_position_embeddings: int
+    beta_fast: float
+    beta_slow: float
+    mscale: float
+    mscale_all_dim: float
+
+
+def yarn_of(cfg) -> Optional[Yarn]:
+    """The configuration's YaRN settings, None where it has none."""
+    if cfg.yarn_factor is None:
+        return None
+    return Yarn(cfg.yarn_factor, cfg.yarn_original_max_position_embeddings, cfg.yarn_beta_fast,
+                cfg.yarn_beta_slow, cfg.yarn_mscale, cfg.yarn_mscale_all_dim)
+
+
+def yarn_mscale(factor: float, m: float) -> float:
+    """0.1·m·ln(factor) + 1: YaRN's attention temperature (1 for no scaling)."""
+    return 1.0 if factor <= 1 else 0.1 * m * math.log(factor) + 1.0
+
+
+def _yarn_ramp(yarn: Yarn, rd: int, theta: float, device) -> Tensor:
+    """Over the ``rd/2`` lane pairs: 0 where a pair turns more than ``beta_fast``
+    times over the original context (its frequency kept), 1 where it turns fewer
+    than ``beta_slow`` times (divided by the factor), linear between."""
+    def dim(turns):  # the pair index at which a frequency makes ``turns`` turns
+        return (rd * math.log(yarn.original_max_position_embeddings / (turns * 2 * math.pi))
+                / (2 * math.log(theta)))
+    lo = max(math.floor(dim(yarn.beta_fast)), 0)
+    hi = min(math.ceil(dim(yarn.beta_slow)), rd - 1)
+    if hi == lo:
+        hi += 0.001
+    i = torch.arange(rd // 2, dtype=torch.float32, device=device)
+    return torch.clamp((i - lo) / (hi - lo), 0, 1)
+
+
 def rope_frequencies(head_dim: int, theta: float = 10000.0,
-                     rotary_dim: Optional[int] = None, device=None) -> Tensor:
-    """Inverse frequencies for RoPE over the first ``rotary_dim`` dims."""
+                     rotary_dim: Optional[int] = None, device=None,
+                     yarn: Optional[Yarn] = None) -> Tensor:
+    """Inverse frequencies for RoPE over the first ``rotary_dim`` dims; with
+    ``yarn``, each blended by YaRN's ramp from the frequency as it is to the
+    frequency divided by the factor."""
     rd = rotary_dim or head_dim
     exps = torch.arange(0, rd, 2, dtype=torch.float32, device=device) / rd
-    return 1.0 / (theta ** exps)
+    extra = 1.0 / (theta ** exps)
+    if yarn is None:
+        return extra
+    inter = 1.0 / (yarn.factor * theta ** exps)
+    keep = 1.0 - _yarn_ramp(yarn, rd, theta, device)
+    return inter * (1 - keep) + extra * keep
 
 
 def apply_rope(x: Tensor, positions: Tensor, theta: float = 10000.0,
-               rotary_dim: Optional[int] = None) -> Tensor:
+               rotary_dim: Optional[int] = None, yarn: Optional[Yarn] = None) -> Tensor:
     """Rotate ``x`` [..., S, H, D] by position. ``positions``: [..., S].
 
     Pairs are the interleaved lanes (0::2, 1::2), re-interleaved after the
     rotation. Partial rotary (GLM-style): only the first ``rotary_dim``
-    dims rotate, the remainder passes through.
+    dims rotate, the remainder passes through. ``yarn``: YaRN's frequencies,
+    and cos and sin scaled by mscale(factor, mscale) / mscale(factor,
+    mscale_all_dim).
     """
     d = x.shape[-1]
     rd = rotary_dim or d
-    inv = rope_frequencies(d, theta, rd, device=x.device)  # [rd/2]
+    inv = rope_frequencies(d, theta, rd, device=x.device, yarn=yarn)  # [rd/2]
     ang = positions[..., :, None].float() * inv  # [..., S, rd/2]
     cos = torch.cos(ang)[..., None, :]  # [..., S, 1, rd/2]
     sin = torch.sin(ang)[..., None, :]
+    if yarn is not None:
+        m = yarn_mscale(yarn.factor, yarn.mscale) / yarn_mscale(yarn.factor, yarn.mscale_all_dim)
+        cos, sin = cos * m, sin * m
     xr = x[..., :rd].float()
     x1, x2 = xr[..., 0::2], xr[..., 1::2]
     rot = torch.stack([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)

@@ -1,10 +1,22 @@
-"""Mixture-of-Experts with capacity-based dispatch (GShard-style, scatter).
+"""Mixture-of-Experts with capacity-based dispatch (GShard-style, scatter),
+or dropless.
 
 The twin of ``repro.models.moe``. Dispatch is computed per token group (one
 group per batch row): each (token, choice) gets a slot in its expert's
 ``cap``-row buffer, ranked by token order; assignments past an expert's
 capacity go to one trash row that every combine reads as 0 (standard
 GShard drops; ``capacity_factor`` sets the slack).
+
+With ``capacity_factor`` None (the published DeepSeek-V2's inference) no pair
+is dropped (:func:`_dropless`): the B·S·k (token, choice) pairs are sorted by
+expert, their rows gathered once, and each of the experts' three products is
+one grouped product over the contiguous groups (``torch._grouped_mm``, its
+offsets counted on the device: no host synchronisation), then each token's k
+outputs are weighed by their gates and summed. Inside a profiled call its
+stages mark themselves (``<ns>/moe.route``, ``moe.dispatch``, ``moe.experts``,
+``moe.combine``, ``moe.shared``), and each layer's pairs per expert are kept in
+:data:`EXPERT_LOADS`. ``norm_topk_prob`` False leaves the top-k gates as the
+softmax gives them (DeepSeek-V2-Lite); the JAX package renormalises them.
 
 The expert products are einsums over a leading expert axis, as the JAX
 package's are (XLA einsums there, outside any Pallas kernel). On the model
@@ -16,6 +28,7 @@ from __future__ import annotations
 
 import contextlib
 import functools
+from typing import Optional
 
 import torch
 import torch.distributed as dist
@@ -23,11 +36,20 @@ import torch.nn.functional as F
 from torch.distributed.tensor import DTensor, Partial, Replicate
 from torch.distributed.tensor.experimental import local_map
 
+from repro_torch import spans
 from repro_torch.core import collectives_dist
 from repro_torch.models.layers import dense_init, reduced, whole_grad
 from repro_torch.sharding.policy import local_offsets
 
 Tensor = torch.Tensor
+
+#: grouped expert products launched by the dropless path (three a layer), on any device
+LAUNCHES: dict[str, int] = {"grouped_mm": 0}
+
+#: each dropless layer's pairs per expert ``[E]`` (fp32 counts, on its device), appended
+#: while the spans are live (a profiled call): the caller reads them after the traced
+#: stretch, and clears the list
+EXPERT_LOADS: list[Tensor] = []
 
 #: The process group whose ranks' rows the balance loss counts together
 #: (:func:`balance_over`); ``None``: this rank's rows alone. A module global and not a
@@ -85,11 +107,13 @@ def top_k_lowest_index_first(probs: Tensor, k: int) -> tuple[Tensor, Tensor]:
     return vals[..., :k], idx[..., :k]
 
 
-def apply_moe(p: dict, x: Tensor, top_k: int,
-              capacity_factor: float = 1.25) -> tuple[Tensor, Tensor]:
+def apply_moe(p: dict, x: Tensor, top_k: int, capacity_factor: Optional[float] = 1.25,
+              norm_topk_prob: bool = True) -> tuple[Tensor, Tensor]:
     """x: [B, S, D] → (y, aux_loss). Groups = batch rows.
 
     aux_loss is the standard load-balancing loss (Switch §2.2): E·Σ f_e·P_e.
+    ``capacity_factor`` None: dropless (:func:`_dropless`), on plain tensors
+    only; placed params refuse it.
 
     With DTensor params on the model axis (``x`` whole over it), expert
     parallel as GSPMD runs the reference with tokens replicated and experts
@@ -106,6 +130,11 @@ def apply_moe(p: dict, x: Tensor, top_k: int,
     dev = x.device
     e = p["wi"].shape[0]
     placed = isinstance(p["wi"], DTensor)
+    if capacity_factor is None:
+        if placed or isinstance(x, DTensor):
+            raise ValueError("dropless routing (moe_capacity_factor=None) runs on plain tensors "
+                             "only; on the model axis the experts take capacity dispatch")
+        return _dropless(p, x, top_k, norm_topk_prob)
     x = whole_grad(x)
     # ---- routing (fp32) ----
     logits = x.float() @ p["router"]  # [B,S,E]
@@ -117,16 +146,11 @@ def apply_moe(p: dict, x: Tensor, top_k: int,
     # a gradient, so theirs is a partial sum
     local = probs.to_local(grad_placements=split) if placed else probs
     gates, idx = top_k_lowest_index_first(local, top_k)  # [B,S,k]
-    gates = gates / torch.clamp(gates.sum(-1, keepdim=True), min=1e-9)
+    if norm_topk_prob:
+        gates = gates / torch.clamp(gates.sum(-1, keepdim=True), min=1e-9)
     # load-balance aux loss
     me = probs.mean(dim=(0, 1))  # [E] mean router prob
-    ce = torch.zeros(e, dtype=torch.float32, device=dev).index_add_(
-        0, idx.reshape(-1), torch.ones(idx.numel(), dtype=torch.float32, device=dev))
-    n, group = b * s * top_k, _balance_group
-    if group is not None:
-        ce = collectives_dist.Wire(group).all_reduce(ce)
-        n *= dist.get_world_size(group)
-    ce = ce / n
+    ce = _assigned_share(_counts(idx, e), b * s * top_k)
     if placed:
         ce = DTensor.from_local(ce, x.device_mesh, [Replicate()] * x.device_mesh.ndim,
                                 run_check=False)
@@ -158,6 +182,67 @@ def apply_moe(p: dict, x: Tensor, top_k: int,
         out = reduced(out + shared) if ep else out + reduced(shared)
     else:
         out = reduced(out)
+    return out, aux
+
+
+def _counts(idx: Tensor, e: int) -> Tensor:
+    """Pairs per expert [E], fp32 (whole numbers, exact in any order of adds)."""
+    return torch.zeros(e, dtype=torch.float32, device=idx.device).index_add_(
+        0, idx.reshape(-1), torch.ones(idx.numel(), dtype=torch.float32, device=idx.device))
+
+
+def _assigned_share(counts: Tensor, n: int) -> Tensor:
+    """Each expert's share of the ``n`` pairs, over the ranks of
+    :func:`balance_over`'s group where one is set."""
+    group = _balance_group
+    if group is not None:
+        counts = collectives_dist.Wire(group).all_reduce(counts)
+        n *= dist.get_world_size(group)
+    return counts / n
+
+
+def _grouped(a: Tensor, w: Tensor, offs: Tensor) -> Tensor:
+    """Rows ``a`` [N, K] in contiguous groups, group g (ending at ``offs[g]``)
+    times ``w[g]`` [K, M]: one grouped product."""
+    LAUNCHES["grouped_mm"] += 1
+    return torch._grouped_mm(a, w.to(a.dtype), offs=offs)
+
+
+def _dropless(p: dict, x: Tensor, top_k: int, norm_topk_prob: bool) -> tuple[Tensor, Tensor]:
+    """Every (token, choice) pair through its expert, none dropped: the pairs
+    sorted by expert (stable, so in token order within an expert), their rows
+    gathered once, the gate, up and down products each one grouped product
+    over the experts' contiguous groups, the outputs put back in pair order and
+    each token's k weighed by their gates and summed (a batched product, in a
+    fixed order). Nothing reads a value on the host."""
+    b, s, d = x.shape
+    e = p["wi"].shape[0]
+    dt = x.dtype
+    with spans.span("moe.route"):
+        probs = torch.softmax(x.float() @ p["router"], dim=-1)  # [B,S,E]
+        gates, idx = top_k_lowest_index_first(probs, top_k)  # [B,S,k]
+        if norm_topk_prob:
+            gates = gates / torch.clamp(gates.sum(-1, keepdim=True), min=1e-9)
+        pairs = idx.reshape(-1)  # pair j: token j // k, its choice j % k
+        counts = _counts(pairs, e)
+        offs = counts.cumsum(0).to(torch.int32)  # each expert's group ends here
+        order = torch.argsort(pairs, stable=True)
+        aux = e * torch.sum(probs.mean(dim=(0, 1)) * _assigned_share(counts, pairs.numel()))
+        if spans.live():
+            EXPERT_LOADS.append(counts)
+    with spans.span("moe.dispatch"):
+        rows = x.reshape(b * s, d).index_select(0, order // top_k)  # [B·S·k, D]
+    with spans.span("moe.experts"):
+        h = F.silu(_grouped(rows, p["wg"], offs)) * _grouped(rows, p["wi"], offs)
+        y = _grouped(h, p["wo"], offs)
+    with spans.span("moe.combine"):
+        y = torch.empty_like(y).index_copy_(0, order, y).view(b * s, top_k, d)
+        out = torch.bmm(gates.reshape(b * s, 1, top_k).to(dt), y).view(b, s, d)
+    if "shared" in p:
+        with spans.span("moe.shared"):
+            sp = p["shared"]
+            hs = F.silu(x @ sp["wg"].to(dt)) * (x @ sp["wi"].to(dt))
+            out = out + hs @ sp["wo"].to(dt)
     return out, aux
 
 

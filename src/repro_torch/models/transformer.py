@@ -42,7 +42,7 @@ policy's cache specs (``attention.placed_decode_attention``,
 
 from __future__ import annotations
 
-from typing import Any
+from typing import Any, Optional
 
 import torch
 from torch.distributed.tensor import DTensor
@@ -120,7 +120,7 @@ def _init_block(gen: torch.Generator, kind: str, cfg: ModelConfig,
                                   cfg.qkv_bias, pd, lead)
     else:
         mix = attn.init_mla(gen, d, cfg.n_heads, cfg.mla_kv_lora_rank, cfg.mla_qk_nope_dim,
-                            cfg.mla_qk_rope_dim, cfg.mla_v_dim, pd, lead)
+                            cfg.mla_qk_rope_dim, cfg.mla_v_dim, pd, lead, cfg.mla_kv_norm)
     p = {"ln1": init_norm(cfg.norm, d, lead, dev), "attn": mix,
          "ln2": init_norm(cfg.norm, d, lead, dev)}
     if kind in ("dense", "mla_dense"):
@@ -202,12 +202,13 @@ def _layers(seg_params: dict, count: int) -> list[dict]:
 
 
 def _ffn(kind: str, p: dict, h: Tensor, cfg: ModelConfig,
-         capacity_factor: float) -> tuple[Tensor, Tensor]:
+         capacity_factor: Optional[float]) -> tuple[Tensor, Tensor]:
     """A block's second half: its MLP, or its MoE and balance loss."""
     if kind in ("dense", "mla_dense"):
         return apply_mlp(p["mlp"], h, cfg.mlp_style), torch.zeros(
             (), dtype=torch.float32, device=h.device)
-    return moe_lib.apply_moe(p["moe"], h, cfg.moe_top_k, capacity_factor)
+    return moe_lib.apply_moe(p["moe"], h, cfg.moe_top_k, capacity_factor,
+                             cfg.moe_norm_topk_prob)
 
 
 def _mix_forward(kind: str, p: dict, h: Tensor, cfg: ModelConfig) -> Tensor:
@@ -224,7 +225,8 @@ def _mix_forward(kind: str, p: dict, h: Tensor, cfg: ModelConfig) -> Tensor:
 
 
 def _block_forward(kind: str, p: dict, x: Tensor, positions: Tensor,
-                   cfg: ModelConfig, mask_kind: str, prefix_len: int) -> tuple[Tensor, Tensor]:
+                   cfg: ModelConfig, mask_kind: str, prefix_len: int,
+                   cache: Optional[dict] = None) -> tuple[Tensor, Tensor]:
     h = spans.wrap("norm", x, lambda t: apply_norm(cfg.norm, p["ln1"], t))
     if kind in _SSM_KINDS:
         return x + _mix_forward(kind, p["mix"], h, cfg), torch.zeros(
@@ -234,7 +236,7 @@ def _block_forward(kind: str, p: dict, x: Tensor, positions: Tensor,
             p["attn"], t, positions, cfg, mask_kind, prefix_len, use_pallas=cfg.use_pallas))
     else:
         x = x + spans.wrap("attention", h, lambda t: attn.mla_forward(p["attn"], t, positions,
-                                                                       cfg))
+                                                                       cfg, cache=cache))
     h = spans.wrap("norm", x, lambda t: apply_norm(cfg.norm, p["ln2"], t))
     y, aux = spans.wrap("ffn", h, lambda t: _ffn(kind, p, t, cfg, cfg.moe_capacity_factor))
     return x + y, aux
@@ -262,14 +264,17 @@ def _remat(cfg: ModelConfig) -> bool:
     return cfg.remat and torch.is_grad_enabled()
 
 
-def forward_logits(params: Params, batch: dict, cfg: ModelConfig) -> tuple[Tensor, Tensor]:
+def forward_logits(params: Params, batch: dict, cfg: ModelConfig,
+                   caches: Optional[list] = None) -> tuple[Tensor, Tensor]:
     """Full-sequence forward → (logits [B,S,V], aux_loss).
 
     ``batch``: {"tokens": [B,S]}, plus "image_embeds" [B, T_img, D] for vlm
     (in front of the tokens: logits [B, T_img + S, V]) and "frames"
     [B, S_enc, D] for encdec. Positions are 0..S−1 (from the first image
     token for vlm). The aux loss is the MoE balance term summed over layers,
-    0 without MoE blocks.
+    0 without MoE blocks. ``caches`` (``init_caches``' list, of a model whose
+    blocks are all MLA): each layer writes its latent pair into its cache at
+    slots 0..S−1, so that ``decode_step`` goes on from position S.
     """
     _check_supported(cfg)
     cdt = cfg.cdtype
@@ -290,13 +295,16 @@ def forward_logits(params: Params, batch: dict, cfg: ModelConfig) -> tuple[Tenso
         x = x + sinusoidal_positions(s, cfg.d_model, device=x.device).to(cdt)[None]
         return _decoder_cross_forward(params, x, enc_out, positions, cfg), aux
     remat = _remat(cfg)
+    if caches is not None and any(k not in ("mla_dense", "mla_moe") for k in cache_layout(cfg)):
+        raise ValueError("a prefill fills the decode caches of MLA blocks only")
     x0, layer_idx = x, 0
     for seg_params, (kind, count) in zip(params["segments"], segments_of(cfg)):
         if _shared_site(cfg, layer_idx):  # segments split at every site
             x = _shared_block_forward(params, x, x0, positions, cfg)
-        layer_idx += count
         for layer in _layers(seg_params, count):
-            args = (kind, layer, x, positions, cfg, mask_kind, prefix_len)
+            cache = None if caches is None else caches[layer_idx]
+            layer_idx += 1
+            args = (kind, layer, x, positions, cfg, mask_kind, prefix_len, cache)
             x, a = (checkpoint(_block_forward, *args, use_reentrant=False,
                                context_fn=spans.checkpoint_contexts) if remat
                     else _block_forward(*args))
@@ -508,8 +516,10 @@ def _decode_block(kind: str, p: dict, x: Tensor, cache: dict, position: int,
         a, cache = attn.mla_decode(p["attn"], h, cache, position, cfg)
     x = x + a
     h = apply_norm(cfg.norm, p["ln2"], x)
-    # the JAX package decodes MoE at a literal capacity factor of 2.0 (cap = 1 at S = 1)
-    return x + _ffn(kind, p, h, cfg, 2.0)[0], cache
+    # the JAX package decodes MoE at a literal capacity factor of 2.0 (cap = 1 at S = 1);
+    # a dropless configuration decodes dropless
+    cap = None if cfg.moe_capacity_factor is None else 2.0
+    return x + _ffn(kind, p, h, cfg, cap)[0], cache
 
 
 def _decode_cross(p: dict, x: Tensor, h: Tensor, cache: dict, position: int,

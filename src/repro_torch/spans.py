@@ -1,8 +1,9 @@
-"""Module spans inside a profiled train step: which module launches what.
+"""Module spans inside a profiled train step or prefill: which module launches what.
 
 ``launch.steps.make_train_step``'s step sets the namespace ``train`` for the
-length of its call (:func:`namespace`). While ``torch.profiler`` runs, the
-model's modules then mark themselves, ``train/<layer>``:
+length of its call (:func:`namespace`), and ``make_prefill``'s call the
+namespace ``prefill``. While ``torch.profiler`` runs, the model's modules then
+mark themselves, ``<ns>/<layer>``:
 
   * :func:`wrap` runs a module (``embed``, ``norm``, ``attention``, ``ffn``,
     ``unembed``, ``loss``) inside ``record_function`` and puts an identity
@@ -15,8 +16,12 @@ model's modules then mark themselves, ``train/<layer>``:
   * :func:`checkpoint_contexts` is ``checkpoint``'s ``context_fn``: it opens
     ``train/recompute`` around a block's recomputation in the backward.
   * :func:`host_span` marks ``train/forward`` and ``train/backward``.
+  * :func:`span` marks a stage inside a module: a dropless MoE's
+    ``moe.route``, ``moe.dispatch``, ``moe.experts``, ``moe.combine`` and
+    ``moe.shared``.
 
-Outside a step (the prefill, the encode, the decode), or with no profiler
+A prefill runs under inference mode, so its modules mark their forward only.
+Outside a step or a prefill (the encode, the decode), or with no profiler
 running, every call reads one flag and adds no autograd node.
 
 On the device a span's range runs from the first to the last kernel launched
@@ -61,6 +66,24 @@ def namespace(ns: str):
         yield
     finally:
         _state.ns = prev
+
+
+def live() -> bool:
+    """Whether spans mark now: a step's or a prefill's call under a profiler."""
+    return _live() is not None
+
+
+def span(name: str):
+    """``<ns>/<name>`` around a stage inside a module (the MoE's route, dispatch,
+    experts, combine and shared experts), while live: on the device as a
+    module's span, on the host only inside a recomputation. It marks no
+    backward."""
+    ns = _live()
+    if ns is None:
+        return contextlib.nullcontext()
+    if getattr(_state, "recompute", False):
+        return _host_only(f"{ns}/{name}")
+    return record_function(f"{ns}/{name}")
 
 
 def _host_only(name: str):

@@ -43,7 +43,8 @@ from repro.launch import roofline as jroof  # noqa: E402
 from repro.launch import steps as jsteps  # noqa: E402
 from repro.sharding import policy as jpol  # noqa: E402
 from repro_torch.configs import ASSIGNED, REGISTRY, SHAPES, cells_for  # noqa: E402
-from repro_torch.configs import get_config, get_smoke_config  # noqa: E402
+from repro_torch.configs import get_smoke_config  # noqa: E402
+from jax_twin import twin_config  # noqa: E402
 from repro_torch.configs.shapes import ShapeSpec  # noqa: E402
 from repro_torch.launch import dryrun as tdry  # noqa: E402
 from repro_torch.launch import mesh as tmesh  # noqa: E402
@@ -161,7 +162,7 @@ def test_shapes_cells_and_assigned_equal_jax():
     assert ASSIGNED == J_ASSIGNED and len(ASSIGNED) == 10
     assert sorted(REGISTRY) == sorted(J_REGISTRY)
     for arch in sorted(REGISTRY):
-        assert cells_for(get_config(arch)) == j_cells_for(jget_config(arch)), arch
+        assert cells_for(twin_config(arch)) == j_cells_for(jget_config(arch)), arch
 
 
 def test_variants_equal_jax():
@@ -184,9 +185,9 @@ def test_batch_shapes_and_input_specs_equal_jax(arch, mesh):
     for name, shape in SHAPES.items():
         for replicate in (False, True):
             jp = jpol.make_policy(jget_config(arch), jmesh, replicate_batch=replicate)
-            tp = tpol.make_policy(get_config(arch), tmesh_, replicate_batch=replicate)
+            tp = tpol.make_policy(twin_config(arch), tmesh_, replicate_batch=replicate)
             jshapes = jsteps.batch_shapes(jget_config(arch), shape.seq_len, shape.global_batch)
-            tshapes, tspecs = tsteps.input_specs(get_config(arch), tp, shape.seq_len,
+            tshapes, tspecs = tsteps.input_specs(twin_config(arch), tp, shape.seq_len,
                                                  shape.global_batch)
             assert sorted(tshapes) == sorted(jshapes), (arch, name)
             for k, j in jshapes.items():
@@ -197,7 +198,7 @@ def test_batch_shapes_and_input_specs_equal_jax(arch, mesh):
             jspecs = jp.batch_specs(jshapes)
             assert {k: tuple(v) for k, v in tspecs.items()} == \
                 {k: _pspec(v) for k, v in jspecs.items()}, (arch, name, replicate)
-            assert tsteps.batch_shapes(get_config(arch), shape.seq_len,
+            assert tsteps.batch_shapes(twin_config(arch), shape.seq_len,
                                        shape.global_batch).keys() == tshapes.keys()
 
 
@@ -219,7 +220,7 @@ def test_sharded_struct_is_each_device_share():
 
 def test_model_flops_equal_jax():
     for arch in ASSIGNED:
-        for shape in cells_for(get_config(arch)):
+        for shape in cells_for(twin_config(arch)):
             assert troof.model_flops(arch, shape) == jroof.model_flops(arch, shape), \
                 (arch, shape)
 
@@ -243,7 +244,7 @@ def test_analyze_record_equals_jax_with_jax_constants(monkeypatch):
     monkeypatch.setattr(troof, "LINK_BW", jroof.ICI_BW)
     i = over = 0
     for arch in ASSIGNED:
-        for shape in cells_for(get_config(arch)):
+        for shape in cells_for(twin_config(arch)):
             for mesh in ("single", "multi"):
                 rec = _record(arch, shape, i, mesh)
                 i += 1
@@ -252,7 +253,7 @@ def test_analyze_record_equals_jax_with_jax_constants(monkeypatch):
                 t["roofline_frac"] = min(t["roofline_frac"], 1.0)  # JAX caps it; the port not
                 for k, v in j.items():
                     assert t[k] == v, (arch, shape, k)
-    assert i == 2 * sum(len(cells_for(get_config(a))) for a in ASSIGNED)
+    assert i == 2 * sum(len(cells_for(twin_config(a))) for a in ASSIGNED)
     assert 0 < over < i  # some of these records have a count below the model's FLOPs
 
 
@@ -293,7 +294,7 @@ def test_roofline_main_reads_the_port_records(tmp_path, monkeypatch, capsys):
     monkeypatch.setattr(troof, "DRYRUN_DIR", tmp_path / "dryrun_torch")
     monkeypatch.setattr(troof, "EXP_DIR", tmp_path)
     (tmp_path / "dryrun_torch").mkdir()
-    cells = [(a, s) for a in ASSIGNED for s in cells_for(get_config(a))]
+    cells = [(a, s) for a in ASSIGNED for s in cells_for(twin_config(a))]
     for i, (arch, shape) in enumerate(cells):
         for mesh in ("single", "multi"):
             (tmp_path / "dryrun_torch" / f"{arch}__{shape}__{mesh}.json").write_text(

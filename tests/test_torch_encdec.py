@@ -6,7 +6,6 @@ example's greedy tokens. JAX's params are carried over by
 ``use_pallas`` off and on (JAX runs its Pallas kernel in interpret mode,
 the port's wrapper its plain version)."""
 
-import dataclasses
 import functools
 import importlib.util
 import pathlib
@@ -25,6 +24,7 @@ from repro.models import layers as jlayers  # noqa: E402
 from repro.models import transformer as jtf  # noqa: E402
 from repro_torch.bridge import flatten_with_paths, params_from_numpy  # noqa: E402
 from repro_torch.configs import get_config, get_smoke_config  # noqa: E402
+from jax_twin import assert_converts, twin_config  # noqa: E402
 from repro_torch.kernels import ops as kops  # noqa: E402
 from repro_torch.models import layers as tlayers  # noqa: E402
 from repro_torch.models import transformer as ttf  # noqa: E402
@@ -69,13 +69,9 @@ def _torch(batch):
             "frames": torch.from_numpy(batch["frames"])}
 
 
-def _fields(cfg) -> dict:
-    return {f.name: getattr(cfg, f.name) for f in dataclasses.fields(cfg)}
-
-
 def test_config_converts_field_for_field():
-    assert _fields(get_smoke_config(ARCH)) == _fields(jax_smoke_config(ARCH))
-    assert _fields(get_config(ARCH)) == _fields(jax_get_config(ARCH))
+    assert_converts(get_smoke_config(ARCH), jax_smoke_config(ARCH))
+    assert_converts(twin_config(ARCH), jax_get_config(ARCH))
     # the norm weights are not counted: 36,448,128 leaves in all
     assert get_config(ARCH).param_count() == jax_get_config(ARCH).param_count() == 36_431_232
 

@@ -6,7 +6,6 @@ layers 2 and 4), with the JAX params carried over by
 2e-5 relative; bf16 logits as close to the fp32 model as JAX's. With ``use_pallas`` JAX runs its
 Pallas kernel in interpret mode and the port's wrapper its plain version."""
 
-import dataclasses
 import functools
 
 import jax
@@ -22,6 +21,7 @@ from repro.configs import get_smoke_config as jax_smoke_config  # noqa: E402
 from repro.models import transformer as jtf  # noqa: E402
 from repro_torch.bridge import flatten_with_paths, params_from_numpy  # noqa: E402
 from repro_torch.configs import get_config, get_smoke_config  # noqa: E402
+from jax_twin import assert_converts, twin_config  # noqa: E402
 from repro_torch.kernels import ops as kops  # noqa: E402
 from repro_torch.launch.serve import main as serve_main  # noqa: E402
 from repro_torch.models import transformer as ttf  # noqa: E402
@@ -56,14 +56,10 @@ def _tokens(b, s, vocab, seed=0):
     return np.random.default_rng(seed).integers(0, vocab, (b, s), dtype=np.int32)
 
 
-def _fields(cfg) -> dict:
-    return {f.name: getattr(cfg, f.name) for f in dataclasses.fields(cfg)}
-
-
 @pytest.mark.parametrize("arch", ARCHS)
 def test_configs_convert_field_for_field(arch):
-    assert _fields(get_smoke_config(arch)) == _fields(jax_smoke_config(arch))
-    assert _fields(get_config(arch)) == _fields(jax_get_config(arch))
+    assert_converts(get_smoke_config(arch), jax_smoke_config(arch))
+    assert_converts(twin_config(arch), jax_get_config(arch))
     assert get_config(arch).param_count() == jax_get_config(arch).param_count() \
         == PARAM_COUNT[arch]
     assert get_smoke_config(arch).param_count() == jax_smoke_config(arch).param_count()

@@ -4,7 +4,6 @@ the smoke configs of deepseek-v2-lite-16b (``"mla_dense"`` then
 the JAX params carried over by ``bridge.params_from_numpy`` and compute in
 fp32: logits within 1e-4 relative, the MoE balance loss within 1e-5."""
 
-import dataclasses
 import functools
 
 import jax
@@ -21,6 +20,7 @@ from repro.models import attention as jattn  # noqa: E402
 from repro.models import transformer as jtf  # noqa: E402
 from repro_torch.bridge import flatten_with_paths, params_from_numpy  # noqa: E402
 from repro_torch.configs import get_config, get_smoke_config  # noqa: E402
+from jax_twin import assert_converts, twin_config  # noqa: E402
 from repro_torch.kernels import ops as kops  # noqa: E402
 from repro_torch.models import attention as tattn  # noqa: E402
 from repro_torch.models import transformer as ttf  # noqa: E402
@@ -55,14 +55,10 @@ def _tokens(b, s, vocab, seed=0):
     return np.random.default_rng(seed).integers(0, vocab, (b, s), dtype=np.int32)
 
 
-def _fields(cfg) -> dict:
-    return {f.name: getattr(cfg, f.name) for f in dataclasses.fields(cfg)}
-
-
 @pytest.mark.parametrize("arch", ARCHS)
 def test_configs_convert_field_for_field(arch):
-    assert _fields(get_smoke_config(arch)) == _fields(jax_smoke_config(arch))
-    assert _fields(get_config(arch)) == _fields(jax_get_config(arch))
+    assert_converts(get_smoke_config(arch), jax_smoke_config(arch))
+    assert_converts(twin_config(arch), jax_get_config(arch))
     assert get_config(arch).param_count() == jax_get_config(arch).param_count()
     assert get_config(DEEPSEEK).param_count() == 15_706_357_760
 

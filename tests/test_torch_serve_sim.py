@@ -30,7 +30,7 @@ from repro.serve import requests as jrequests  # noqa: E402
 from repro.serve import tenant as jtenant  # noqa: E402
 from repro.sim import workload as jworkload  # noqa: E402
 from repro_torch import sim as tsim  # noqa: E402
-from repro_torch.configs import get_config  # noqa: E402
+from jax_twin import twin_config  # noqa: E402
 from repro_torch.core import cost_model as tcm  # noqa: E402
 from repro_torch.core import health as thealth  # noqa: E402
 from repro_torch.core import scheduler as tsch  # noqa: E402
@@ -52,7 +52,7 @@ J = types.SimpleNamespace(sim=jsim, workload=jworkload, requests=jrequests, tena
                           metrics=jmetrics, get_config=jax_get_config)
 T = types.SimpleNamespace(sim=tsim, workload=tworkload, requests=trequests, tenant=ttenant,
                           autoscale=tautoscale, health=thealth, cm=tcm, sch=tsch,
-                          metrics=tmetrics, get_config=get_config)
+                          metrics=tmetrics, get_config=twin_config)
 SEEDS = (0, 5)
 WINDOWS = dict(horizon_s=3600.0, window_s=60.0, base_rate=4.0, peak_rate=40.0,
                prompt_tokens=1024.0, output_tokens=256.0)

@@ -39,6 +39,7 @@ from repro.models import transformer as jtf  # noqa: E402
 from repro.sharding import policy as jpol  # noqa: E402
 from repro_torch.bridge import flatten_with_paths  # noqa: E402
 from repro_torch.configs import REGISTRY, get_config, get_smoke_config  # noqa: E402
+from jax_twin import twin_config  # noqa: E402
 from repro_torch.launch import mesh as tmesh  # noqa: E402
 from repro_torch.launch import steps as tsteps  # noqa: E402
 from repro_torch.models import transformer as ttf  # noqa: E402
@@ -82,7 +83,7 @@ def _same_specs(jspecs, tspecs, paths, what):
 def test_registry_and_active_params_match():
     assert sorted(JAX_REGISTRY) == ARCHS
     for arch in ARCHS:
-        assert get_config(arch).active_param_count() == jget_config(arch).active_param_count()
+        assert twin_config(arch).active_param_count() == jget_config(arch).active_param_count()
 
 
 @pytest.mark.parametrize("variant", list(VARIANTS))
@@ -92,12 +93,12 @@ def test_param_and_opt_specs_match_jax(arch, mesh, variant):
     jmesh, tm = _mesh(mesh)
     kw = VARIANTS[variant]
     jp = jpol.make_policy(jget_config(arch), jmesh, **kw)
-    tp = tpol.make_policy(get_config(arch), tm, **kw)
+    tp = tpol.make_policy(twin_config(arch), tm, **kw)
     assert (tp.tp, tp.dp, tp.zero3, tp.dp_entry, dataclasses.astuple(tp.axes)) == \
         (jp.tp, jp.dp, jp.zero3, jp.dp_entry, dataclasses.astuple(jp.axes))
     jparams, jopt = _jax_shapes(arch)
-    tparams = ttf.param_shapes(get_config(arch))
-    topt = tsteps.opt_shapes(get_config(arch), tparams)
+    tparams = ttf.param_shapes(twin_config(arch))
+    topt = tsteps.opt_shapes(twin_config(arch), tparams)
     for what, jtree, ttree, jspecs, tspecs in (
             ("param", jparams, tparams, jp.param_specs, tp.param_specs),
             ("opt", jopt, topt, jp.opt_specs, tp.opt_specs)):
@@ -147,7 +148,7 @@ def test_cache_specs_match_jax(mesh, kv, flat_dp):
 def test_batch_specs_match_jax(mesh, replicate):
     jmesh, tm = _mesh(mesh)
     for arch in ARCHS:
-        jcfg, tcfg = jget_config(arch), get_config(arch)
+        jcfg, tcfg = jget_config(arch), twin_config(arch)
         jp = jpol.make_policy(jcfg, jmesh, replicate_batch=replicate)
         tp = tpol.make_policy(tcfg, tm, replicate_batch=replicate)
         for batch, seq in ((256, 4096), (1, 524288), (48, 128)):
@@ -161,7 +162,7 @@ def test_batch_specs_match_jax(mesh, replicate):
 
 def test_derive_tp_and_collective_profiles_match_jax():
     for arch in ARCHS:
-        jcfg, tcfg = jget_config(arch), get_config(arch)
+        jcfg, tcfg = jget_config(arch), twin_config(arch)
         for tp in (1, 2, 4, 8, 16):
             assert tpol._tp_sharded_fraction(tcfg, tp) == jpol._tp_sharded_fraction(jcfg, tp)
             for kind in set(tcfg.block_pattern):

@@ -21,7 +21,6 @@ pytest process) that writes one pickle and one checkpoint under
 ``tmp_path``.
 """
 
-import dataclasses
 import json
 import os
 import pickle
@@ -48,6 +47,7 @@ from repro.optim import adamw as jadamw  # noqa: E402
 from repro_torch import bridge  # noqa: E402
 from repro_torch.checkpoint import checkpoint as tck  # noqa: E402
 from repro_torch.configs import get_config, get_smoke_config  # noqa: E402
+from jax_twin import assert_converts  # noqa: E402
 from repro_torch.data import pipeline as tpipe  # noqa: E402
 from repro_torch.launch import steps as tsteps  # noqa: E402
 from repro_torch.launch import train as ttrain  # noqa: E402
@@ -89,7 +89,7 @@ def _tokens(b, s, vocab, seed=0):
 def test_bert_config_converts_field_for_field():
     for jcfg, tcfg in ((jax_smoke_config(ARCH), get_smoke_config(ARCH)),
                        (jax_get_config(ARCH), get_config(ARCH))):
-        assert dataclasses.asdict(jcfg) == dataclasses.asdict(tcfg)
+        assert_converts(tcfg, jcfg)
     full = jax.eval_shape(lambda: jtf.init_params(jax.random.PRNGKey(0), jax_get_config(ARCH)))
     shapes = [x.shape for x in jax.tree.leaves(full)]
     assert len(shapes) == 13 and sum(int(np.prod(s)) for s in shapes) == 333_344_768

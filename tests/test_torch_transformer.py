@@ -3,7 +3,6 @@ smoke config, with the JAX params carried over by ``bridge.params_from_numpy``
 and compute in fp32: relative max error ≤ 1e-4, as tests/test_kernels.py's
 model-path check asks of the Pallas path."""
 
-import dataclasses
 
 import jax
 import jax.numpy as jnp
@@ -18,6 +17,7 @@ from repro.configs import get_smoke_config as jax_smoke_config  # noqa: E402
 from repro.models import transformer as jtf  # noqa: E402
 from repro_torch.bridge import flatten_with_paths, params_from_numpy  # noqa: E402
 from repro_torch.configs import get_config, get_smoke_config  # noqa: E402
+from jax_twin import assert_converts  # noqa: E402
 from repro_torch.kernels import ops as kops  # noqa: E402
 from repro_torch.models import transformer as ttf  # noqa: E402
 
@@ -44,9 +44,7 @@ def _tokens(b, s, vocab, seed=0):
 
 def test_config_converts_field_for_field():
     jcfg, tcfg = jax_smoke_config(ARCH), get_smoke_config(ARCH)
-    jf = {f.name: getattr(jcfg, f.name) for f in dataclasses.fields(jcfg)}
-    tf_ = {f.name: getattr(tcfg, f.name) for f in dataclasses.fields(tcfg)}
-    assert jf == tf_
+    assert_converts(tcfg, jcfg)
     assert tcfg.pdtype == torch.float32 and tcfg.cdtype == torch.bfloat16
     assert get_config(ARCH).param_count() == jax_get_config(ARCH).param_count()
     with pytest.raises(KeyError, match="unknown arch 'nope'"):

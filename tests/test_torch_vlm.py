@@ -5,7 +5,6 @@ positions, the text-only decode, and the serving launcher. JAX's params are
 carried over by ``bridge.params_from_numpy``; compute in fp32, within 2e-5
 relative."""
 
-import dataclasses
 import functools
 
 import jax
@@ -21,6 +20,7 @@ from repro.configs import get_smoke_config as jax_smoke_config  # noqa: E402
 from repro.models import transformer as jtf  # noqa: E402
 from repro_torch.bridge import flatten_with_paths, params_from_numpy  # noqa: E402
 from repro_torch.configs import get_config, get_smoke_config  # noqa: E402
+from jax_twin import assert_converts, twin_config  # noqa: E402
 from repro_torch.launch import serve  # noqa: E402
 from repro_torch.models import transformer as ttf  # noqa: E402
 
@@ -64,13 +64,9 @@ def _torch(batch):
             "image_embeds": torch.from_numpy(batch["image_embeds"])}
 
 
-def _fields(cfg) -> dict:
-    return {f.name: getattr(cfg, f.name) for f in dataclasses.fields(cfg)}
-
-
 def test_config_converts_field_for_field():
-    assert _fields(get_smoke_config(ARCH)) == _fields(jax_smoke_config(ARCH))
-    assert _fields(get_config(ARCH)) == _fields(jax_get_config(ARCH))
+    assert_converts(get_smoke_config(ARCH), jax_smoke_config(ARCH))
+    assert_converts(twin_config(ARCH), jax_get_config(ARCH))
     # the norm weights are not counted: 2,508,662,784 leaves in all
     assert get_config(ARCH).param_count() == jax_get_config(ARCH).param_count() \
         == 2_508_587_008
